@@ -14,7 +14,22 @@ Phases, each of which raises on failure (there is no CPU path):
 4. main path: 3D 7-point Poisson at 128^3 -> build_structured_hierarchy
    (cheb4 degree 2, coarse_size 2048) -> cast_hierarchy(bf16) -> V-cycles
    -> structured_solve_refined, checked by a host fp64 residual;
-5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2.
+5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2;
+6. banded kernel equality: the shuffled 48^3 algebraic hierarchy built on
+   the host by raptor_tpu_torch.api.setup; K4 on every banded A (fp32, and
+   bf16 on level 0), K6 on every banded P and R, K5 on level 0 without and
+   with the fp32 truncation remainder of a pi-scaled operator, each against
+   its plain version (and K5 against a host fp64 residual);
+7. algebraic main path, shuffled 48^3 Poisson (the reference bench row):
+   api.setup (PMIS, direct interpolation, RCM-banded layout, cheb4
+   degree 2) -> V-cycles -> api.solve with the df64-refined PCG, checked by
+   a host fp64 residual, the iteration count and the level sizes;
+8. proof: every CUDA banded apply of phase 7 launched K4, K5 or K6, each
+   kernel at least once (counts set to 0 just before phase 7, read just
+   after it);
+9. the same path at shuffled 96^3 with every level built on the host, and
+   the same proof on its own counts; then K4 and K6 on the 96^3 level 0
+   against their plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -28,6 +43,7 @@ import subprocess
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 SIZE = 128
@@ -36,6 +52,15 @@ TOL_KERNEL = 1e-6  # max|y - y_ref| <= TOL_KERNEL * max|y_ref|
 MAX_RELRES = 1e-8
 MAX_ITERS = 8  # the JAX reference takes 7
 N_CYCLES = 20
+# algebraic engine: the reference bench row's configuration
+ALG_CFG = dict(splitting="pmis", interp="direct", fine_layout="banded",
+               smoother="cheb4", cheb_degree=2)
+# level sizes of the JAX reference's hierarchies for these inputs
+ALG_SIZES = {48: [110592, 55296, 6462, 881, 147, 46],
+             96: [884736, 442368, 50059, 6323, 939, 189, 56]}
+# the JAX reference takes 12 at 48^3; it has no count at 96^3
+ALG_MAX_ITERS = {48: 13}
+K5_TOL = 1e-12  # |rh + rl - r64| <= K5_TOL * max|A @ xh|
 
 
 def stencil_7pt() -> np.ndarray:
@@ -49,10 +74,14 @@ def stencil_7pt() -> np.ndarray:
     return st
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 20, flush_l2: bool = False) -> float:
     """Mean device time of ``fn()``: captured once in a CUDA graph and
     replayed ``reps`` times between two CUDA events, so the host cost of
-    the Python wrapper (tens of µs, more than a kernel here) is not timed."""
+    the Python wrapper (tens of µs, more than a kernel here) is not timed.
+
+    By default the replays follow each other, so data that fits the 50 MB
+    L2 stays there (L2-warm).  ``flush_l2`` writes 256 MB between replays
+    and times each replay between its own events (L2-cold)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -65,6 +94,17 @@ def cuda_ms(fn, reps: int = 20) -> float:
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if flush_l2:
+        junk = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        total = 0.0
+        for _ in range(reps):
+            junk.zero_()
+            start.record()
+            graph.replay()
+            stop.record()
+            stop.synchronize()
+            total += start.elapsed_time(stop)
+        return total / reps
     start.record()
     for _ in range(reps):
         graph.replay()
@@ -281,6 +321,276 @@ def phase_main(dev) -> dict:
             "relres": relres}
 
 
+# ---------------------------------------------------------------------------
+# algebraic engine: RCM-banded layouts, kernels K4, K5, K6
+# ---------------------------------------------------------------------------
+
+def shuffled_poisson(nx: int, scale: float = 1.0) -> sp.csr_matrix:
+    """3D 7-point Poisson on nx^3, symmetrically permuted by
+    default_rng(0) (the reference bench's shuffled input), times ``scale``."""
+    from raptor_tpu_torch.gallery import poisson_3d
+
+    A = sp.csr_matrix(poisson_3d(nx)) * scale
+    p = np.random.default_rng(0).permutation(A.shape[0])
+    return A[p][:, p].tocsr()
+
+
+def _banded_bytes(plan: dict, itemsize: int) -> int:
+    """Bytes a K4/K6 call must move: vals + pidx, x (or the transfer's
+    x span) and y."""
+    n, K = plan["n"], plan["K"]
+    return K * n * (itemsize + 4) + 4 * n + 4 * plan.get("n_cols", n)
+
+
+def _print_levels(tag: str, h) -> None:
+    for i, lv in enumerate(h.levels):
+        a = lv.Aband
+        lay = ("ELL" if a is None else
+               f"banded K,n,tile,kh,npage,Wp={a.meta} reordered={a.reordered} "
+               f"far={a.far is not None}")
+        tr = "".join(f" {nm}(K,n,n_cols,tile,WpP,npage)={b.meta}"
+                     for nm, b in (("P", lv.Pband), ("R", lv.Rband)) if b is not None)
+        print(f"[{tag}]   L{i} n {lv.n} n_pad {lv.A.n_rows_pad} K {lv.A.K} {lay}{tr}")
+    if h.tail_op is not None:
+        print(f"[{tag}]   dense tail from L{h.tail_start}: {tuple(h.tail_op.shape)}")
+
+
+def _k5_case(dev, h, A, rng) -> tuple:
+    """K5 on level 0 of ``h`` against its plain version and a host fp64
+    residual; returns (max_abs_err vs plain, call closures for timing)."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+
+    band, lo = h.levels[0].Aband, h.a0_lo_band
+    plan = band.plan()
+    n, n_pad = A.shape[0], band.n_pad
+    pm = h.perm[:n].cpu().numpy()
+    Ar = A[pm][:, pm].tocsr()
+
+    def pad(a):
+        out = np.zeros(n_pad, np.float32)
+        out[:n] = a
+        return torch.from_numpy(out).to(dev)
+
+    xh64 = rng.standard_normal(n).astype(np.float32).astype(np.float64)
+    b64 = rng.standard_normal(n)
+    bh = b64.astype(np.float32)
+    v = (rng.standard_normal(n) * 1e-6).astype(np.float32)
+    args = (pad(xh64), pad(bh), pad(b64 - bh), pad(v))
+    rh, rl = bk.banded_df64_residual(plan, lo, *args)
+    rh_ref, rl_ref = bk.banded_df64_residual_ref(plan, lo, *args)
+    label = f"K5 L0 {'with' if lo is not None else 'without'} vals_lo"
+    err = max(_check(f"{label} rh", rh, rh_ref), _check(f"{label} rl", rl, rl_ref))
+    got = rh.double().cpu().numpy() + rl.double().cpu().numpy()
+    ax = Ar @ xh64
+    e64 = float(np.abs(got[:n] - (b64 - v - ax)).max())
+    scale = float(np.abs(ax).max())
+    print(f"[banded] {label}: |rh + rl - r64| {e64:.3e} (max|A xh| {scale:.3e})")
+    if not e64 <= K5_TOL * scale:
+        raise AssertionError(f"{label}: {e64} > {K5_TOL} * {scale} against fp64")
+    return err, (lambda: bk.banded_df64_residual(plan, lo, *args),
+                 lambda: bk.banded_df64_residual_ref(plan, lo, *args))
+
+
+def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
+    """K4, K6 and K5 against their plain versions at every shape the 48^3
+    path gives them; times K4 (L0), K6 (L0 R) and K5 (L0)."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
+
+    rng = np.random.default_rng(2)
+    rec = {k: {"err": 0.0} for k in ("K4", "K5", "K6")}
+
+    def vec(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    hb = cast_hierarchy_algebraic(h, torch.bfloat16)
+    cases = [(f"L{i} A", lv.Aband, torch.float32)
+             for i, lv in enumerate(h.levels) if lv.Aband is not None]
+    cases.append(("L0 A", hb.levels[0].Aband, torch.bfloat16))
+    cases += [(f"L{i} {nm}", b, torch.float32) for i, lv in enumerate(h.levels)
+              for nm, b in (("P", lv.Pband), ("R", lv.Rband)) if b is not None]
+    if len(cases) != 10:
+        raise AssertionError(f"expected 4 K4 and 6 K6 shapes, got {len(cases)}")
+    timed = {}
+    for label, band, dtype in cases:
+        plan = band.plan()
+        square = "n_cols" not in plan
+        k = "K4" if square else "K6"
+        fn, ref = ((bk.banded_spmv, bk.banded_spmv_ref) if square
+                   else (bk.banded_spmv_rect, bk.banded_spmv_rect_ref))
+        x = vec(plan["n"] if square else plan["n_cols"])
+        name = f"{k} 48^3 {label} K {plan['K']} {dtype}"
+        rec[k]["err"] = max(rec[k]["err"], _check(name, fn(plan, x), ref(plan, x)))
+        if (label, dtype) in (("L0 A", torch.float32), ("L0 R", torch.float32)):
+            timed[k] = (plan, fn, ref, x)
+    for k, (plan, fn, ref, x) in timed.items():
+        rec[k]["ms"] = cuda_ms(lambda: fn(plan, x))
+        rec[k]["plain_ms"] = cuda_ms(lambda: ref(plan, x))
+        rec[k]["cold_ms"] = cuda_ms(lambda: fn(plan, x), flush_l2=True)
+        rec[k]["cold_plain_ms"] = cuda_ms(lambda: ref(plan, x), flush_l2=True)
+        rec[k]["bytes"] = _banded_bytes(plan, 4)
+    errs, calls = [], None
+    for hh, AA in ((h, shuffled_poisson(48)), (h_pi, A_pi)):
+        err, calls = _k5_case(dev, hh, AA, rng)
+        errs.append(err)
+    if h_pi.a0_lo_band is None or h.a0_lo_band is not None:
+        raise AssertionError("the pi-scaled operator must carry a0_lo_band")
+    rec["K5"]["err"] = max(errs)
+    rec["K5"]["ms"] = cuda_ms(calls[0])
+    rec["K5"]["plain_ms"] = cuda_ms(calls[1])
+    rec["K5"]["cold_ms"] = cuda_ms(calls[0], flush_l2=True)
+    rec["K5"]["cold_plain_ms"] = cuda_ms(calls[1], flush_l2=True)
+    p0 = h_pi.levels[0].Aband.plan()
+    rec["K5"]["bytes"] = p0["K"] * p0["n"] * 12 + 24 * p0["n"]
+    for k, what in (("K4", "L0 A"), ("K6", "L0 R"), ("K5", "L0, with vals_lo")):
+        r = rec[k]
+        print(f"[banded] {k} 48^3 {what}: {r['ms'] * 1e3:.1f} us kernel "
+              f"({r['bytes'] / r['ms'] / 1e9:.3f} TB/s), "
+              f"{r['plain_ms'] * 1e3:.1f} us plain (device time, graph replay, "
+              f"L2-warm); L2-cold {r['cold_ms'] * 1e3:.1f} us kernel "
+              f"({r['bytes'] / r['cold_ms'] / 1e9:.3f} TB/s), "
+              f"{r['cold_plain_ms'] * 1e3:.1f} us plain")
+    return rec
+
+
+def phase_algebraic(dev, nx: int, cold_and_warm: bool, **cfg_extra) -> tuple:
+    """The algebraic engine's banded path on shuffled nx^3 Poisson, through
+    raptor_tpu_torch.api.setup and api.solve as the reference bench calls
+    them, checked against a host fp64 residual."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, setup, solve
+    from raptor_tpu_torch.api import solve_hier_refined
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    tag = f"alg{nx}"
+    A = shuffled_poisson(nx)
+    n = A.shape[0]
+    cfg = AmgConfig(**ALG_CFG, **cfg_extra)
+
+    def build():
+        t0 = time.perf_counter()
+        h = setup(A, cfg, device=dev)
+        torch.cuda.synchronize()
+        return h, time.perf_counter() - t0
+
+    h, cold = build()
+    out = {"n": n, "setup_cold_s": cold}
+    msg = f"[{tag}] setup {cold:.3f} s cold"
+    if cold_and_warm:
+        h, warm = build()
+        out["setup_warm_s"] = warm
+        msg += f", {warm:.3f} s warm"
+    sizes = [lv.n for lv in h.levels]
+    print(f"{msg}, {len(sizes)} levels, sizes {sizes}")
+    _print_levels(tag, h)
+    if sizes != ALG_SIZES[nx]:
+        raise AssertionError(f"level sizes {sizes}, the reference's {ALG_SIZES[nx]}")
+    if h.levels[0].Aband is None or h.levels[0].Rband is None:
+        raise AssertionError("level 0 has no banded layout")
+
+    b = np.ones(n)
+    bd = pad_vector(b.astype(np.float32), h.levels[0].A.n_rows_pad, device=dev)
+    y = cycle(h, bd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CYCLES):
+        y = cycle(h, bd)
+    torch.cuda.synchronize()
+    vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+    if not torch.isfinite(y).all():
+        raise AssertionError("V-cycle output not finite")
+
+    sc = SolveConfig(tol=MAX_RELRES, refine=True)
+    solve(A, b, cfg, sc, hier=h)  # warm
+    t0 = time.perf_counter()
+    x, info = solve(A, b, cfg, sc, hier=h)
+    sol = time.perf_counter() - t0
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+
+    pm = h.perm[:n].cpu().numpy()
+    bp = b[pm]
+    n_pad = h.levels[0].A.n_rows_pad
+    bh = pad_vector(bp.astype(np.float32), n_pad, device=dev)
+    bl = pad_vector((bp - bp.astype(np.float32).astype(np.float64))
+                    .astype(np.float32), n_pad, device=dev)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev_out = solve_hier_refined(h, bh, tol=MAX_RELRES,
+                                     maxiter=sc.maxiter, b_lo=bl)
+    torch.cuda.synchronize()
+    sol_dev = (time.perf_counter() - t0) / reps
+    iters = int(info["iterations"])
+    print(f"[{tag}] V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} DOF/s, "
+          f"{N_CYCLES} cycles between syncs); api.solve {sol:.3f} s warm, "
+          f"solve_hier_refined {sol_dev:.3f} s (device, mean of {reps}); "
+          f"{iters} PCG iterations, certified {info['relres']:.3e}, "
+          f"true fp64 relres {relres:.3e}")
+    if x.shape != (n,) or not np.isfinite(x).all():
+        raise AssertionError("solution not finite or misshapen")
+    if int(dev_out[2]) != iters:
+        raise AssertionError(f"solve_hier_refined took {int(dev_out[2])} "
+                             f"iterations, api.solve {iters}")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"true relres {relres} > {MAX_RELRES}")
+    limit = ALG_MAX_ITERS.get(nx)
+    if limit is not None and not iters <= limit:
+        raise AssertionError(f"{iters} iterations (max {limit})")
+    out.update(vcycle_ms=vc, solve_s=sol, solve_device_s=sol_dev,
+               iters=iters, certified=float(info["relres"]), relres=relres)
+    return out, h
+
+
+def banded_proof(tag: str) -> dict:
+    """Read the banded launch and CUDA call counts of the path just driven
+    (set to 0 just before it): K4, K5 and K6 must each have launched, once
+    for every CUDA banded apply of their kind."""
+    from raptor_tpu_torch.core import hybrid
+    from raptor_tpu_torch.ops.cuda import banded_kernel
+
+    bl, hc = banded_kernel.launches, hybrid.cuda_calls
+    pairs = {"K4": hc["banded_spmv_ro"], "K6": hc["rect_banded_spmv"],
+             "K5": hc["banded_df64_residual"]}
+    print(f"[proof] {tag} path: " + ", ".join(
+        f"{k} {bl[k]} launches / {c} CUDA calls" for k, c in pairs.items()))
+    if any(bl[k] != c or c == 0 for k, c in pairs.items()):
+        raise AssertionError(f"the {tag} path did not run through the kernels")
+    return {k: bl[k] for k in pairs}
+
+
+def clear_banded_counts() -> None:
+    from raptor_tpu_torch.core import hybrid
+    from raptor_tpu_torch.ops.cuda import banded_kernel
+
+    banded_kernel.launches.clear()
+    hybrid.cuda_calls.clear()
+
+
+def phase_banded_96(dev, h, rec) -> None:
+    """K4 and K6 on the 96^3 level 0 against their plain versions (after
+    the proof, so these launches stay out of its counts); times K4."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+
+    rng = np.random.default_rng(4)
+    lv = h.levels[0]
+    a, r = lv.Aband.plan(), lv.Rband.plan()
+    xa = torch.from_numpy(rng.standard_normal(a["n"]).astype(np.float32)).to(dev)
+    xr = torch.from_numpy(rng.standard_normal(r["n_cols"]).astype(np.float32)).to(dev)
+    rec["K4"]["err"] = max(rec["K4"]["err"], _check(
+        f"K4 96^3 L0 A kh {a['kh']} npage {a['npage']}",
+        bk.banded_spmv(a, xa), bk.banded_spmv_ref(a, xa)))
+    rec["K6"]["err"] = max(rec["K6"]["err"], _check(
+        f"K6 96^3 L0 R npage {r['npage']}",
+        bk.banded_spmv_rect(r, xr), bk.banded_spmv_rect_ref(r, xr)))
+    ms = cuda_ms(lambda: bk.banded_spmv(a, xa))
+    plain = cuda_ms(lambda: bk.banded_spmv_ref(a, xa))
+    print(f"[banded] K4 96^3 L0 A: {ms * 1e3:.1f} us kernel "
+          f"({_banded_bytes(a, 4) / ms / 1e9:.3f} TB/s), {plain * 1e3:.1f} us "
+          f"plain (device time, graph replay)")
+    rec["K4"]["ms_96"], rec["K4"]["plain_ms_96"] = ms, plain
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -289,6 +599,7 @@ def main() -> None:
 
     from raptor_tpu_torch.ops.cuda.dia_kernel import launches
     from raptor_tpu_torch.structured.dia import cuda_calls
+    from raptor_tpu_torch.utils.native import status
 
     launches.clear()
     cuda_calls.clear()
@@ -299,15 +610,39 @@ def main() -> None:
     if k1 + k2 != calls or k1 == 0 or k2 == 0:
         raise AssertionError("the main path did not run through the kernels")
 
-    print(json.dumps({"main": main_rec}))
-    src = "raptor_tpu_torch/csrc/dia_kernel.cu"
+    from raptor_tpu_torch import AmgConfig, setup
+
+    print(f"[alg] host setup kernels: {status()}")
+    cfg = AmgConfig(**ALG_CFG)
+    A_pi = shuffled_poisson(48, scale=np.pi)
+    rec.update(phase_banded_kernels(dev, setup(shuffled_poisson(48), cfg, device=dev),
+                                    setup(A_pi, cfg, device=dev), A_pi))
+
+    # each algebraic path is read on its own counts; the kernels line
+    # carries the 48^3 row's (the reference bench row)
+    clear_banded_counts()
+    alg48, _ = phase_algebraic(dev, 48, cold_and_warm=True)
+    launch_counts = {"K1": k1, "K2": k2, **banded_proof("alg48")}
+    clear_banded_counts()
+    alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False,
+                                 host_setup_threshold=2**20)
+    alg96["launches"] = banded_proof("alg96")
+    phase_banded_96(dev, h96, rec)
+
+    print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
-                "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278"}
+                "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",
+                "K4": "raptor_tpu/ops/pallas/banded_kernel.py:280",
+                "K5": "raptor_tpu/ops/pallas/banded_kernel.py:405",
+                "K6": "raptor_tpu/ops/pallas/banded_kernel.py:602"}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": {"K1": k1, "K2": k2}[k], "max_abs_err": rec[k]["err"],
-         "ms": rec[k]["ms"], "plain_ms": rec[k]["plain_ms"]}
-        for k in ("K1", "K2")]}))
+        {"name": k, "route": "cuda",
+         "source": "raptor_tpu_torch/csrc/" + (
+             "dia_kernel.cu" if k in ("K1", "K2") else "banded_kernel.cu"),
+         "replaces": replaces[k], "launches": launch_counts[k],
+         "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],
+         "plain_ms": rec[k]["plain_ms"]}
+        for k in replaces]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,21 @@
-"""raptor_tpu_torch — the structured algebraic-multigrid solver of
-``raptor_tpu`` ported to PyTorch, with hand-written CUDA kernels for Hopper.
+"""raptor_tpu_torch — the algebraic-multigrid solver of ``raptor_tpu``
+ported to PyTorch, with hand-written CUDA kernels for Hopper.
 
-What is ported so far: the structured (DIA) engine's main path — stencil
-operators, semicoarsening setup, V-/W-cycles with five smoothers, PCG and
-the df64-certified refined solve — plus the JAX-free configuration and
-stencil gallery.  The DIA SpMV runs through the kernels of
-``raptor_tpu_torch/csrc`` on CUDA tensors and through plain PyTorch on CPU
-tensors.  This package never imports JAX.
+What is ported so far:
+
+* the structured (DIA) engine's main path: stencil operators,
+  semicoarsening setup, V-/W-cycles with five smoothers, PCG and the
+  df64-certified refined solve;
+* the algebraic engine's banded general-matrix path: ``setup``/``solve``
+  on a scipy CSR matrix with the host (NumPy) level loop (RS or PMIS;
+  direct, classical or extended interpolation), the RCM-banded layouts,
+  V-/W-cycles with jacobi, chebyshev and cheb4, PCG and the df64-refined
+  solve;
+* the JAX-free configuration and stencil gallery.
+
+The DIA, banded and rectangular SpMVs and the banded df64 residual run
+through the kernels of ``raptor_tpu_torch/csrc`` on CUDA tensors and
+through plain PyTorch on CPU tensors.  This package never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -34,6 +43,10 @@ from raptor_tpu_torch.structured import (
     hierarchy_from_numpy,
 )
 from raptor_tpu_torch.solve.krylov import KrylovInfo, pcg
+from raptor_tpu_torch.core.ell import EllMatrix
+from raptor_tpu_torch.core.hybrid import BandedMatrix, RectBanded
+from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
+from raptor_tpu_torch.api import setup, solve, solve_hier, solve_hier_refined
 
 __all__ = [
     "AmgConfig",
@@ -60,4 +73,13 @@ __all__ = [
     "hierarchy_from_numpy",
     "KrylovInfo",
     "pcg",
+    "setup",
+    "solve",
+    "solve_hier",
+    "solve_hier_refined",
+    "Hierarchy",
+    "Level",
+    "EllMatrix",
+    "BandedMatrix",
+    "RectBanded",
 ]

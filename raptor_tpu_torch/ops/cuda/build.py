@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``raptor_tpu_torch/csrc``.
 
-The sources have a plain C interface: nvcc compiles them into one shared
-library for ``sm_90a`` (Hopper), and ``ctypes`` loads it.  The build runs on
+The sources have a plain C interface: nvcc compiles each of them into an
+object for ``sm_90a`` (Hopper), all at once in parallel, and links the
+objects into one shared library, which ``ctypes`` loads.  The build runs on
 first use, never at import, and lands in ``build/raptor_tpu_torch/`` at the
 root of the checkout under a name keyed by the sources' and flags' hash, so
 a stale library is never loaded.  A failed build raises.
@@ -17,13 +18,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "build", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "raptor_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 
 def _nvcc() -> str:
@@ -46,7 +48,7 @@ def build() -> tuple[Path, float]:
     sources = sorted(SRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources in {SRC_DIR}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -54,16 +56,37 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    # one nvcc per source, all started together
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    logs, failed = [], []
+    for s, p in zip(sources, procs):
+        out, _ = p.communicate(timeout=600)
+        logs.append(f"== {s.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"{s.name} ({p.returncode})")
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True, timeout=600)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
     seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(logs)
+    lib.with_suffix(".log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -83,4 +106,19 @@ def load_library() -> ctypes.CDLL:
     lib.raptor_dia_const_f32.argtypes = [p, p, i64, i32, p, i32, p, p, p, i32,
                                          p]
     lib.raptor_dia_const_f32.restype = i32
+    for name in ("raptor_banded_f32", "raptor_banded_bf16"):
+        fn = getattr(lib, name)
+        # vals, pidx, x, y, n, K, tile, Wp, slots, n_live, stream
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p, i32, p]
+        fn.restype = i32
+    for name in ("raptor_banded_rect_f32", "raptor_banded_rect_bf16"):
+        fn = getattr(lib, name)
+        # vals, pidx, x, y, n, K, tile, n_cols, WpP, slots, n_live, stream
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, i32, p, i32, p]
+        fn.restype = i32
+    # vals, vals_lo, pidx, xh, bh, bl, v, rh, rl, n, K, tile, Wp, slots,
+    # n_live, stream
+    lib.raptor_banded_df64_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32,
+                                           i32, i32, p, i32, p]
+    lib.raptor_banded_df64_f32.restype = i32
     return lib

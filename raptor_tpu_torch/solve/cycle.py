@@ -1,0 +1,215 @@
+"""Multigrid cycles of the algebraic engine.
+
+Counterpart of ``raptor_tpu/solve/cycle.py``.  The V-/W-cycle recursion is
+plain Python over the levels; the coarsest level is a dense inverse (one
+matvec) and the coarse tail below ``tail_start`` can be folded into one
+dense operator (``materialize_tail``).  On banded levels the operator runs
+through K4 and the transfers through K6 (``core/hybrid.py``); the others
+use the gather ELL SpMV.
+
+The reference folds the tail by ``vmap`` over identity columns; here the
+columns are a batch dimension (B, n) on the ELL path.  As in the
+reference, the banded layouts are stripped for that, so the kernels only
+ever see 1-D vectors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING
+
+import torch
+
+from raptor_tpu_torch.config import AmgConfig
+from raptor_tpu_torch.ops.sparse_ops import spmv
+from raptor_tpu_torch.solve.smoothers import (NOT_PORTED, chebyshev,
+                                              chebyshev4, jacobi)
+
+if TYPE_CHECKING:
+    from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
+
+__all__ = ["apply_op", "apply_transfer", "cycle", "make_preconditioner",
+           "materialize_tail"]
+
+def apply_op(lev: "Level", x):
+    """A @ x through the level's banded layout when present (K4), else the
+    gather ELL SpMV.  Both share the level's vector ordering."""
+    if lev.Aband is not None:
+        from raptor_tpu_torch.core.hybrid import banded_spmv, banded_spmv_ro
+
+        if lev.Aband.reordered:
+            # RCM'd coarse level: two O(n) takes bracket the kernel
+            return banded_spmv(lev.Aband, x)
+        return banded_spmv_ro(lev.Aband, x)
+    return spmv(lev.A, x)
+
+
+def _smooth_sp(lev: "Level", cfg: AmgConfig, b, x, backward: bool, sp,
+               x0_zero: bool = False):
+    """The scalar smoothers against an operator-apply closure ``sp``, used
+    when the level's operator runs through a fast layout."""
+    sweeps = cfg.nu2 if backward else cfg.nu1
+    if sweeps == 0:
+        return x
+    first = [x0_zero]  # consumed by the first residual below
+
+    def res(x):
+        if first[0]:
+            first[0] = False
+            return b
+        return b - sp(x)
+
+    if cfg.smoother == "jacobi":
+        for _ in range(sweeps):
+            x = x + cfg.omega * lev.dinv * res(x)
+        return x
+    if cfg.smoother == "chebyshev":
+        lmax = lev.cheb_lmax
+        lmin = lmax / 30.0
+        d = (lmax + lmin) / 2
+        c = (lmax - lmin) / 2
+        p = torch.zeros_like(x)
+        alpha = torch.zeros_like(d)
+        for i in range(cfg.cheb_degree):
+            z = lev.dinv * res(x)
+            if i == 0:
+                p, alpha = z, 1.0 / d
+            else:
+                beta = (c * alpha / 2) ** 2
+                alpha = 1.0 / (d - beta / alpha)
+                p = z + beta * p
+            x = x + alpha * p
+        return x
+    if cfg.smoother == "cheb4":
+        r = res(x)
+        d = (4.0 / 3.0) / lev.cheb_lmax * (lev.dinv * r)
+        x = x + d
+        for k in range(2, cfg.cheb_degree + 1):
+            r = r - sp(d)
+            d = ((2 * k - 3) / (2 * k + 1)) * d + (
+                (8 * k - 4) / (2 * k + 1) / lev.cheb_lmax
+            ) * (lev.dinv * r)
+            x = x + d
+        return x
+    if cfg.smoother in NOT_PORTED:
+        raise NotImplementedError(f"smoother {cfg.smoother!r} is not yet ported")
+    raise ValueError(f"unknown smoother for banded layout: {cfg.smoother}")
+
+
+def apply_transfer(band, E, v):
+    """Transfer (P or R) through the rectangular banded layout when the
+    level carries one (K6), else the gather ELL path.  The banded plan's
+    padded column space can exceed E.n_cols_pad by one page tail."""
+    if band is None:
+        return spmv(E, v)
+    from raptor_tpu_torch.core.hybrid import rect_banded_spmv
+
+    n_cols = band.meta[2]
+    if v.shape[0] < n_cols:
+        v = torch.cat([v, v.new_zeros(n_cols - v.shape[0])])
+    return rect_banded_spmv(band, v)
+
+
+def _smooth(lev: "Level", cfg: AmgConfig, b, x, backward: bool,
+            x0_zero: bool = False):
+    sweeps = cfg.nu2 if backward else cfg.nu1
+    if sweeps == 0:
+        return x
+    if lev.Aband is not None:
+        return _smooth_sp(lev, cfg, b, x, backward,
+                          sp=lambda v: apply_op(lev, v), x0_zero=x0_zero)
+    if cfg.smoother == "jacobi":
+        return jacobi(lev.A, lev.dinv, b, x, omega=cfg.omega, sweeps=sweeps,
+                      x0_zero=x0_zero)
+    if cfg.smoother == "chebyshev":
+        lmax = lev.cheb_lmax
+        return chebyshev(lev.A, lev.dinv, b, x, lmax / 30.0, lmax,
+                         degree=cfg.cheb_degree, x0_zero=x0_zero)
+    if cfg.smoother == "cheb4":
+        return chebyshev4(lev.A, lev.dinv, b, x, lev.cheb_lmax,
+                          degree=cfg.cheb_degree, x0_zero=x0_zero)
+    if cfg.smoother in NOT_PORTED:
+        raise NotImplementedError(f"smoother {cfg.smoother!r} is not yet ported")
+    raise ValueError(f"unknown smoother: {cfg.smoother}")
+
+
+def _level(hier: "Hierarchy", cfg: AmgConfig, k: int, b):
+    """One cycle at level k with zero initial guess; returns x ~ A_k^{-1} b."""
+    lev = hier.levels[k]
+    if k == hier.tail_start and hier.tail_op is not None:
+        # dense coarse tail: the materialized sub-cycle in one matvec (a
+        # bf16 operator widens to b's dtype, as the reference promotes)
+        return hier.tail_op.to(b.dtype) @ b
+    if k == len(hier.levels) - 1:
+        return hier.coarse_inv.to(b.dtype) @ b
+    x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False, x0_zero=True)
+    r = b - apply_op(lev, x) if cfg.nu1 else b
+    rc = apply_transfer(lev.Rband, lev.R, r)
+    ec = _level(hier, cfg, k + 1, rc)
+    if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
+        # second coarse visit on the updated coarse residual (gamma = 2)
+        rc2 = rc - apply_op(hier.levels[k + 1], ec)
+        ec = ec + _level(hier, cfg, k + 1, rc2)
+    x = x + apply_transfer(lev.Pband, lev.P, ec)
+    return _smooth(lev, cfg, b, x, backward=True)
+
+
+def cycle(hier: "Hierarchy", b, cfg: AmgConfig | None = None):
+    """One V- or W-cycle applied to b (zero initial guess): the AMG
+    preconditioner application M^{-1} b."""
+    return _level(hier, cfg or hier.config, 0, b)
+
+
+def make_preconditioner(hier: "Hierarchy"):
+    """Closure form used by the Krylov wrappers."""
+    cfg = hier.config
+
+    def M(r):
+        return _level(hier, cfg, 0, r)
+
+    return M
+
+
+def _level_dense(lev: "Level", cfg: AmgConfig, Meff: torch.Tensor) -> torch.Tensor:
+    """Dense matrix of one level's cycle body with the recursion replaced by
+    the (already dense) coarse map ``Meff``: the body runs on all identity
+    columns at once as a (n, n) batch.  The caller strips the banded
+    layouts first (the ELL path applies the same matrix to a batch)."""
+    c = torch.eye(lev.A.n_rows_pad, dtype=lev.dinv.dtype, device=lev.dinv.device)
+    x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)
+    r = c - apply_op(lev, x)
+    rc = spmv(lev.R, r)
+    ec = rc @ Meff.T  # row-wise Meff @ rc
+    x = x + spmv(lev.P, ec)
+    return _smooth(lev, cfg, c, x, backward=True).T
+
+
+def _dense_ell(A) -> torch.Tensor:
+    """Dense matrix of an ELL operator (for the W-cycle coarse revisit)."""
+    eye = torch.eye(A.n_rows_pad, dtype=torch.float32, device=A.data.device)
+    return spmv(A, eye).T
+
+
+def materialize_tail(hier: "Hierarchy", max_n: int,
+                     min_start: int = 1) -> "Hierarchy":
+    """Fold the coarse tail of the cycle into one dense operator: every
+    level below the first one (never the fine level) with padded size
+    <= max_n (smoothers, transfers, recursion, coarse solve) collapses into
+    ``tail_op``."""
+    ts = next((i for i in range(min_start, len(hier.levels))
+               if hier.levels[i].A.n_rows_pad <= max_n), None)
+    if ts is None or ts >= len(hier.levels) - 1:
+        return hier  # nothing to fold (coarsest is already one dense matvec)
+    cfg = hier.config
+    M = hier.coarse_inv.to(hier.levels[ts].dinv.dtype)
+    for k in range(len(hier.levels) - 2, ts - 1, -1):
+        if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
+            # ec = M rc + M (rc - A' M rc)  ->  Meff = 2M - M A' M
+            Ad = _dense_ell(hier.levels[k + 1].A)
+            Meff = 2.0 * M - M @ Ad @ M
+        else:
+            Meff = M
+        lev = dataclasses.replace(hier.levels[k], Aband=None, Pband=None,
+                                  Rband=None, Ahyb=None)
+        M = _level_dense(lev, cfg, Meff)
+    return dataclasses.replace(hier, tail_op=M, tail_start=ts)

@@ -1,6 +1,8 @@
-"""Shared helpers for the raptor_tpu_torch tests: stencils, the numpy
-bridge from a JAX ``SHierarchy`` to the port's ``hierarchy_from_numpy``
-tree, and error measures.  Data passes between the packages as numpy."""
+"""Shared helpers for the raptor_tpu_torch tests: stencils, shuffled
+Poisson matrices, the numpy bridges from a JAX ``SHierarchy`` to the port's
+``hierarchy_from_numpy`` tree and from a JAX algebraic ``Hierarchy`` to
+``algebraic_hierarchy_from_numpy``'s, and error measures.  Data passes
+between the packages as numpy."""
 
 from __future__ import annotations
 
@@ -68,5 +70,64 @@ def tree_from_jax(hier) -> dict:
         "coarse_inv": np.asarray(hier.coarse_inv),
         "tail_op": opt(hier.tail_op),
         "tail_start": hier.tail_start,
+        "config": dataclasses.asdict(hier.config),
+    }
+
+
+def shuffled_poisson(nx: int, scale: float = 1.0, seed: int = 0):
+    """3D 7-point Poisson on nx^3, symmetrically permuted by
+    default_rng(seed) (the reference bench's shuffled input), times
+    ``scale`` (pi makes the entries fp32-inexact)."""
+    import scipy.sparse as sp
+
+    from raptor_tpu_torch.gallery import poisson_3d
+
+    A = sp.csr_matrix(poisson_3d(nx)) * scale
+    p = np.random.default_rng(seed).permutation(A.shape[0])
+    return A[p][:, p].tocsr()
+
+
+def _opt(a):
+    return None if a is None else np.asarray(a)
+
+
+def _ell_tree(E):
+    if E is None:
+        return None
+    return {"data": np.asarray(E.data), "cols": np.asarray(E.cols),
+            "row_nnz": np.asarray(E.row_nnz), "shape": E.shape,
+            "n_rows_pad": E.n_rows_pad, "n_cols_pad": E.n_cols_pad}
+
+
+def _band_tree(B):
+    if B is None:
+        return None
+    far = None if B.far is None else {
+        "rows": np.asarray(B.far.rows), "cols": np.asarray(B.far.cols),
+        "vals": np.asarray(B.far.vals), "meta": B.far.meta}
+    d = {"vals": np.asarray(B.vals), "pidx": np.asarray(B.pidx),
+         "meta": B.meta, "shape": B.shape, "slot_ranges": B.slot_ranges,
+         "far": far}
+    if hasattr(B, "perm"):  # square BandedMatrix
+        d.update(perm=np.asarray(B.perm), iperm=np.asarray(B.iperm),
+                 reordered=B.reordered)
+    return d
+
+
+def algebraic_tree_from_jax(hier) -> dict:
+    """The plain-numpy tree of a JAX algebraic ``Hierarchy`` for
+    ``raptor_tpu_torch.setup.convert.algebraic_hierarchy_from_numpy``."""
+    return {
+        "levels": [
+            {"A": _ell_tree(lv.A), "P": _ell_tree(lv.P), "R": _ell_tree(lv.R),
+             "dinv": np.asarray(lv.dinv), "cheb_lmax": _opt(lv.cheb_lmax),
+             "n": lv.n, "Aband": _band_tree(lv.Aband),
+             "Pband": _band_tree(lv.Pband), "Rband": _band_tree(lv.Rband)}
+            for lv in hier.levels
+        ],
+        "coarse_inv": np.asarray(hier.coarse_inv),
+        "perm": _opt(hier.perm), "iperm": _opt(hier.iperm),
+        "tail_op": _opt(hier.tail_op), "tail_start": hier.tail_start,
+        "a0_lo": _opt(hier.a0_lo), "a0_lo_band": _opt(hier.a0_lo_band),
         "config": dataclasses.asdict(hier.config),
     }

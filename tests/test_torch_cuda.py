@@ -1,6 +1,7 @@
 """raptor_tpu_torch on an NVIDIA GPU: the hand-written kernels against
-their plain versions on the same CUDA tensors, and the structured cycle and
-refined solve on the card against the same computation on the CPU.
+their plain versions on the same CUDA tensors, and the structured and
+algebraic (banded) cycles and refined solves on the card against the same
+computation on the CPU.
 
 Every test is marked ``cuda`` and skips where torch.cuda.is_available() is
 false.  The module imports no JAX, so it also runs on a machine without
@@ -18,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+import scipy.sparse as sp
+
 import raptor_tpu_torch.structured.dia as tdia
 import raptor_tpu_torch.structured.solver as ts
-from raptor_tpu_torch.config import AmgConfig
-from raptor_tpu_torch.gallery import default_rhs
+from raptor_tpu_torch.config import AmgConfig, SolveConfig
+from raptor_tpu_torch.gallery import default_rhs, poisson_3d
+from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
 from tests._torch_ref import cuda_device, rel_err, stencil_5pt, stencil_7pt
 
@@ -127,3 +131,148 @@ def test_kernels_build_and_load():
     path, _ = build()
     assert path.exists()
     assert load_library().raptor_dia_planes_f32.restype is not None
+
+
+# ---------------------------------------------------------------------------
+# banded kernels K4, K5, K6 on the shuffled 16^3 algebraic hierarchy
+# ---------------------------------------------------------------------------
+
+ALG = dict(splitting="pmis", interp="direct", fine_layout="banded",
+           smoother="cheb4", cheb_degree=2)
+
+
+def _shuffled(nx, scale=1.0, seed=0):
+    A = sp.csr_matrix(poisson_3d(nx)) * scale
+    p = np.random.default_rng(seed).permutation(A.shape[0])
+    return A[p][:, p].tocsr()
+
+
+@pytest.fixture(scope="module")
+def alg16():
+    from raptor_tpu_torch.api import setup
+
+    dev = cuda_device()
+    A = _shuffled(16)
+    return A, setup(A, AmgConfig(**ALG), device=dev)
+
+
+def _bands(h):
+    out = []
+    for i, lv in enumerate(h.levels):
+        for name in ("Aband", "Pband", "Rband"):
+            band = getattr(lv, name)
+            if band is not None:
+                out.append((f"L{i} {name}", band))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_k6_kernels_match_plain(alg16, dtype):
+    from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
+
+    _, h = alg16
+    if dtype == torch.bfloat16:
+        h = cast_hierarchy_algebraic(h, dtype)
+    bands = _bands(h)
+    assert {b for b, _ in bands} >= {"L0 Aband", "L0 Pband", "L0 Rband",
+                                     "L1 Aband"}
+    for label, band in bands:
+        plan = band.plan()
+        square = "n_cols" not in plan
+        x = _x(plan["n"] if square else plan["n_cols"], plan["vals"].device)
+        key = "K4" if square else "K6"
+        fn, ref = ((bk.banded_spmv, bk.banded_spmv_ref) if square
+                   else (bk.banded_spmv_rect, bk.banded_spmv_rect_ref))
+        before = bk.launches[key]
+        y = fn(plan, x)
+        assert bk.launches[key] == before + 1, label
+        assert rel_err(y.cpu(), ref(plan, x).cpu()) <= TOL, label
+
+
+@pytest.mark.parametrize("with_lo", [False, True])
+def test_k5_kernel_matches_plain_and_fp64(with_lo):
+    from raptor_tpu_torch.api import setup
+
+    dev = cuda_device()
+    A = _shuffled(16, scale=np.pi if with_lo else 1.0)
+    h = setup(A, AmgConfig(**ALG), device=dev)
+    band, lo = h.levels[0].Aband, h.a0_lo_band
+    assert (lo is not None) == with_lo
+    n, n_pad = A.shape[0], band.n_pad
+    pm = h.perm[:n].cpu().numpy()
+    Ar = A[pm][:, pm]
+    rng = np.random.default_rng(3)
+
+    def pad(a):
+        out = np.zeros(n_pad, np.float32)
+        out[:n] = a
+        return torch.from_numpy(out).to(dev)
+
+    xh64 = rng.standard_normal(n).astype(np.float32).astype(np.float64)
+    b64 = rng.standard_normal(n)
+    bh = b64.astype(np.float32)
+    v = (rng.standard_normal(n) * 1e-6).astype(np.float32)
+    args = (pad(xh64), pad(bh), pad(b64 - bh), pad(v))
+    before = bk.launches["K5"]
+    rh, rl = bk.banded_df64_residual(band.plan(), lo, *args)
+    assert bk.launches["K5"] == before + 1
+    rh_ref, rl_ref = bk.banded_df64_residual_ref(band.plan(), lo, *args)
+    assert torch.equal(rh.cpu(), rh_ref.cpu())
+    assert torch.equal(rl.cpu(), rl_ref.cpu())
+    got = rh.double().cpu().numpy() + rl.double().cpu().numpy()
+    ref = b64 - v - Ar @ xh64
+    scale = np.abs(Ar @ xh64).max()
+    assert np.abs(got[:n] - ref).max() <= 1e-12 * scale
+
+
+def test_banded_kernels_refuse_what_they_do_not_take(alg16):
+    _, h = alg16
+    plan = h.levels[0].Aband.plan()
+    dev = plan["vals"].device
+    n = plan["n"]
+    with pytest.raises(ValueError, match="float32"):
+        bk.banded_spmv(plan, torch.zeros(n, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="shape"):
+        bk.banded_spmv(plan, torch.zeros(n + 1, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_spmv(plan, torch.zeros(n))
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.banded_spmv(plan, torch.zeros(2 * n, device=dev)[::2])
+    rplan = h.levels[0].Rband.plan()
+    with pytest.raises(ValueError, match="shape"):
+        bk.banded_spmv_rect(rplan, torch.zeros(rplan["n_cols"] - 1, device=dev))
+    z = torch.zeros(n, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        bk.banded_df64_residual(dict(plan, vals=plan["vals"].bfloat16()),
+                                None, z, z, z, z)
+
+
+def test_banded_calls_count_and_route(alg16):
+    from raptor_tpu_torch.core import hybrid
+
+    _, h = alg16
+    lv = h.levels[0]
+    x = _x(lv.Aband.n_pad, lv.Aband.vals.device)
+    calls, k4 = hybrid.cuda_calls["banded_spmv_ro"], bk.launches["K4"]
+    y = hybrid.banded_spmv_ro(lv.Aband, x)
+    assert hybrid.cuda_calls["banded_spmv_ro"] == calls + 1
+    assert bk.launches["K4"] == k4 + 1
+    from raptor_tpu_torch.ops.sparse_ops import spmv
+
+    assert rel_err(y.cpu(), spmv(lv.A, x).cpu()) <= 1e-5
+
+
+def test_banded_cycle_and_solve_on_card_match_cpu(alg16):
+    from raptor_tpu_torch.api import solve
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    A, h = alg16
+    hc = h.to("cpu")
+    b = torch.from_numpy(default_rhs(h.levels[0].A.n_rows_pad, dtype=np.float32))
+    assert rel_err(cycle(h, b.to(h.device)).cpu(), cycle(hc, b)) <= 1e-5
+    rhs = np.ones(A.shape[0])
+    sc = SolveConfig(tol=1e-8, refine=True)
+    x, info = solve(A, rhs, AmgConfig(**ALG), sc, hier=h)
+    _, info_c = solve(A, rhs, AmgConfig(**ALG), sc, hier=hc)
+    assert info["iterations"] == info_c["iterations"] == 7
+    assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8

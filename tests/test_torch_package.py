@@ -53,18 +53,21 @@ def test_bound_symbols_exist_in_cuda_source():
     """Every C entry point load_library binds is defined in csrc."""
     src = "".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     build = (PKG / "ops" / "cuda" / "build.py").read_text()
-    bound = set(re.findall(r"raptor_dia_\w+", build))
+    bound = set(re.findall(r"raptor_(?:dia|banded)_\w+", build))
     assert bound == {"raptor_dia_planes_f32", "raptor_dia_planes_bf16",
-                     "raptor_dia_const_f32"}
+                     "raptor_dia_const_f32", "raptor_banded_f32",
+                     "raptor_banded_bf16", "raptor_banded_rect_f32",
+                     "raptor_banded_rect_bf16", "raptor_banded_df64_f32"}
     for name in bound:
         assert re.search(rf"\bint {name}\(", src), name
 
 
 def test_build_flags_target_hopper():
-    from raptor_tpu_torch.ops.cuda.build import NVCC_FLAGS
+    from raptor_tpu_torch.ops.cuda.build import LINK_FLAGS, NVCC_FLAGS
 
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
-    assert {"-shared", "-O3"} <= set(NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in LINK_FLAGS
+    assert "-O3" in NVCC_FLAGS and "-shared" in LINK_FLAGS
 
 
 @pytest.mark.parametrize("alone", [False, True])
