@@ -6,6 +6,11 @@ What is ported so far:
 * the structured (DIA) engine's main path: stencil operators,
   semicoarsening setup, V-/W-cycles with five smoothers, PCG and the
   df64-certified refined solve;
+* the plane-sharded structured engine (config 5) over torch.distributed:
+  one process per rank, halo shifts over NCCL or host-staged gloo
+  (``parallel/comm.py``), the block-by-block setup and the sharded cycle
+  and solve (``structured/dist.py``, ``structured/dist_setup.py``);
+* PCG, BiCGStab and (F)GMRES with an injectable inner product;
 * the algebraic engine's banded general-matrix path: ``setup``/``solve``
   on a scipy CSR matrix with the host (NumPy) level loop (RS or PMIS;
   direct, classical or extended interpolation), the RCM-banded layouts,
@@ -13,9 +18,10 @@ What is ported so far:
   solve;
 * the JAX-free configuration and stencil gallery.
 
-The DIA, banded and rectangular SpMVs and the banded df64 residual run
-through the kernels of ``raptor_tpu_torch/csrc`` on CUDA tensors and
-through plain PyTorch on CPU tensors.  This package never imports JAX.
+The DIA (plain and halo-extended), banded and rectangular SpMVs and the
+banded df64 residual run through the kernels of ``raptor_tpu_torch/csrc``
+on CUDA tensors and through plain PyTorch on CPU tensors.  This package
+never imports JAX.
 """
 
 __version__ = "0.1.0"
@@ -41,8 +47,10 @@ from raptor_tpu_torch.structured import (
     cast_hierarchy,
     dia_from_numpy,
     hierarchy_from_numpy,
+    sdist_build_hierarchy,
+    sdist_solve,
 )
-from raptor_tpu_torch.solve.krylov import KrylovInfo, pcg
+from raptor_tpu_torch.solve.krylov import KrylovInfo, bicgstab, gmres, pcg
 from raptor_tpu_torch.core.ell import EllMatrix
 from raptor_tpu_torch.core.hybrid import BandedMatrix, RectBanded
 from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
@@ -71,8 +79,12 @@ __all__ = [
     "cast_hierarchy",
     "dia_from_numpy",
     "hierarchy_from_numpy",
+    "sdist_build_hierarchy",
+    "sdist_solve",
     "KrylovInfo",
     "pcg",
+    "bicgstab",
+    "gmres",
     "setup",
     "solve",
     "solve_hier",

@@ -154,6 +154,7 @@ def solve_hier_refined(
     b_lo: torch.Tensor | None = None,
     krylov: str = "cg",
     M_hier: Hierarchy | None = None,
+    restart: int = 30,
 ):
     """Solve to a true <= tol relative residual on the hierarchy's device:
     fp32 AMG-PCG inner solves inside compensated double-float32 iterative
@@ -162,8 +163,9 @@ def solve_hier_refined(
 
     ``M_hier``: optional separate preconditioner hierarchy (a bf16
     ``cast_hierarchy_algebraic`` copy); the Krylov operator, residuals and
-    the df64 certification stay on ``hier``.  The outer loop reads the
-    residual norm on the host once per round."""
+    the df64 certification stay on ``hier``.  ``restart`` is the GMRES
+    restart length.  The outer loop reads the residual norm on the host once
+    per round."""
     A = hier.levels[0].A
     lev0 = hier.levels[0]
     Mh = hier if M_hier is None else M_hier
@@ -204,7 +206,7 @@ def solve_hier_refined(
     bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     xh = torch.zeros_like(b)
     xl = torch.zeros_like(b)
-    inner = krylov_dispatch(krylov)
+    inner = krylov_dispatch(krylov, restart)
 
     # x0 == 0: the initial residual is b exactly
     rh, rl = bh, bl
@@ -231,10 +233,11 @@ def solve_hier(
     krylov: str = "cg",
     precondition: bool = True,
     x0: torch.Tensor | None = None,
+    restart: int = 30,
 ):
     """Solve given a built hierarchy and a padded rhs on its device:
-    'cg' (PCG) or 'none' (the stationary AMG iteration).  BiCGStab and
-    GMRES are not ported yet."""
+    'cg' (PCG), 'bicgstab', 'gmres', 'fgmres' (restarted every ``restart``
+    steps), or 'none' (the stationary AMG iteration)."""
     lev0 = hier.levels[0]
 
     def apply_A(x):
@@ -242,8 +245,8 @@ def solve_hier(
 
     apply_M = make_preconditioner(hier) if precondition else (lambda r: r)
     if krylov != "none":
-        return krylov_dispatch(krylov)(apply_A, b, apply_M, tol=tol,
-                                       maxiter=maxiter, x0=x0)
+        return krylov_dispatch(krylov, restart)(apply_A, b, apply_M, tol=tol,
+                                                maxiter=maxiter, x0=x0)
     # stationary AMG iteration, one host read per iteration
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - apply_A(x)
@@ -310,7 +313,8 @@ def solve(
         bd = pad_vector(b.astype(dtype), A0.n_rows_pad, device=dev)
         x, info = solve_hier(hier, bd, tol=solve_config.tol,
                              maxiter=solve_config.maxiter,
-                             krylov=solve_config.krylov)
+                             krylov=solve_config.krylov,
+                             restart=solve_config.gmres_restart)
         return _finish(x, info, n, hier, pm)
 
     if solve_config.refine_device and solve_config.krylov in (
@@ -327,7 +331,8 @@ def solve(
                 hier, getattr(torch, config.operator_store_dtype))
         (xh, xl), relres, iters = solve_hier_refined(
             hier, bd, tol=solve_config.tol, maxiter=solve_config.maxiter,
-            b_lo=bdl, krylov=solve_config.krylov, M_hier=M_hier)
+            b_lo=bdl, krylov=solve_config.krylov, M_hier=M_hier,
+            restart=solve_config.gmres_restart)
         x64 = (xh[:n].double().cpu().numpy() + xl[:n].double().cpu().numpy())
         return _deperm(x64, pm), {
             "iterations": int(iters),
@@ -354,7 +359,8 @@ def solve(
         inner_tol = max(solve_config.tol / max(relres, 1e-300), 1e-5)
         e, info = solve_hier(hier, rd, tol=inner_tol,
                              maxiter=solve_config.maxiter,
-                             krylov=solve_config.krylov)
+                             krylov=solve_config.krylov,
+                             restart=solve_config.gmres_restart)
         total_it += int(info.iterations)
         x64 = x64 + e[:n].double().cpu().numpy()
     r = b - A_sp @ x64

@@ -5,8 +5,10 @@
 // point launches on the stream it is given, allocates nothing, and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 //
-// Both kernels take x of shape (batch, n), contiguous; blockIdx.y is the
-// batch row and a grid-stride loop over blockIdx.x covers the n rows.
+// K1 and K2 take x of shape (batch, n), contiguous; blockIdx.y is the
+// batch row and a grid-stride loop over blockIdx.x covers the n rows.  K1's
+// entry points also serve the K1v1 wrapper (zero-filled shifts of x, which
+// is what K1 computes).  K3 takes one vector and its two halos.
 //
 // Rounding: each term is rounded as the plain PyTorch version rounds it
 // (__fmul_rn, then __fadd_rn, in the reference's offset order), so nvcc
@@ -132,6 +134,57 @@ dia_const_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: DIA SpMV over a halo-extended window (the plane-sharded SpMV).
+//
+// Replaces raptor_tpu/ops/pallas/dia_kernel.py::_dia_pallas_call_v2x.
+//   y[i] = sum_k f32(data[k, i]) * xw(i + lin_k),  0 <= i < nl,
+//   xw = [halo_left | x | halo_right], 0 beyond (no wraparound)
+// The TPU wrapper concatenates [pad | halo_left | x | halo_right | pad] into
+// a new x_ext on every call, one extra pass over x.  Here the three buffers
+// stay apart: xw(j) reads x for 0 <= j < nl, halo_left[len_l + j] for
+// -len_l <= j < 0, halo_right[j - nl] for nl <= j < nl + len_r, and a term
+// whose column lies beyond all three is skipped (it is zero in the TPU
+// kernel's padded window).  Rounding as K1, so the kernel agrees with its
+// plain version bit for bit.
+//
+// Bound: device-memory bytes, n_off * nl * sizeof(T) for the planes plus
+// 4 (nl + LP + RP) for the window and 4 nl for y (the 256^3 fine level on
+// one rank: 7 fp32 planes of 16.8M rows plus x and y, about 0.6 GB a call).
+// Design: one thread per row and a grid-stride loop, so plane and x reads
+// are coalesced and the shifted x reads hit L1/L2 after the first offset;
+// the halo branches are taken only by the rows within LP / RP of the shard's
+// edges.  Staging the window in shared memory (cp.async / TMA) is later
+// work.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(RAPTOR_THREADS)
+dia_halo_kernel(const T* __restrict__ data, const float* __restrict__ x,
+                const float* __restrict__ halo_left,
+                const float* __restrict__ halo_right, float* __restrict__ y,
+                int64_t nl, int64_t len_l, int64_t len_r, LinOffsets offs) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < nl; i += stride) {
+    float acc = 0.0f;
+    for (int k = 0; k < offs.n_off; ++k) {
+      const int64_t j = i + offs.lin[k];
+      float v;
+      if (j >= 0 && j < nl) {
+        v = x[j];
+      } else if (j < 0 && j >= -len_l) {
+        v = halo_left[len_l + j];
+      } else if (j >= nl && j - nl < len_r) {
+        v = halo_right[j - nl];
+      } else {
+        continue;
+      }
+      acc = __fadd_rn(acc, __fmul_rn(widen(data[k * nl + i]), v));
+    }
+    y[i] = acc;
+  }
+}
+
 dim3 grid_for(int64_t n, int batch) {
   int64_t blocks = (n + RAPTOR_THREADS - 1) / RAPTOR_THREADS;
   if (blocks > RAPTOR_MAX_BLOCKS) blocks = RAPTOR_MAX_BLOCKS;
@@ -155,6 +208,26 @@ int launch_planes(const void* data, const void* x, void* y, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_halo(const void* data, const void* x, const void* halo_left,
+                const void* halo_right, void* y, int64_t nl, int64_t len_l,
+                int64_t len_r, const int* lins, int n_off, void* stream) {
+  if (n_off < 0 || n_off > RAPTOR_MAX_OFF || nl < 1 || len_l < 0 ||
+      len_r < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LinOffsets offs;
+  offs.n_off = n_off;
+  for (int k = 0; k < n_off; ++k) offs.lin[k] = lins[k];
+  dia_halo_kernel<T><<<grid_for(nl, 1), RAPTOR_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const float*>(x),
+      static_cast<const float*>(halo_left),
+      static_cast<const float*>(halo_right), static_cast<float*>(y), nl, len_l,
+      len_r, offs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -170,6 +243,23 @@ int raptor_dia_planes_bf16(const void* data, const void* x, void* y, int64_t n,
                            void* stream) {
   return launch_planes<__nv_bfloat16>(data, x, y, n, batch, lins, n_off,
                                       stream);
+}
+
+// K3: halo_left holds len_l values, halo_right len_r (either may be 0).
+int raptor_dia_halo_f32(const void* data, const void* x, const void* halo_left,
+                        const void* halo_right, void* y, int64_t nl,
+                        int64_t len_l, int64_t len_r, const int* lins,
+                        int n_off, void* stream) {
+  return launch_halo<float>(data, x, halo_left, halo_right, y, nl, len_l,
+                            len_r, lins, n_off, stream);
+}
+
+int raptor_dia_halo_bf16(const void* data, const void* x,
+                         const void* halo_left, const void* halo_right,
+                         void* y, int64_t nl, int64_t len_l, int64_t len_r,
+                         const int* lins, int n_off, void* stream) {
+  return launch_halo<__nv_bfloat16>(data, x, halo_left, halo_right, y, nl,
+                                    len_l, len_r, lins, n_off, stream);
 }
 
 // offs: n_off * nd ints, row-major (offset k, dimension a).

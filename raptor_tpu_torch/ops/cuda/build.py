@@ -102,6 +102,12 @@ def load_library() -> ctypes.CDLL:
         # data, x, y, n, batch, lins, n_off, stream
         fn.argtypes = [p, p, p, i64, i32, p, i32, p]
         fn.restype = i32
+    for name in ("raptor_dia_halo_f32", "raptor_dia_halo_bf16"):
+        fn = getattr(lib, name)
+        # data, x, halo_left, halo_right, y, nl, len_l, len_r, lins, n_off,
+        # stream
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, p, i32, p]
+        fn.restype = i32
     # x, y, n, batch, dims, nd, offs, lins, consts, n_off, stream
     lib.raptor_dia_const_f32.argtypes = [p, p, i64, i32, p, i32, p, p, p, i32,
                                          p]

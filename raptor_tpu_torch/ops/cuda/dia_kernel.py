@@ -1,18 +1,25 @@
-"""DIA SpMV kernels K1 and K2: wrappers around ``csrc/dia_kernel.cu`` and
-their plain PyTorch versions.
+"""DIA SpMV kernels K1, K1v1, K2 and K3: wrappers around
+``csrc/dia_kernel.cu`` and their plain PyTorch versions.
 
 * K1 ``dia_spmv_v2``: ``y[i] = sum_k f32(data[k, i]) * x[i + lin_k]`` over
   boundary-zeroed planes (fp32 or bf16), fp32 x.  Counterpart of
   ``raptor_tpu/ops/pallas/dia_kernel.py::dia_spmv_pallas_v2``.
+* K1v1 ``dia_spmv_v1``: the same sum with x zero-filled outside [0, n), for
+  any planes.  Counterpart of ``dia_spmv_pallas`` (the v1 kernel); it
+  launches K1's device code, which reads nothing outside [0, n).
 * K2 ``dia_spmv_const``: the same product for a constant-coefficient
   stencil, each plane synthesized from the row's grid coordinates, so only
   x is read.  Counterpart of ``dia_spmv_pallas_const``.
+* K3 ``dia_spmv_halo``: the sum over the window
+  ``[halo_left | x | halo_right]`` of one plane-sharded block, zero beyond.
+  Counterpart of ``dia_spmv_pallas_v2_halo``.
 
-x has shape (n,) or (B, n).  A wrapper given CPU tensors returns its plain
-version (``dia_spmv_v2_ref`` / ``dia_spmv_const_ref``); given CUDA tensors
-it launches its kernel or raises — there is no fallback.  ``launches``
-counts kernel launches (plain-version calls are not counted), so a run can
-show that its path went through the kernels.
+x has shape (n,) or (B, n) (K3: (nl,)).  A wrapper given CPU tensors
+returns its plain version (``dia_spmv_v2_ref``, ``dia_spmv_v1_ref``,
+``dia_spmv_const_ref``, ``dia_spmv_halo_ref``); given CUDA tensors it
+launches its kernel or raises — there is no fallback.  ``launches`` counts
+kernel launches (plain-version calls are not counted), so a run can show
+that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -23,14 +30,16 @@ from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_const",
-           "dia_spmv_const_ref", "in_grid_mask", "launches"]
+__all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
+           "dia_spmv_const", "dia_spmv_const_ref", "dia_spmv_halo",
+           "dia_spmv_halo_ref", "halo_reach", "in_grid_mask", "launches"]
 
 MAX_OFF = 32
 MAX_DIMS = 4
 MAX_BATCH = 65535
 
-launches: collections.Counter = collections.Counter()  # keys "K1", "K2"
+# keys "K1", "K1v1", "K2", "K3"
+launches: collections.Counter = collections.Counter()
 
 
 def _strides(dims: Sequence[int]) -> Tuple[int, ...]:
@@ -64,6 +73,58 @@ def dia_spmv_v2_ref(data: torch.Tensor, lins: Sequence[int],
     for k, o in enumerate(lins):
         shifted = x if o == 0 else torch.roll(x, -int(o), dims=-1)
         term = data[k] * shifted
+        y = term if y is None else y + term
+    return y
+
+
+def _shift_zero(x: torch.Tensor, o: int) -> torch.Tensor:
+    """``x[..., i + o]`` where ``0 <= i + o < n``, else 0."""
+    if o == 0:
+        return x
+    n = x.shape[-1]
+    out = torch.zeros_like(x)
+    if abs(o) < n:
+        if o > 0:
+            out[..., :n - o] = x[..., o:]
+        else:
+            out[..., -o:] = x[..., :n + o]
+    return out
+
+
+def dia_spmv_v1_ref(data: torch.Tensor, lins: Sequence[int],
+                    x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1v1: the sum in offset order over shifts of x that
+    fill with zeros (the TPU kernel's zero-padded x), so planes need not be
+    boundary-zeroed."""
+    y = None
+    for k, o in enumerate(lins):
+        term = data[k] * _shift_zero(x, int(o))
+        y = term if y is None else y + term
+    return y
+
+
+def halo_reach(lins: Sequence[int]) -> Tuple[int, int]:
+    """(LP, RP): how far the offsets reach left and right of a block."""
+    lins = [int(o) for o in lins]
+    return max(0, -min(lins)), max(0, max(lins))
+
+
+def dia_spmv_halo_ref(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
+                      halo_left: torch.Tensor,
+                      halo_right: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the window ``[halo_left | x | halo_right]``,
+    zero-padded to the offsets' reach (LP, RP), and ``data[k] *
+    window[LP + lin_k : LP + lin_k + nl]`` summed in offset order.  Halo
+    values beyond the reach are never read."""
+    nl = x.shape[0]
+    LP, RP = halo_reach(lins)
+    hl = halo_left[max(halo_left.shape[0] - LP, 0):].to(x.dtype)
+    hr = halo_right[:RP].to(x.dtype)
+    window = torch.cat([x.new_zeros(LP - hl.shape[0]), hl, x, hr,
+                        x.new_zeros(RP - hr.shape[0])])
+    y = None
+    for k, o in enumerate(lins):
+        term = data[k] * window[LP + int(o):LP + int(o) + nl]
         y = term if y is None else y + term
     return y
 
@@ -107,22 +168,26 @@ def _check_x(x: torch.Tensor, n: int) -> int:
     return batch
 
 
-def dia_spmv_v2(data: torch.Tensor, lins: Sequence[int],
-                x: torch.Tensor) -> torch.Tensor:
-    """K1: streamed-plane DIA SpMV.  ``data`` (n_off, n) fp32 or bf16,
-    boundary-zeroed; ``lins`` the linear offsets; x fp32 (n,) or (B, n)."""
-    if x.device.type == "cpu" and data.device.type == "cpu":
-        return dia_spmv_v2_ref(data, lins, x)
-    n_off, n = data.shape
-    batch = _check_x(x, n)
+def _check_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
+                  key: str) -> None:
+    n_off = data.shape[0]
     if data.device != x.device:
         raise ValueError(f"data on {data.device}, x on {x.device}")
     if data.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"plane dtype {data.dtype}: K1 takes float32 or bfloat16")
+        raise ValueError(f"plane dtype {data.dtype}: {key} takes float32 or "
+                         "bfloat16")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
     if not 0 < n_off <= MAX_OFF or len(lins) != n_off:
         raise ValueError(f"{n_off} planes, {len(lins)} offsets (max {MAX_OFF})")
+
+
+def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
+                   key: str) -> torch.Tensor:
+    """K1's device code on CUDA tensors; counted under ``key``."""
+    n_off, n = data.shape
+    batch = _check_x(x, n)
+    _check_planes(data, lins, x, key)
     from raptor_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
@@ -134,8 +199,70 @@ def dia_spmv_v2(data: torch.Tensor, lins: Sequence[int],
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch,
                 _int_array(lins), n_off, stream)
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
-    launches["K1"] += 1
+        raise RuntimeError(f"{key} launch failed: cudaError {rc}")
+    launches[key] += 1
+    return y
+
+
+def dia_spmv_v2(data: torch.Tensor, lins: Sequence[int],
+                x: torch.Tensor) -> torch.Tensor:
+    """K1: streamed-plane DIA SpMV.  ``data`` (n_off, n) fp32 or bf16,
+    boundary-zeroed; ``lins`` the linear offsets; x fp32 (n,) or (B, n)."""
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_v2_ref(data, lins, x)
+    return _launch_planes(data, lins, x, "K1")
+
+
+def dia_spmv_v1(data: torch.Tensor, lins: Sequence[int],
+                x: torch.Tensor) -> torch.Tensor:
+    """K1v1: DIA SpMV with x zero-filled outside [0, n), for planes that
+    need not be boundary-zeroed.  ``data`` (n_off, n) fp32 or bf16; x fp32
+    (n,) or (B, n).  Launches K1's device code, which skips every column
+    outside [0, n)."""
+    if x.device.type == "cpu" and data.device.type == "cpu":
+        return dia_spmv_v1_ref(data, lins, x)
+    return _launch_planes(data, lins, x, "K1v1")
+
+
+def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
+                  halo_left: torch.Tensor,
+                  halo_right: torch.Tensor) -> torch.Tensor:
+    """K3: ``y[i] = sum_k f32(data[k, i]) * xw[i + lin_k]`` with
+    ``xw = [halo_left | x | halo_right]`` and 0 beyond.  ``data`` (n_off,
+    nl) fp32 or bf16; x, halos fp32 1-D.  ``halo_left`` holds the left
+    neighbour's trailing values, ``halo_right`` the right one's leading
+    values; any length works, and only the offsets' reach (``halo_reach``)
+    is read."""
+    if all(t.device.type == "cpu" for t in (data, x, halo_left, halo_right)):
+        return dia_spmv_halo_ref(data, lins, x, halo_left, halo_right)
+    n_off, nl = data.shape
+    if x.dim() != 1:
+        raise ValueError(f"x shape {tuple(x.shape)}: K3 takes one vector")
+    _check_x(x, nl)
+    _check_planes(data, lins, x, "K3")
+    for name, h in (("halo_left", halo_left), ("halo_right", halo_right)):
+        if h.device != x.device or h.dtype != torch.float32 or h.dim() != 1:
+            raise ValueError(f"{name}: {h.dtype} {tuple(h.shape)} on {h.device}, "
+                             f"expected float32 (m,) on {x.device}")
+        if not h.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    LP, RP = halo_reach(lins)
+    hl = halo_left[max(halo_left.shape[0] - LP, 0):]
+    hr = halo_right[:RP]
+    from raptor_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    fn = (lib.raptor_dia_halo_bf16 if data.dtype == torch.bfloat16
+          else lib.raptor_dia_halo_f32)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(data.data_ptr(), x.data_ptr(), hl.data_ptr(), hr.data_ptr(),
+                y.data_ptr(), nl, hl.shape[0], hr.shape[0], _int_array(lins),
+                n_off, stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    launches["K3"] += 1
     return y
 
 

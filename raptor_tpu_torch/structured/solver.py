@@ -309,7 +309,8 @@ def _slevel_dense(lev: SLevel, cfg: AmgConfig, Meff: torch.Tensor) -> torch.Tens
     x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)
     r = c - dia_spmv(lev.A, x)
     rc = _compact(dia_spmv(lev.Rt, r), lev.dims, lev.cdim)
-    e = _expand(rc @ Meff.T, lev.dims, lev.cdim)  # row-wise Meff @ rc
+    # row-wise Meff @ rc (an fp32 Meff promotes to a float64 level's dtype)
+    e = _expand(rc @ Meff.T.to(rc.dtype), lev.dims, lev.cdim)
     x = x + dia_spmv(lev.Pt, e)
     return _smooth(lev, cfg, c, x, backward=True).T
 
@@ -320,12 +321,18 @@ def _dense_op(A: DiaMatrix) -> torch.Tensor:
     return dia_spmv(A, eye).T
 
 
-def materialize_tail(hier: SHierarchy, max_n: int) -> SHierarchy:
+def materialize_tail(hier: SHierarchy, max_n: int,
+                     min_start: int = 1) -> SHierarchy:
     """Fold the coarse tail of the cycle into one dense operator: the first
-    level after the fine one with n <= max_n and everything below it
+    level at or after ``min_start`` with n <= max_n and everything below it
     (smoothers, transfers, recursion, coarse solve) collapse into
-    ``tail_op``."""
-    ts = next((i for i in range(1, len(hier.levels))
+    ``tail_op``.  ``min_start=1`` never folds the fine level; the sharded
+    engine's replicated tail, coarse already at its level 0, passes 0.
+
+    The coarse inverse enters in fp32, as in the reference; a float64
+    hierarchy (the CPU tests) promotes it back to float64 where the
+    reference's mixed products promote."""
+    ts = next((i for i in range(min_start, len(hier.levels))
                if hier.levels[i].A.n <= max_n), None)
     if ts is None or ts >= len(hier.levels) - 1:
         return hier  # nothing to fold (coarsest is already one dense matvec)
@@ -336,6 +343,8 @@ def materialize_tail(hier: SHierarchy, max_n: int) -> SHierarchy:
             # the coarse visit happens twice on an updated residual:
             # ec = M rc + M (rc - A' M rc)  ->  Meff = 2M - M A' M
             Ad = _dense_op(hier.levels[k + 1].A)
+            dt = torch.promote_types(M.dtype, Ad.dtype)
+            M, Ad = M.to(dt), Ad.to(dt)
             Meff = 2.0 * M - M @ Ad @ M
         else:
             Meff = M

@@ -335,11 +335,10 @@ def test_stationary_iteration_converges(thiers):
 
 @pytest.mark.parametrize("case", [
     "plane_mode", "device_levels", "cljp", "aggregation", "mcgs",
-    "aggressive", "bicgstab"])
+    "aggressive"])
 def test_not_yet_ported_raises(case):
     A = shuffled_poisson(8)
     cfg = dict(splitting="pmis", smoother="cheb4")
-    kind = ValueError if case == "bicgstab" else NotImplementedError
     if case == "plane_mode":
         A, cfg = sp.csr_matrix(poisson_3d(8)), dict(cfg, fine_layout="banded")
     elif case == "device_levels":
@@ -352,9 +351,42 @@ def test_not_yet_ported_raises(case):
         cfg = dict(cfg, smoother="mcgs")
     elif case == "aggressive":
         cfg = dict(cfg, aggressive=True)
-    with pytest.raises(kind, match="not yet ported"):
-        if case == "bicgstab":
-            tapi.solve(A, np.ones(A.shape[0]), TCfg(**cfg),
-                       TSolve(krylov="bicgstab"), device="cpu")
-        else:
-            tapi.setup(A, TCfg(**cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tapi.setup(A, TCfg(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("krylov", ["bicgstab", "gmres", "fgmres"])
+def test_refined_solve_with_other_krylov(krylov):
+    """BiCGStab and (F)GMRES inside the df64-refined solve (they raised
+    before they were ported): the true fp64 relres reaches 1e-8."""
+    A = shuffled_poisson(8)
+    b = np.ones(A.shape[0])
+    cfg = TCfg(splitting="pmis", smoother="cheb4", cheb_degree=2)
+    x, info = tapi.solve(A, b, cfg, TSolve(krylov=krylov, refine=True),
+                         device="cpu")
+    assert np.linalg.norm(b - A @ x) / np.linalg.norm(b) <= 1e-8
+    assert 0 < info["iterations"] <= 40
+
+
+@pytest.mark.parametrize("krylov", ["gmres", "fgmres"])
+@pytest.mark.parametrize("refine", [True, False])
+def test_gmres_restart_reaches_the_solve(mats, jhiers, thiers, krylov, refine):
+    """``SolveConfig.gmres_restart`` reaches (F)GMRES in both the df64-refined
+    and the plain solve: with a restart of 1 the port takes the reference's
+    iterations (the refined solve takes one more than with a restart of 30),
+    and the plain solve's residual history follows the reference's within
+    1e-2 relative at every step (fp32 rounding moves the last steps by up to
+    3e-3; with a restart of 30 the second step is 40% lower)."""
+    A = mats[16]
+    b = default_rhs(A.shape[0])
+    sc = dict(krylov=krylov, gmres_restart=1, tol=1e-8 if refine else 1e-6,
+              refine=refine)
+    x, info = tapi.solve(A, b, TCfg(**ALG), TSolve(**sc), hier=thiers[16])
+    _, info_j = japi.solve(A, b, JCfg(**ALG), JSolve(**sc), hier=jhiers[16])
+    assert info["iterations"] == info_j["iterations"]
+    assert _true_relres(A, x, b) <= sc["tol"] * 2
+    if not refine:
+        k = info["iterations"] + 1
+        h, hj = (np.asarray(v[:k], np.float64) for v in (info["res_hist"],
+                                                           info_j["res_hist"]))
+        assert np.abs(h / hj - 1).max() <= 1e-2

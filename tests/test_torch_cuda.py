@@ -34,6 +34,7 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-6
 CUBE = list(itertools.product((-1, 0, 1), repeat=3))
 OFFSETS = {3: [(-1, 0, 0), (0, 0, 0), (1, 0, 0)],
+           7: [o for o in CUBE if sum(map(abs, o)) <= 1],
            15: [o for o in CUBE if abs(o[1]) + abs(o[2]) <= 1],
            27: CUBE}
 CFG = dict(smoother="cheb4", cheb_degree=2, coarse_size=64, max_levels=40)
@@ -94,6 +95,58 @@ def test_kernels_refuse_what_they_do_not_take():
         tk.dia_spmv_v2(data, (-1, 0, 1), torch.zeros(65, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         tk.dia_spmv_v2(data, (-1, 0, 1), torch.zeros(128, device=dev)[::2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_off,halo", [(7, (0, 0)), (7, (96, 96)),
+                                        (7, (1024, 512)), (7, (4096, 4096)),
+                                        (27, (4096, 300))])
+def test_k3_kernel_matches_plain(n_off, halo, dtype):
+    """K3 on the halo cases of tests/unit/test_pallas_dia.py:111 (16^3;
+    the 7-offset reach is 256, so the short halos are zero-filled)."""
+    dev = cuda_device()
+    dims = (16, 16, 16)
+    data, lins = _planes(dims, OFFSETS[n_off], dtype, dev)
+    x = _x(data.shape[1], dev)
+    hl, hr = _x(halo[0], dev, seed=2), _x(halo[1], dev, seed=3)
+    before = tk.launches["K3"]
+    y = tk.dia_spmv_halo(data, lins, x, hl, hr)
+    assert tk.launches["K3"] == before + 1
+    y_ref = tk.dia_spmv_halo_ref(data, lins, x, hl, hr)
+    assert rel_err(y.cpu(), y_ref.cpu()) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_k1v1_kernel_matches_plain(batch, dtype):
+    """Planes that are not boundary-zeroed: K1v1 reads x as zero outside
+    [0, n)."""
+    dev = cuda_device()
+    dims = (16, 32, 64)
+    n = int(np.prod(dims))
+    rng = np.random.default_rng(6)
+    data = torch.from_numpy(rng.standard_normal((15, n)).astype(np.float32))
+    data = data.to(dev, dtype)
+    lins = [tdia._linear(o, dims) for o in OFFSETS[15]]
+    x = _x(n, dev, batch)
+    before = tk.launches["K1v1"]
+    y = tk.dia_spmv_v1(data, lins, x)
+    assert tk.launches["K1v1"] == before + 1
+    assert rel_err(y.cpu(), tk.dia_spmv_v1_ref(data, lins, x).cpu()) <= TOL
+
+
+def test_k3_refuses_what_it_does_not_take():
+    dev = cuda_device()
+    data = torch.zeros(3, 64, device=dev)
+    x, h = torch.zeros(64, device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="one vector"):
+        tk.dia_spmv_halo(data, (-8, 0, 8), torch.zeros(2, 64, device=dev), h, h)
+    with pytest.raises(ValueError, match="halo_left"):
+        tk.dia_spmv_halo(data, (-8, 0, 8), x, h.double(), h)
+    with pytest.raises(ValueError, match="halo_right"):
+        tk.dia_spmv_halo(data, (-8, 0, 8), x, h, h.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        tk.dia_spmv_halo(data, (-8, 0, 8), x.double(), h, h)
 
 
 def test_dia_spmv_counts_and_routes():

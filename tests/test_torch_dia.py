@@ -1,7 +1,8 @@
-"""raptor_tpu_torch.structured.dia and the K1/K2 wrappers against the JAX
-package on the CPU.
+"""raptor_tpu_torch.structured.dia and the K1/K1v1/K2/K3 wrappers against
+the JAX package on the CPU.
 
-Construction must match exactly.  The plain versions of K1 and K2 are held
+Construction must match exactly.  The plain versions of K1, K1v1, K2 and
+K3 are held
 against the JAX Pallas kernels in interpret mode (tile 1024 for fp32
 planes, 2048 for bf16) and against the JAX roll path, within
 1e-6 * max|y|: both sides sum the same fp32 terms in the same offset order,
@@ -20,8 +21,10 @@ import torch
 import raptor_tpu.structured.dia as jdia
 import raptor_tpu_torch.structured.dia as tdia
 from raptor_tpu.ops.pallas.dia_kernel import (
+    dia_spmv_pallas,
     dia_spmv_pallas_const,
     dia_spmv_pallas_v2,
+    dia_spmv_pallas_v2_halo,
 )
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
 from tests._torch_ref import (
@@ -199,6 +202,101 @@ def test_kernels_refuse_non_cpu_non_cuda_tensors():
         tk.dia_spmv_v2(data, (-1, 0, 1), x)
     with pytest.raises(ValueError, match="CUDA"):
         tk.dia_spmv_const((1.0,), ((0,),), (64,), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_v1(data, (-1, 0, 1), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_halo(data, (-1, 0, 1), x, x[:1], x[:1])
+
+
+# ---------------------------------------------------------------------------
+# K1v1's function: dia_spmv_v1_ref against the JAX v1 kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("stencil,dims", [
+    (stencil_7pt(), (16, 16, 16)),
+    (stencil_7pt(), (8, 16, 32)),
+    (stencil_5pt(), (32, 32)),
+])
+def test_k1v1_plain_matches_jax(stencil, dims):
+    """The shapes of tests/unit/test_pallas_dia.py:15-41."""
+    J = jdia.dia_from_stencil(stencil, dims, dtype=jnp.float32)
+    x = _x(J.n)
+    data = np.array(J.data)
+    y = tk.dia_spmv_v1_ref(torch.from_numpy(data), J.linear_offsets(),
+                           torch.from_numpy(x)).numpy()
+    y_pallas = dia_spmv_pallas(J.data, J.linear_offsets(), jnp.asarray(x),
+                               tile=1024, interpret=True)
+    assert rel_err(y, y_pallas) <= TOL
+
+
+@pytest.mark.parametrize("n_off", [7, 15])
+def test_k1v1_plain_zero_fills_unzeroed_planes(n_off):
+    """Random planes that are NOT boundary-zeroed: v1's zero-padded x is
+    what separates it from K1's roll (which would read wrapped values)."""
+    dims = (8, 16, 32)
+    n = int(np.prod(dims))
+    rng = np.random.default_rng(4)
+    data = rng.standard_normal((n_off, n)).astype(np.float32)
+    lins = tuple(jdia._linear(o, dims) for o in OFFSETS[n_off])
+    x = _x(n, seed=5)
+    y = tk.dia_spmv_v1_ref(torch.from_numpy(data), lins, torch.from_numpy(x))
+    y_pallas = dia_spmv_pallas(jnp.asarray(data), lins, jnp.asarray(x),
+                               tile=1024, interpret=True)
+    assert rel_err(y.numpy(), y_pallas) <= TOL
+    y_roll = tk.dia_spmv_v2_ref(torch.from_numpy(data), lins, torch.from_numpy(x))
+    assert rel_err(y_roll.numpy(), y_pallas) > 1e-3  # the roll differs here
+    before = dict(tk.launches)
+    assert torch.equal(tk.dia_spmv_v1(torch.from_numpy(data), lins,
+                                      torch.from_numpy(x)), y)
+    assert dict(tk.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# K3's function: dia_spmv_halo_ref against the JAX halo kernel
+# ---------------------------------------------------------------------------
+
+def _halo_case(dims, offsets, dtype, halo, seed=2):
+    data, lins = _planes(dims, offsets, seed)
+    rng = np.random.default_rng(seed + 10)
+    x = rng.standard_normal(data.shape[1]).astype(np.float32)
+    hl = rng.standard_normal(halo[0]).astype(np.float32)
+    hr = rng.standard_normal(halo[1]).astype(np.float32)
+    jd = jnp.asarray(data, dtype=getattr(jnp, dtype))
+    td = torch.from_numpy(data).to(getattr(torch, dtype))
+    y = tk.dia_spmv_halo_ref(td, lins, *map(torch.from_numpy, (x, hl, hr)))
+    y_pallas = dia_spmv_pallas_v2_halo(
+        jd, lins, *map(jnp.asarray, (x, hl, hr)),
+        tile=2048 if dtype == "bfloat16" else 1024, interpret=True)
+    return y.numpy(), np.asarray(y_pallas)
+
+
+@pytest.mark.parametrize("halo", [(0, 0), (96, 96), (1024, 512), (4096, 4096)])
+def test_k3_plain_matches_jax(halo):
+    """The halo cases of tests/unit/test_pallas_dia.py:111 (16^3, 7
+    offsets, fp32), with random halo contents."""
+    y, y_pallas = _halo_case((16, 16, 16), OFFSETS[7], "float32", halo)
+    assert rel_err(y, y_pallas) <= TOL
+
+
+@pytest.mark.parametrize("n_off,dtype", [(27, "float32"), (7, "bfloat16")])
+def test_k3_plain_matches_jax_27_offsets_and_bf16(n_off, dtype):
+    y, y_pallas = _halo_case((8, 16, 32), OFFSETS[n_off], dtype, (1024, 600))
+    assert rel_err(y, y_pallas) <= TOL
+
+
+def test_k3_wrapper_takes_plain_version_on_cpu():
+    data, lins = _planes((4, 8, 8), OFFSETS[27])
+    x = torch.from_numpy(_x(data.shape[1]))
+    hl, hr = x[:100].flip(0), x[:30] * 2.0
+    before = dict(tk.launches)
+    y = tk.dia_spmv_halo(torch.from_numpy(data), lins, x, hl, hr)
+    assert dict(tk.launches) == before
+    assert torch.equal(y, tk.dia_spmv_halo_ref(torch.from_numpy(data), lins,
+                                               x, hl, hr))
+    # only the offsets' reach (73 each way here) is read
+    assert tk.halo_reach(lins) == (73, 73)
+    assert torch.equal(y, tk.dia_spmv_halo(torch.from_numpy(data), lins, x,
+                                           hl[-73:], hr))
 
 
 def test_dia_matrix_validates_metadata():

@@ -55,7 +55,8 @@ def test_bound_symbols_exist_in_cuda_source():
     build = (PKG / "ops" / "cuda" / "build.py").read_text()
     bound = set(re.findall(r"raptor_(?:dia|banded)_\w+", build))
     assert bound == {"raptor_dia_planes_f32", "raptor_dia_planes_bf16",
-                     "raptor_dia_const_f32", "raptor_banded_f32",
+                     "raptor_dia_const_f32", "raptor_dia_halo_f32",
+                     "raptor_dia_halo_bf16", "raptor_banded_f32",
                      "raptor_banded_bf16", "raptor_banded_rect_f32",
                      "raptor_banded_rect_bf16", "raptor_banded_df64_f32"}
     for name in bound:
