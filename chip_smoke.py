@@ -9,12 +9,14 @@ Phases, each of which raises on failure (there is no CPU path):
    versions; TF32 off, so the dense coarse solve stays full fp32;
 2. build: nvcc compiles raptor_tpu_torch/csrc/*.cu into build/raptor_tpu_torch;
 3. kernel equality: K1 and K2 against their plain PyTorch versions on the
-   same CUDA tensors, at the shapes the main path gives them, and one small
-   V-cycle on the card against the same cycle on the CPU;
+   same CUDA tensors, at the shapes the main path gives them (K1 timed
+   L2-warm and L2-cold at each), and one small V-cycle on the card against
+   the same cycle on the CPU;
 4. main path: 3D 7-point Poisson at 128^3 -> build_structured_hierarchy
    (cheb4 degree 2, coarse_size 2048) -> cast_hierarchy(bf16) -> V-cycles
    -> structured_solve_refined, checked by a host fp64 residual;
-5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2;
+5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2; the
+   launches by shape (n, offsets, plane dtype);
 6. banded kernel equality: the shuffled 48^3 algebraic hierarchy built on
    the host by raptor_tpu_torch.api.setup; K4 on every banded A (fp32, and
    bf16 on level 0), K6 on every banded P and R, K5 on level 0 without and
@@ -40,12 +42,14 @@ Phases, each of which raises on failure (there is no CPU path):
     -> sdist_solve(tol 1e-6), cold then warm, V-cycles; checked by a host
     fp64 residual and against the single-device solve on the same plan;
 12. proof: every CUDA halo SpMV of phase 11 launched K3 (counts set to 0
-    just before phase 11, read just after it);
+    just before phase 11, read just after it); the launches by shape;
 13. four ranks sharing the card over gloo (host-staged messages) at 128^3:
     every rank launched K3, rank 0's gathered x is checked by a host fp64
     residual and its iterations against one rank at 128^3.
 
-Every kernel is timed by CUDA-graph replay beside its plain version, one
+Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
+K6 also at every shape of the 48^3 path, for the launches-by-shape
+ranking), one
 cuSPARSE CSR matvec of the same operator (torch.mv; none for K5), and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s (H100 SXM, NVIDIA's data sheet).
@@ -56,6 +60,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import subprocess
@@ -295,23 +300,50 @@ def phase_kernels(dev) -> dict:
                 + (f" batch {batch}" if batch else ""))
         rec["K1"]["err"] = max(rec["K1"]["err"],
                                _check(name, y, dia_spmv_v2_ref(data, lins, x)))
+        warm = cuda_ms(lambda: dia_spmv_v2(data, lins, x))
+        cold = cuda_ms(lambda: dia_spmv_v2(data, lins, x), flush_l2=True)
+        moved = data.numel() * data.element_size() + 8 * x.numel()
+        print(f"[kernel] {name}: {warm * 1e3:.1f} us L2-warm, {cold * 1e3:.1f} "
+              f"us L2-cold, bound {bound(moved, 0)[0] * 1e3:.1f} us (device "
+              f"time, graph replay)")
         if label == "level 1" and dtype == torch.bfloat16:
-            rec["K1"]["ms"] = cuda_ms(lambda: dia_spmv_v2(data, lins, x))
+            rec["K1"]["ms"], rec["K1"]["cold_ms"] = warm, cold
             rec["K1"]["plain_ms"] = cuda_ms(lambda: dia_spmv_v2_ref(data, lins, x))
-            yardsticks(rec["K1"], dia_csr(data, lins, data.shape[1]), x,
-                       data.numel() * 2 + 8 * data.shape[1])
+            rec["K1"]["cold_plain_ms"] = cuda_ms(
+                lambda: dia_spmv_v2_ref(data, lins, x), flush_l2=True)
+            yardsticks(rec["K1"], dia_csr(data, lins, data.shape[1]), x, moved)
     # bytes the call must move: planes (bf16) + x + y for K1 on level 1,
     # x + y for K2 on the fine level
     moved = {"K1": len(off15) * int(np.prod(lev1)) * 2 + 8 * int(np.prod(lev1)),
              "K2": 8 * int(np.prod(fine))}
     for k in ("K1", "K2"):
-        print(f"[kernel] {k}: {rec[k]['ms'] * 1e3:.1f} us kernel "
-              f"({moved[k] / rec[k]['ms'] / 1e9:.3f} TB/s), "
-              f"{rec[k]['plain_ms'] * 1e3:.1f} us plain, "
-              f"{rec[k]['library_ms'] * 1e3:.1f} us cuSPARSE CSR, bound "
-              f"{rec[k]['bound_ms'] * 1e3:.1f} us ({rec[k]['bound_by']}) "
-              f"(device time, graph replay)")
+        r = rec[k]
+        cold = ("" if "cold_ms" not in r else
+                f"; L2-cold {r['cold_ms'] * 1e3:.1f} us kernel "
+                f"({moved[k] / r['cold_ms'] / 1e9:.3f} TB/s), "
+                f"{r['cold_plain_ms'] * 1e3:.1f} us plain")
+        print(f"[kernel] {k}: {r['ms'] * 1e3:.1f} us kernel "
+              f"({moved[k] / r['ms'] / 1e9:.3f} TB/s), "
+              f"{r['plain_ms'] * 1e3:.1f} us plain, "
+              f"{r['library_ms'] * 1e3:.1f} us cuSPARSE CSR, bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) "
+              f"(device time, graph replay, L2-warm){cold}")
     return rec
+
+
+def per_call(counter, before, calls: int) -> dict:
+    """Launches by shape counted since ``before`` was copied, per call."""
+    return {key: (c - before[key]) / calls for key, c in counter.items()
+            if c != before[key]}
+
+
+def by_shape(tag: str, counter, kernels) -> list:
+    """Print and return the launches of ``kernels`` by shape, as the
+    wrappers counted them: [kernel, n, offsets or slots, dtype, launches]."""
+    rows = sorted([*key, c] for key, c in counter.items() if key[0] in kernels)
+    for k, n, width, dtype, c in rows:
+        print(f"[shapes] {tag}: {k} n={n} width={width} {dtype}: {c:g} launches")
+    return rows
 
 
 def phase_small_cycle(dev) -> None:
@@ -378,7 +410,11 @@ def phase_main(dev) -> dict:
             raise AssertionError("V-cycle output not finite")
         return (time.perf_counter() - t0) / N_CYCLES * 1e3
 
+    from raptor_tpu_torch.ops.cuda.dia_kernel import launches_by_shape
+
+    before = collections.Counter(launches_by_shape)
     vc_bf16 = vcycle_ms(hM)
+    per_cycle = per_call(launches_by_shape, before, N_CYCLES + 1)
     vc_fp32 = vcycle_ms(h)
     print(f"[main] V-cycle bf16 {vc_bf16:.3f} ms ({n / vc_bf16 * 1e3:.4g} DOF/s), "
           f"fp32 {vc_fp32:.3f} ms ({n / vc_fp32 * 1e3:.4g} DOF/s), "
@@ -403,7 +439,10 @@ def phase_main(dev) -> dict:
     if not relres <= MAX_RELRES or not int(iters) <= MAX_ITERS:
         raise AssertionError(f"relres {relres} (max {MAX_RELRES}), "
                              f"iterations {int(iters)} (max {MAX_ITERS})")
+    by_shape("main 128^3, one bf16 V-cycle", per_cycle, ("K1", "K2"))
     return {"setup_warm_s": warm, "setup_cold_s": cold, "vcycle_bf16_ms": vc_bf16,
+            "vcycle_bf16_launches_by_shape": sorted(
+                [*key, c] for key, c in per_cycle.items()),
             "vcycle_fp32_ms": vc_fp32, "solve_s": sol, "iters": int(iters),
             "relres": relres}
 
@@ -508,6 +547,11 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
         x = vec(plan["n"] if square else plan["n_cols"])
         name = f"{k} 48^3 {label} K {plan['K']} {dtype}"
         rec[k]["err"] = max(rec[k]["err"], _check(name, fn(plan, x), ref(plan, x)))
+        ms = cuda_ms(lambda: fn(plan, x))
+        bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
+                    2 * plan["K"] * plan["n"])[0]
+        print(f"[banded] {name} n={plan['n']}: {ms * 1e3:.1f} us L2-warm, "
+              f"bound {bms * 1e3:.1f} us (device time, graph replay)")
         if (label, dtype) in (("L0 A", torch.float32), ("L0 R", torch.float32)):
             timed[k] = (plan, fn, ref, x)
     from raptor_tpu_torch.core.ell import ell_to_csr
@@ -659,6 +703,7 @@ def banded_proof(tag: str) -> dict:
         f"{k} {bl[k]} launches / {c} CUDA calls" for k, c in pairs.items()))
     if any(bl[k] != c or c == 0 for k, c in pairs.items()):
         raise AssertionError(f"the {tag} path did not run through the kernels")
+    by_shape(tag, banded_kernel.launches_by_shape, pairs)
     return {k: bl[k] for k in pairs}
 
 
@@ -667,6 +712,7 @@ def clear_banded_counts() -> None:
     from raptor_tpu_torch.ops.cuda import banded_kernel
 
     banded_kernel.launches.clear()
+    banded_kernel.launches_by_shape.clear()
     hybrid.cuda_calls.clear()
 
 
@@ -813,7 +859,7 @@ def phase_sdist_one_rank(dev) -> dict:
     the one-rank SDIST_N4^3 run that phase 13 compares with."""
     import torch.distributed as dist
 
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches
+    from raptor_tpu_torch.ops.cuda.dia_kernel import launches, launches_by_shape
     from raptor_tpu_torch.parallel import Ring
     from raptor_tpu_torch.structured import dist as sd
     from raptor_tpu_torch.structured.solver import (_build_hierarchy_planned,
@@ -825,11 +871,13 @@ def phase_sdist_one_rank(dev) -> dict:
     try:
         ring = Ring()
         launches.clear()
+        launches_by_shape.clear()
         sd.cuda_calls.clear()
         cold = sd.sdist_config5(ring, dev, n=n)
         warm = sd.sdist_config5(ring, dev, n=n)
         dh, info = warm["hier"], warm["info"]
         _, b = sd.config5_problem(n, dev)
+        before = collections.Counter(launches_by_shape)
         y = sd.sdist_cycle(dh, ring, b)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -837,6 +885,7 @@ def phase_sdist_one_rank(dev) -> dict:
             y = sd.sdist_cycle(dh, ring, b)
         torch.cuda.synchronize()
         vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+        per_cycle = per_call(launches_by_shape, before, N_CYCLES + 1)
         k3, calls = launches["K3"], sd.cuda_calls["halo_spmv"]
         v1 = launches["K1v1"]
         print(f"[proof] sharded {n}^3 path: {calls} CUDA halo SpMVs, {k3} K3 "
@@ -844,6 +893,9 @@ def phase_sdist_one_rank(dev) -> dict:
               f"replicated tail, {v1} K1v1)")
         if k3 != calls or k3 == 0:
             raise AssertionError("the sharded path did not run through K3")
+        shapes = by_shape(f"sharded {n}^3", launches_by_shape,
+                          ("K1", "K2", "K3"))
+        by_shape(f"sharded {n}^3, one V-cycle", per_cycle, ("K1", "K2", "K3"))
         if v1:
             raise AssertionError("the sharded path launched K1v1")
         if not torch.isfinite(y).all():
@@ -888,7 +940,10 @@ def phase_sdist_one_rank(dev) -> dict:
                "solve_s": warm["solve_s"], "iters": iters,
                "certified": certified, "relres": relres,
                "single_device_iters": it1, "k3_launches": k3,
-               "k1v1_launches": v1, "halo_spmv_calls": calls}
+               "k1v1_launches": v1, "halo_spmv_calls": calls,
+               "launches_by_shape": shapes,
+               "vcycle_launches_by_shape": sorted(
+                   [*key, c] for key, c in per_cycle.items())}
         del dh, warm, cold, y
 
         one4 = sd.sdist_config5(ring, dev, n=SDIST_N4)
@@ -977,11 +1032,12 @@ def main() -> None:
     rec = phase_kernels(dev)
     phase_small_cycle(dev)
 
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches
+    from raptor_tpu_torch.ops.cuda.dia_kernel import launches, launches_by_shape
     from raptor_tpu_torch.structured.dia import cuda_calls
     from raptor_tpu_torch.utils.native import status
 
     launches.clear()
+    launches_by_shape.clear()
     cuda_calls.clear()
     main_rec = phase_main(dev)
     k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
@@ -992,6 +1048,8 @@ def main() -> None:
         raise AssertionError("the main path did not run through the kernels")
     if v1_main:
         raise AssertionError("the main path launched K1v1")
+    main_rec["launches_by_shape"] = by_shape("main 128^3", launches_by_shape,
+                                             ("K1", "K2"))
 
     from raptor_tpu_torch import AmgConfig, setup
 

@@ -3,17 +3,21 @@
 // Plain C interface, built by nvcc into a shared library and loaded with
 // ctypes (raptor_tpu_torch/ops/cuda/build.py, dia_kernel.py).  Every entry
 // point launches on the stream it is given, allocates nothing, and returns
-// cudaGetLastError() so the wrapper can raise on a refused launch.
+// cudaGetLastError() (or the error of the call that refused the launch) so
+// the wrapper can raise.
 //
-// K1 and K2 take x of shape (batch, n), contiguous; blockIdx.y is the
-// batch row and a grid-stride loop over blockIdx.x covers the n rows.  K1's
-// entry points also serve the K1v1 wrapper (zero-filled shifts of x, which
-// is what K1 computes).  K3 takes one vector and its two halos.
+// K1, K1v1 and K3 share one device code, the tiled plane-streaming kernel
+// below: K1 takes x of shape (batch, n), contiguous; K3 takes one vector
+// and its two halos; K1v1 is K1's entry point given planes that need not be
+// boundary-zeroed (K1 reads x as zero outside [0, n), which is K1v1's
+// function).  K2 takes x of shape (batch, n); blockIdx.y is the batch row
+// and a grid-stride loop over blockIdx.x covers the n rows.
 //
 // Rounding: each term is rounded as the plain PyTorch version rounds it
-// (__fmul_rn, then __fadd_rn, in the reference's offset order), so nvcc
-// cannot contract the pair into an FMA and the kernel agrees with the plain
-// version bit for bit.
+// (__fmul_rn, then __fadd_rn, in the reference's offset order, the first
+// term standing alone as the reference's sum starts), so nvcc cannot
+// contract the pair into an FMA and the kernels agree with their plain
+// versions bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,13 +27,14 @@
 #define RAPTOR_MAX_DIMS 4
 #define RAPTOR_THREADS 256
 #define RAPTOR_MAX_BLOCKS 8192
+// shared memory a block may take on Hopper (227 KB)
+#define RAPTOR_SMEM_MAX 232448
+// floats a window holds beyond tile + span: the 16-byte round-down of its
+// start (up to 3) and the last thread's extra float4 read (up to 4)
+#define RAPTOR_WIN_SLACK 7
+#define RAPTOR_MAX_DEVICES 64
 
 namespace {
-
-struct LinOffsets {
-  int n_off;
-  int lin[RAPTOR_MAX_OFF];
-};
 
 struct ConstStencil {
   int n_off;
@@ -41,46 +46,396 @@ struct ConstStencil {
   float c[RAPTOR_MAX_OFF];
 };
 
+// The tiled kernel's plan, built on the host from the wrapper's bands
+// (ops/cuda/dia_kernel.py::tile_plan).  A stage of shared memory holds one
+// window per band, window b at floats [base[b], base[b] + win[b]); offset k
+// reads its band's window from float koff[k] (+ the 16-byte remainder of
+// the window's start, which depends on x's address and klo[k]).
+struct TilePlan {
+  int n_off;
+  int n_band;
+  int tile;   // rows per tile
+  int stage;  // floats per stage (sum of win)
+  int koff[RAPTOR_MAX_OFF];  // base[band] + lin_k - lo[band]
+  int klo[RAPTOR_MAX_OFF];   // lo[band] of offset k
+  int lo[RAPTOR_MAX_OFF];    // a band's least linear offset
+  int base[RAPTOR_MAX_OFF];
+  int win[RAPTOR_MAX_OFF];
+};
+
+// one 16-byte plane load: read once, so not kept in L1, and fetched into
+// L2 in 256-byte pieces (the neighbouring threads' rows)
+__device__ __forceinline__ uint4 ld_plane(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
 // ---------------------------------------------------------------------------
-// K1: streamed-plane DIA SpMV.
-//
-// Replaces raptor_tpu/ops/pallas/dia_kernel.py::_dia_pallas_call_v2.
-//   y[b, i] = sum_k f32(data[k, i]) * x[b, i + lin_k]
-// The planes are boundary-zeroed, so a term whose column leaves [0, n) is
-// zero; the TPU kernel reads clamped neighbour blocks and lets the zero
-// plane annihilate them, but an out-of-range read is undefined behaviour
-// here, so the kernel tests 0 <= i + lin_k < n and reads nothing outside.
-//
-// Bound: device-memory bytes, about n_off * n * sizeof(T) for the planes
-// plus 4n for x and 4n for y per batch row (level 1 of the 128^3 problem
-// with bf16 planes: 15 * 1M * 2 B + 8 MB, about 40 MB a call).  Design: one
-// thread per row, so plane reads are coalesced; the n_off shifted x reads
-// are coalesced too and hit L1/L2 after the first offset.  Staging an x
-// window in shared memory (cp.async / TMA) and several rows per thread are
-// later work.
+// asynchronous global -> shared copies (cp.async, commit groups)
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(RAPTOR_THREADS)
-dia_planes_kernel(const T* __restrict__ data, const float* __restrict__ x,
-                  float* __restrict__ y, int64_t n, LinOffsets offs) {
-  const float* xb = x + static_cast<int64_t>(blockIdx.y) * n;
-  float* yb = y + static_cast<int64_t>(blockIdx.y) * n;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    float acc = 0.0f;
-    for (int k = 0; k < offs.n_off; ++k) {
-      const int64_t j = i + offs.lin[k];
-      if (j >= 0 && j < n) {
-        acc = __fadd_rn(acc, __fmul_rn(widen(data[k * n + i]), xb[j]));
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes from src, or 4 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// element misalignment of a float pointer against 16 bytes
+__device__ __forceinline__ int misalign4(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Stage one tile's windows into ``buf``.  Window b holds the elements
+// [a0, a0 + win[b]) of xw = [halo_left | x | halo_right], 0 beyond, where
+// a0 is row0 + lo[b] rounded down to a 16-byte boundary of x.  A chunk of
+// four inside x is one 16-byte copy; a chunk wholly beyond the halos is a
+// store of zeros; any other chunk at an edge is four 4-byte copies, each
+// from x, a halo, or zero-filled.
+__device__ __forceinline__ void stage_windows(
+    float* buf, const float* xb, const float* hl, const float* hr, int64_t n,
+    int64_t len_l, int64_t len_r, int64_t row0, const TilePlan& p) {
+  const int xmis = misalign4(xb);
+  for (int b = 0; b < p.n_band; ++b) {
+    const int64_t j0 = row0 + p.lo[b];
+    const int64_t a0 = j0 - ((xmis + j0) & 3);
+    float* dst = buf + p.base[b];
+    const int chunks = p.win[b] >> 2;
+    // chunks [c_lo, c_hi) lie inside x: 16-byte copies
+    const int64_t lo = a0 >= 0 ? 0 : (-a0 + 3) >> 2;
+    const int64_t hi = (n - a0) >> 2;
+    const int c_lo = static_cast<int>(lo < chunks ? lo : chunks);
+    const int c_hi = static_cast<int>(hi < c_lo ? c_lo : hi < chunks ? hi : chunks);
+    for (int c = c_lo + threadIdx.x; c < c_hi; c += blockDim.x) {
+      cp_async16(dst + 4 * c, xb + (a0 + 4 * c));
+    }
+    // the edge chunks: zeros where the whole chunk lies beyond the halos,
+    // else element by element from x, a halo, or zero
+    const int n_edge = c_lo + (chunks - c_hi);
+    for (int i = threadIdx.x; i < n_edge; i += blockDim.x) {
+      const int c = i < c_lo ? i : c_hi + (i - c_lo);
+      const int64_t g = a0 + 4 * c;
+      if (g + 4 <= -len_l || g >= n + len_r) {
+        *reinterpret_cast<float4*>(dst + 4 * c) = make_float4(0, 0, 0, 0);
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t j = g + e;
+        const float* from = xb;
+        bool ok = true;
+        if (j >= 0 && j < n) {
+          from = xb + j;
+        } else if (j < 0 && j >= -len_l) {
+          from = hl + (len_l + j);
+        } else if (j >= n && j - n < len_r) {
+          from = hr + (j - n);
+        } else {
+          ok = false;
+        }
+        cp_async4(dst + 4 * c + e, from, ok);
       }
     }
-    yb[i] = acc;
+  }
+}
+
+// R consecutive window floats from w + so; w is 16-byte aligned.  Aligned
+// float4 reads (R / 4 + 1 of them) and a shift by so & 3, which is the same
+// for the whole block, so the switch does not diverge.
+template <int R>
+__device__ __forceinline__ void window_read(const float* w, int so,
+                                            float (&out)[R]) {
+  const float4* w4 = reinterpret_cast<const float4*>(w + (so & ~3));
+  float v[R + 4];
+#pragma unroll
+  for (int j = 0; j <= R / 4; ++j) {
+    const float4 q = w4[j];
+    v[4 * j] = q.x;
+    v[4 * j + 1] = q.y;
+    v[4 * j + 2] = q.z;
+    v[4 * j + 3] = q.w;
+  }
+  switch (so & 3) {
+    case 0:
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[i] = v[i];
+      break;
+    case 1:
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[i] = v[i + 1];
+      break;
+    case 2:
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[i] = v[i + 2];
+      break;
+    default:
+#pragma unroll
+      for (int i = 0; i < R; ++i) out[i] = v[i + 3];
+      break;
+  }
+}
+
+// the R plane values of one 16-byte load, widened to fp32
+__device__ __forceinline__ void unpack(const uint4& q, float (&out)[4],
+                                       const float*) {
+  out[0] = __uint_as_float(q.x);
+  out[1] = __uint_as_float(q.y);
+  out[2] = __uint_as_float(q.z);
+  out[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack(const uint4& q, float (&out)[8],
+                                       const __nv_bfloat16*) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 (and K1v1) and K3: tiled plane-streaming DIA SpMV.
+//
+// K1 replaces raptor_tpu/ops/pallas/dia_kernel.py::_dia_pallas_call_v2:
+//   y[b, i] = sum_k f32(data[k, i]) * x[b, i + lin_k], x read as 0 outside
+//   [0, n) (the planes are boundary-zeroed, so that is also the TPU
+//   kernel's roll with clamped neighbour blocks).
+// K3 replaces _dia_pallas_call_v2x, the plane-sharded SpMV:
+//   y[i] = sum_k f32(data[k, i]) * xw(i + lin_k),  0 <= i < nl,
+//   xw = [halo_left | x | halo_right], 0 beyond (no wraparound); the TPU
+//   wrapper concatenates that window into a new x_ext on every call, here
+//   the three buffers stay apart.
+//
+// Bound: device-memory bytes.  The planes are read once (n_off * n *
+// sizeof(T): 15 bf16 planes of 1M rows at level 1 of the 128^3 problem, 7
+// fp32 planes of 16.8M rows at the 256^3 fine level on one rank), x and y
+// once each; at 4 B per fp32 operation pair the kernel sits far below the
+// card's compute rate.
+//
+// Design.  The one-row-per-thread kernel this replaces waited on one plane
+// load and one x load per term, behind a bounds branch per term, so the
+// compiler could not hoist later offsets' loads: 15 round trips in series at
+// level 1, latency- and not bandwidth-bound.  Here:
+//   * a block owns a tile of T consecutive rows, a thread R = 16 /
+//     sizeof(T) consecutive rows (8 for bf16 planes, 4 for fp32), so every
+//     plane read is one 16-byte load, and all n_off of them are issued
+//     before the first multiply (n_off is a template argument for the
+//     path's counts 3, 7, 15 and 27, fully unrolled; a generic body takes
+//     up to 32).  With 27 offsets the first nine are issued and each term
+//     summed issues the next: 27 loads held at once took 175 registers,
+//     one block per SM, too few warps to hide L2 latency on the mid-size
+//     levels, while the rolling loads fit 128 and two blocks;
+//   * x is read from shared memory: the host groups the sorted offsets into
+//     bands (a gap of more than T starts a new band; on a 3D grid a band is
+//     one value of the slowest axis' offset), and each band's window
+//     [row0 + lo, row0 + T + hi) is copied once per tile by 16-byte
+//     cp.async, instead of n_off reads of each x value through L1/L2.  The
+//     TPU kernel's single window of T + 2 * max|lin| rows (+-65536 at
+//     256^3) would not fit a block's 227 KB;
+//   * the staging writes zeros where the window leaves [0, n), or the halo
+//     values for K3, so the multiply-add loop has no branch;
+//   * the blocks are persistent (as many as fit on the SMs) and walk the
+//     tiles with two stages: tile t + 1's windows are in flight while tile
+//     t computes (and, for fp32 planes with up to 16 offsets, its plane
+//     loads too, into a second set of registers).
+// Alignment: window copies start at the 16-byte boundary at or below the
+// window's first element and the reads add back the remainder; the planes
+// take 16-byte loads only when the host found them aligned (VEC), else the
+// kernel loads them one element at a time; y takes vector stores where its
+// address allows.
+// ---------------------------------------------------------------------------
+template <typename T, int KMAX, bool EXACT, bool VEC>
+__device__ __forceinline__ void dia_tiles(
+    const T* __restrict__ data, const float* __restrict__ x,
+    const float* __restrict__ hl, const float* __restrict__ hr,
+    float* __restrict__ y, int64_t n, int64_t len_l, int64_t len_r,
+    int batch, const TilePlan& p) {
+  constexpr int R = 16 / sizeof(T);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n_off = EXACT ? KMAX : p.n_off;
+  const int64_t per_row = (n + p.tile - 1) / p.tile;
+  const int64_t n_tiles = per_row * batch;
+  const int r0 = threadIdx.x * R;
+
+  int64_t t = blockIdx.x;
+  {
+    const int64_t b = batch == 1 ? 0 : t / per_row;
+    stage_windows(smem, x + b * n, hl, hr, n, len_l, len_r,
+                  (t - b * per_row) * p.tile, p);
+  }
+  cp_async_commit();
+  // fp32 planes with up to 16 offsets are loaded one tile ahead: tile
+  // t + 1's plane loads are in flight while tile t computes (the registers
+  // of 27 offsets, or of bf16 planes at twice the rows, would not pay)
+  constexpr bool PIPE = VEC && sizeof(T) == 4 && KMAX <= 16;
+  // 27 offsets: ROLL_G plane loads in flight, the next issued as each term
+  // is summed, so a thread holds ROLL_G of them and two blocks fit an SM
+  constexpr bool ROLL = VEC && EXACT && KMAX > 16;
+  constexpr int ROLL_G = 9;
+  uint4 pn[PIPE ? KMAX : 1];
+  if constexpr (PIPE) {
+    const int64_t b0 = batch == 1 ? 0 : t / per_row;
+    const int64_t row0 = (t - b0 * per_row) * p.tile + r0;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if ((EXACT || k < n_off) && row0 < n) {
+        pn[k] = ld_plane(
+            data + static_cast<int64_t>(k) * n + row0);
+      }
+    }
+  }
+  int s = 0;
+  for (; t < n_tiles; t += gridDim.x) {
+    const int64_t tn = t + gridDim.x;
+    if (tn < n_tiles) {
+      const int64_t bn = batch == 1 ? 0 : tn / per_row;
+      stage_windows(smem + (s ^ 1) * p.stage, x + bn * n, hl, hr, n, len_l,
+                    len_r, (tn - bn * per_row) * p.tile, p);
+    }
+    cp_async_commit();  // possibly empty: keeps wait_group 1 exact
+
+    const int64_t b = batch == 1 ? 0 : t / per_row;
+    const int64_t row = (t - b * per_row) * p.tile + r0;
+    const bool active = row < n;
+    // every plane load of this tile before the window wait and the sums
+    uint4 pv[VEC ? KMAX : 1];
+    if constexpr (PIPE) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) pv[k] = pn[k];
+      if (tn < n_tiles) {
+        const int64_t bn = batch == 1 ? 0 : tn / per_row;
+        const int64_t rown = (tn - bn * per_row) * p.tile + r0;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if ((EXACT || k < n_off) && rown < n) {
+            pn[k] = ld_plane(
+                data + static_cast<int64_t>(k) * n + rown);
+          }
+        }
+      }
+    } else if constexpr (VEC) {
+#pragma unroll
+      for (int k = 0; k < (ROLL ? ROLL_G : KMAX); ++k) {
+        if ((EXACT || k < n_off) && active) {
+          pv[k] = ld_plane(
+              data + static_cast<int64_t>(k) * n + row);
+        }
+      }
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+
+    if (active) {
+      const float* xb = x + b * n;
+      const int xmis = misalign4(xb);
+      const float* w = smem + s * p.stage + r0;
+      float acc[R];
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if constexpr (ROLL) {
+          if (k + ROLL_G < KMAX) {
+            pv[k + ROLL_G] = ld_plane(
+                data + static_cast<int64_t>(k + ROLL_G) * n + row);
+          }
+        }
+        if (EXACT || k < n_off) {
+          float pk[R];
+          if constexpr (VEC) {
+            unpack(pv[k], pk, data);
+          } else {
+            const T* dk = data + static_cast<int64_t>(k) * n + row;
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              pk[i] = row + i < n ? widen(dk[i]) : 0.0f;
+            }
+          }
+          float xv[R];
+          window_read<R>(w, p.koff[k] + ((xmis + p.klo[k]) & 3), xv);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const float term = __fmul_rn(pk[i], xv[i]);
+            acc[i] = k == 0 ? term : __fadd_rn(acc[i], term);
+          }
+        }
+      }
+      float* yr = y + b * n + row;
+      if (row + R <= n && (reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
+#pragma unroll
+        for (int i = 0; i < R; i += 4) {
+          *reinterpret_cast<float4*>(yr + i) =
+              make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (row + i < n) yr[i] = acc[i];
+        }
+      }
+    }
+    __syncthreads();  // the stage just read is the next iteration's target
+    s ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int KMAX, bool EXACT, bool VEC>
+__global__ void __launch_bounds__(RAPTOR_THREADS)
+dia_tiles_kernel(const T* __restrict__ data, const float* __restrict__ x,
+                 const float* __restrict__ hl, const float* __restrict__ hr,
+                 float* __restrict__ y, int64_t n, int64_t len_l,
+                 int64_t len_r, int batch, const __grid_constant__ TilePlan p) {
+  dia_tiles<T, KMAX, EXACT, VEC>(data, x, hl, hr, y, n, len_l, len_r, batch,
+                                 p);
+}
+
+// the same body held to 128 registers, so that two blocks share an SM
+// (stating a minimum of one block instead changes ptxas's register choice
+// for the other counts, which is why this is a kernel of its own)
+template <typename T, int KMAX, bool EXACT, bool VEC>
+__global__ void __launch_bounds__(RAPTOR_THREADS, 2)
+dia_tiles_kernel_2(const T* __restrict__ data, const float* __restrict__ x,
+                   const float* __restrict__ hl, const float* __restrict__ hr,
+                   float* __restrict__ y, int64_t n, int64_t len_l,
+                   int64_t len_r, int batch,
+                   const __grid_constant__ TilePlan p) {
+  dia_tiles<T, KMAX, EXACT, VEC>(data, x, hl, hr, y, n, len_l, len_r, batch,
+                                 p);
+}
+
+// the rolling loads (27 offsets) take two blocks per SM, the rest one
+template <typename T, int KMAX, bool EXACT, bool VEC>
+constexpr auto tiles_kernel() {
+  if constexpr (VEC && EXACT && KMAX > 16) {
+    return dia_tiles_kernel_2<T, KMAX, EXACT, VEC>;
+  } else {
+    return dia_tiles_kernel<T, KMAX, EXACT, VEC>;
   }
 }
 
@@ -134,57 +489,6 @@ dia_const_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K3: DIA SpMV over a halo-extended window (the plane-sharded SpMV).
-//
-// Replaces raptor_tpu/ops/pallas/dia_kernel.py::_dia_pallas_call_v2x.
-//   y[i] = sum_k f32(data[k, i]) * xw(i + lin_k),  0 <= i < nl,
-//   xw = [halo_left | x | halo_right], 0 beyond (no wraparound)
-// The TPU wrapper concatenates [pad | halo_left | x | halo_right | pad] into
-// a new x_ext on every call, one extra pass over x.  Here the three buffers
-// stay apart: xw(j) reads x for 0 <= j < nl, halo_left[len_l + j] for
-// -len_l <= j < 0, halo_right[j - nl] for nl <= j < nl + len_r, and a term
-// whose column lies beyond all three is skipped (it is zero in the TPU
-// kernel's padded window).  Rounding as K1, so the kernel agrees with its
-// plain version bit for bit.
-//
-// Bound: device-memory bytes, n_off * nl * sizeof(T) for the planes plus
-// 4 (nl + LP + RP) for the window and 4 nl for y (the 256^3 fine level on
-// one rank: 7 fp32 planes of 16.8M rows plus x and y, about 0.6 GB a call).
-// Design: one thread per row and a grid-stride loop, so plane and x reads
-// are coalesced and the shifted x reads hit L1/L2 after the first offset;
-// the halo branches are taken only by the rows within LP / RP of the shard's
-// edges.  Staging the window in shared memory (cp.async / TMA) is later
-// work.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(RAPTOR_THREADS)
-dia_halo_kernel(const T* __restrict__ data, const float* __restrict__ x,
-                const float* __restrict__ halo_left,
-                const float* __restrict__ halo_right, float* __restrict__ y,
-                int64_t nl, int64_t len_l, int64_t len_r, LinOffsets offs) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < nl; i += stride) {
-    float acc = 0.0f;
-    for (int k = 0; k < offs.n_off; ++k) {
-      const int64_t j = i + offs.lin[k];
-      float v;
-      if (j >= 0 && j < nl) {
-        v = x[j];
-      } else if (j < 0 && j >= -len_l) {
-        v = halo_left[len_l + j];
-      } else if (j >= nl && j - nl < len_r) {
-        v = halo_right[j - nl];
-      } else {
-        continue;
-      }
-      acc = __fadd_rn(acc, __fmul_rn(widen(data[k * nl + i]), v));
-    }
-    y[i] = acc;
-  }
-}
-
 dim3 grid_for(int64_t n, int batch) {
   int64_t blocks = (n + RAPTOR_THREADS - 1) / RAPTOR_THREADS;
   if (blocks > RAPTOR_MAX_BLOCKS) blocks = RAPTOR_MAX_BLOCKS;
@@ -192,74 +496,181 @@ dim3 grid_for(int64_t n, int batch) {
   return dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
 }
 
-template <typename T>
-int launch_planes(const void* data, const void* x, void* y, int64_t n,
-                  int batch, const int* lins, int n_off, void* stream) {
-  if (n_off < 0 || n_off > RAPTOR_MAX_OFF || batch < 1 || batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// Fill and check a TilePlan from the wrapper's bands: every offset's reads
+// must stay inside its band's window, and two stages inside a block's
+// shared memory.
+int make_plan(TilePlan* p, const int* lins, int n_off, int tile, int rows,
+              int n_band, const int* band_lo, const int* band_win,
+              const int* band_of) {
+  if (n_off < 1 || n_off > RAPTOR_MAX_OFF || n_band < 1 || n_band > n_off ||
+      tile < rows || tile % rows != 0 || tile / rows > RAPTOR_THREADS) {
+    return 1;
   }
-  LinOffsets offs;
-  offs.n_off = n_off;
-  for (int k = 0; k < n_off; ++k) offs.lin[k] = lins[k];
-  dia_planes_kernel<T><<<grid_for(n, batch), RAPTOR_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const float*>(x),
-      static_cast<float*>(y), n, offs);
-  return static_cast<int>(cudaGetLastError());
+  p->n_off = n_off;
+  p->n_band = n_band;
+  p->tile = tile;
+  int64_t stage = 0;
+  for (int b = 0; b < n_band; ++b) {
+    if (band_win[b] < tile || band_win[b] % 4 != 0) return 1;
+    p->lo[b] = band_lo[b];
+    p->base[b] = static_cast<int>(stage);
+    p->win[b] = band_win[b];
+    stage += band_win[b];
+  }
+  if (2 * stage * static_cast<int64_t>(sizeof(float)) > RAPTOR_SMEM_MAX) {
+    return 1;
+  }
+  p->stage = static_cast<int>(stage);
+  for (int k = 0; k < n_off; ++k) {
+    const int b = band_of[k];
+    if (b < 0 || b >= n_band) return 1;
+    const int64_t d = static_cast<int64_t>(lins[k]) - band_lo[b];
+    if (d < 0 || d + tile + RAPTOR_WIN_SLACK > band_win[b]) return 1;
+    p->koff[k] = p->base[b] + static_cast<int>(d);
+    p->klo[k] = band_lo[b];
+  }
+  return 0;
+}
+
+template <typename T, int KMAX, bool EXACT, bool VEC>
+cudaError_t launch_tiles_as(const T* data, const float* x, const float* hl,
+                            const float* hr, float* y, int64_t n,
+                            int64_t len_l, int64_t len_r, int batch,
+                            const TilePlan& p, cudaStream_t stream) {
+  auto kern = tiles_kernel<T, KMAX, EXACT, VEC>();
+  constexpr int R = 16 / sizeof(T);
+  const int threads = p.tile / R;
+  const int smem = 2 * p.stage * static_cast<int>(sizeof(float));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  // above 48 KB a block's shared memory must be allowed first: once per
+  // kernel and device, before any launch (so never inside a graph capture
+  // that the first, eager call did not precede)
+  static bool smem_allowed[RAPTOR_MAX_DEVICES] = {};
+  if (dev < 0 || dev >= RAPTOR_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!smem_allowed[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RAPTOR_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    smem_allowed[dev] = true;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t tiles = (n + p.tile - 1) / p.tile * batch;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  const int64_t blocks = tiles < resident ? tiles : resident;
+  kern<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      data, x, hl, hr, y, n, len_l, len_r, batch, p);
+  return cudaGetLastError();
 }
 
 template <typename T>
-int launch_halo(const void* data, const void* x, const void* halo_left,
-                const void* halo_right, void* y, int64_t nl, int64_t len_l,
-                int64_t len_r, const int* lins, int n_off, void* stream) {
-  if (n_off < 0 || n_off > RAPTOR_MAX_OFF || nl < 1 || len_l < 0 ||
-      len_r < 0) {
+int launch_tiles(const void* data, const void* x, const void* hl,
+                 const void* hr, void* y, int64_t n, int64_t len_l,
+                 int64_t len_r, int batch, const int* lins, int n_off,
+                 int tile, int n_band, const int* band_lo,
+                 const int* band_win, const int* band_of, int vec,
+                 void* stream) {
+  constexpr int R = 16 / sizeof(T);
+  TilePlan p;
+  if (n < 1 || n >= (int64_t(1) << 31) || batch < 1 || len_l < 0 ||
+      len_r < 0 ||
+      make_plan(&p, lins, n_off, tile, R, n_band, band_lo, band_win,
+                band_of) != 0 ||
+      (vec && (n % R != 0 ||
+               (reinterpret_cast<uintptr_t>(data) & 15) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LinOffsets offs;
-  offs.n_off = n_off;
-  for (int k = 0; k < n_off; ++k) offs.lin[k] = lins[k];
-  dia_halo_kernel<T><<<grid_for(nl, 1), RAPTOR_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const float*>(x),
-      static_cast<const float*>(halo_left),
-      static_cast<const float*>(halo_right), static_cast<float*>(y), nl, len_l,
-      len_r, offs);
-  return static_cast<int>(cudaGetLastError());
+  const T* d = static_cast<const T*>(data);
+  const float* xp = static_cast<const float*>(x);
+  const float* hlp = static_cast<const float*>(hl);
+  const float* hrp = static_cast<const float*>(hr);
+  float* yp = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (!vec) {
+    e = launch_tiles_as<T, RAPTOR_MAX_OFF, false, false>(
+        d, xp, hlp, hrp, yp, n, len_l, len_r, batch, p, s);
+  } else {
+    switch (n_off) {
+      case 3:
+        e = launch_tiles_as<T, 3, true, true>(d, xp, hlp, hrp, yp, n, len_l,
+                                              len_r, batch, p, s);
+        break;
+      case 7:
+        e = launch_tiles_as<T, 7, true, true>(d, xp, hlp, hrp, yp, n, len_l,
+                                              len_r, batch, p, s);
+        break;
+      case 15:
+        e = launch_tiles_as<T, 15, true, true>(d, xp, hlp, hrp, yp, n, len_l,
+                                               len_r, batch, p, s);
+        break;
+      case 27:
+        e = launch_tiles_as<T, 27, true, true>(d, xp, hlp, hrp, yp, n, len_l,
+                                               len_r, batch, p, s);
+        break;
+      default:
+        e = launch_tiles_as<T, RAPTOR_MAX_OFF, false, true>(
+            d, xp, hlp, hrp, yp, n, len_l, len_r, batch, p, s);
+        break;
+    }
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" {
 
+// K1 (and K1v1).  The plan (tile, bands) comes from the wrapper's
+// tile_plan: band_lo[b] and band_win[b] for each of n_band bands,
+// band_of[k] for each offset; vec asks for 16-byte plane loads.
 int raptor_dia_planes_f32(const void* data, const void* x, void* y, int64_t n,
-                          int batch, const int* lins, int n_off,
-                          void* stream) {
-  return launch_planes<float>(data, x, y, n, batch, lins, n_off, stream);
+                          int batch, const int* lins, int n_off, int tile,
+                          int n_band, const int* band_lo, const int* band_win,
+                          const int* band_of, int vec, void* stream) {
+  return launch_tiles<float>(data, x, nullptr, nullptr, y, n, 0, 0, batch,
+                             lins, n_off, tile, n_band, band_lo, band_win,
+                             band_of, vec, stream);
 }
 
 int raptor_dia_planes_bf16(const void* data, const void* x, void* y, int64_t n,
-                           int batch, const int* lins, int n_off,
+                           int batch, const int* lins, int n_off, int tile,
+                           int n_band, const int* band_lo,
+                           const int* band_win, const int* band_of, int vec,
                            void* stream) {
-  return launch_planes<__nv_bfloat16>(data, x, y, n, batch, lins, n_off,
-                                      stream);
+  return launch_tiles<__nv_bfloat16>(data, x, nullptr, nullptr, y, n, 0, 0,
+                                     batch, lins, n_off, tile, n_band,
+                                     band_lo, band_win, band_of, vec, stream);
 }
 
 // K3: halo_left holds len_l values, halo_right len_r (either may be 0).
 int raptor_dia_halo_f32(const void* data, const void* x, const void* halo_left,
                         const void* halo_right, void* y, int64_t nl,
                         int64_t len_l, int64_t len_r, const int* lins,
-                        int n_off, void* stream) {
-  return launch_halo<float>(data, x, halo_left, halo_right, y, nl, len_l,
-                            len_r, lins, n_off, stream);
+                        int n_off, int tile, int n_band, const int* band_lo,
+                        const int* band_win, const int* band_of, int vec,
+                        void* stream) {
+  return launch_tiles<float>(data, x, halo_left, halo_right, y, nl, len_l,
+                             len_r, 1, lins, n_off, tile, n_band, band_lo,
+                             band_win, band_of, vec, stream);
 }
 
 int raptor_dia_halo_bf16(const void* data, const void* x,
                          const void* halo_left, const void* halo_right,
                          void* y, int64_t nl, int64_t len_l, int64_t len_r,
-                         const int* lins, int n_off, void* stream) {
-  return launch_halo<__nv_bfloat16>(data, x, halo_left, halo_right, y, nl,
-                                    len_l, len_r, lins, n_off, stream);
+                         const int* lins, int n_off, int tile, int n_band,
+                         const int* band_lo, const int* band_win,
+                         const int* band_of, int vec, void* stream) {
+  return launch_tiles<__nv_bfloat16>(data, x, halo_left, halo_right, y, nl,
+                                     len_l, len_r, 1, lins, n_off, tile,
+                                     n_band, band_lo, band_win, band_of, vec,
+                                     stream);
 }
 
 // offs: n_off * nd ints, row-major (offset k, dimension a).

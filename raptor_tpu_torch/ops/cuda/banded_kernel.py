@@ -20,7 +20,8 @@ versions are vectorised over all tiles.
 
 A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises; there is no fallback.  ``launches`` counts
-kernel launches (plain-version calls are not counted).
+kernel launches (plain-version calls are not counted), ``launches_by_shape``
+counts them by (kernel, n, K, vals dtype).
 """
 
 from __future__ import annotations
@@ -35,11 +36,19 @@ from raptor_tpu_torch.utils.df64 import df_add, two_prod
 
 __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_rect",
            "banded_spmv_rect_ref", "banded_df64_residual",
-           "banded_df64_residual_ref", "live_slots", "launches"]
+           "banded_df64_residual_ref", "live_slots", "launches", "launches_by_shape"]
 
 MAX_SLOTS = 256  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
 
 launches: collections.Counter = collections.Counter()  # keys "K4", "K5", "K6"
+# keys (kernel, n, K, vals dtype name)
+launches_by_shape: collections.Counter = collections.Counter()
+
+
+def _count(key: str, plan: dict) -> None:
+    launches[key] += 1
+    launches_by_shape[(key, plan["n"], plan["K"],
+                       str(plan["vals"].dtype).removeprefix("torch."))] += 1
 
 
 def live_slots(plan: dict) -> list:
@@ -190,7 +199,7 @@ def banded_spmv(plan: dict, x: torch.Tensor) -> torch.Tensor:
                 _slots(live), len(live), _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {rc}")
-    launches["K4"] += 1
+    _count("K4", plan)
     return y
 
 
@@ -214,7 +223,7 @@ def banded_spmv_rect(plan: dict, x: torch.Tensor) -> torch.Tensor:
                 _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"K6 launch failed: cudaError {rc}")
-    launches["K6"] += 1
+    _count("K6", plan)
     return y
 
 
@@ -252,5 +261,5 @@ def banded_df64_residual(plan: dict, vals_lo, xh, bh, bl, v):
             _slots(live), len(live), _stream(xh.device))
     if rc != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {rc}")
-    launches["K5"] += 1
+    _count("K5", plan)
     return rh, rl

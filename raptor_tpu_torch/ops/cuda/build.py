@@ -97,16 +97,19 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # the tiled kernel's plan: lins, n_off, tile, n_band, band_lo,
+    # band_win, band_of, vec
+    plan = [p, i32, i32, i32, p, p, p, i32]
     for name in ("raptor_dia_planes_f32", "raptor_dia_planes_bf16"):
         fn = getattr(lib, name)
-        # data, x, y, n, batch, lins, n_off, stream
-        fn.argtypes = [p, p, p, i64, i32, p, i32, p]
+        # data, x, y, n, batch, plan..., stream
+        fn.argtypes = [p, p, p, i64, i32, *plan, p]
         fn.restype = i32
     for name in ("raptor_dia_halo_f32", "raptor_dia_halo_bf16"):
         fn = getattr(lib, name)
-        # data, x, halo_left, halo_right, y, nl, len_l, len_r, lins, n_off,
+        # data, x, halo_left, halo_right, y, nl, len_l, len_r, plan...,
         # stream
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, p, i32, p]
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, *plan, p]
         fn.restype = i32
     # x, y, n, batch, dims, nd, offs, lins, consts, n_off, stream
     lib.raptor_dia_const_f32.argtypes = [p, p, i64, i32, p, i32, p, p, p, i32,

@@ -19,27 +19,122 @@ returns its plain version (``dia_spmv_v2_ref``, ``dia_spmv_v1_ref``,
 ``dia_spmv_const_ref``, ``dia_spmv_halo_ref``); given CUDA tensors it
 launches its kernel or raises — there is no fallback.  ``launches`` counts
 kernel launches (plain-version calls are not counted), so a run can show
-that its path went through the kernels.
+that its path went through the kernels; ``launches_by_shape`` counts them
+by (kernel, n, n_off, plane dtype).
+
+K1, K1v1 and K3 launch one tiled kernel whose host-side plan
+(``tile_plan``: row tile, offset bands, window sizes, whether the planes
+take 16-byte loads) is built here; ``dia_spmv_tiled_ref`` is a plain
+emulation of that kernel's algorithm, window by window, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
            "dia_spmv_const", "dia_spmv_const_ref", "dia_spmv_halo",
-           "dia_spmv_halo_ref", "halo_reach", "in_grid_mask", "launches"]
+           "dia_spmv_halo_ref", "dia_spmv_tiled_ref", "halo_reach",
+           "in_grid_mask", "launches", "launches_by_shape", "tile_plan",
+           "TilePlan"]
 
 MAX_OFF = 32
 MAX_DIMS = 4
 MAX_BATCH = 65535
+# the tiled kernel (csrc/dia_kernel.cu): threads per block at most and at
+# least, a block's shared memory on Hopper (227 KB), and the floats a window
+# holds beyond tile + span (RAPTOR_WIN_SLACK: the 16-byte round-down of its
+# start and the last thread's extra float4 read)
+TILE_THREADS, MIN_TILE_THREADS = 256, 32
+SMEM_BYTES = 232448
+WIN_SLACK = 7
+H100_SMS = 132
 
 # keys "K1", "K1v1", "K2", "K3"
 launches: collections.Counter = collections.Counter()
+# keys (kernel, n, n_off, plane dtype name)
+launches_by_shape: collections.Counter = collections.Counter()
+
+
+class TilePlan(NamedTuple):
+    """The tiled kernel's launch plan for one operator shape."""
+    tile: int                         # rows per tile (a block's rows)
+    rows: int                         # rows per thread: 16 bytes of planes
+    vec: bool                         # 16-byte plane loads (planes aligned)
+    bands: Tuple[Tuple[int, int], ...]  # (lo, hi) linear offsets per band
+    band_of: Tuple[int, ...]          # each offset's band, in offset order
+    windows: Tuple[int, ...]          # floats staged per band and tile
+    smem_bytes: int                   # two stages of windows
+
+
+def _bands(lins: Sequence[int], tile: int) -> Tuple[Tuple[int, int], ...]:
+    """Sorted distinct offsets, grouped: a gap of more than ``tile`` starts
+    a new band, since one window over the gap then costs fewer floats than
+    two windows of ``tile`` each."""
+    u = sorted(set(int(o) for o in lins))
+    bands = [[u[0], u[0]]]
+    for o in u[1:]:
+        if o - bands[-1][1] > tile:
+            bands.append([o, o])
+        else:
+            bands[-1][1] = o
+    return tuple((lo, hi) for lo, hi in bands)
+
+
+def _window(tile: int, lo: int, hi: int) -> int:
+    """Floats of one band's window: the tile, the band's span and the
+    slack, rounded up to whole 16-byte chunks."""
+    return -(-(tile + hi - lo + WIN_SLACK) // 4) * 4
+
+
+def tile_plan(lins: Sequence[int], n: int, itemsize: int,
+              planes_aligned: bool = True, batch: int = 1,
+              n_sm: int = H100_SMS) -> TilePlan:
+    """The host-side plan of the tiled kernel for ``n`` rows, offsets
+    ``lins``, planes of ``itemsize`` bytes (4 fp32, 2 bf16) and ``batch``
+    vectors.
+
+    A thread takes 16 bytes of each plane (``rows`` = 16 / itemsize rows),
+    a block of up to 256 threads one tile.  The tile halves, down to 32
+    threads, while two stages of the bands' windows exceed a block's shared
+    memory, or while there are fewer tiles than SMs (a short level then
+    still spreads over the card).  The planes take 16-byte loads when
+    ``planes_aligned`` (their base address is) and n is a multiple of
+    ``rows``, so that every plane's rows stay aligned."""
+    return _tile_plan(tuple(int(o) for o in lins), int(n), int(itemsize),
+                      bool(planes_aligned), int(batch), int(n_sm))
+
+
+@functools.lru_cache(maxsize=1024)
+def _tile_plan(lins: Tuple[int, ...], n: int, itemsize: int,
+               planes_aligned: bool, batch: int, n_sm: int) -> TilePlan:
+    if not 0 < len(lins) <= MAX_OFF or n < 1 or itemsize not in (2, 4):
+        raise ValueError(f"no tile plan for {len(lins)} offsets, n={n}, "
+                         f"itemsize {itemsize}")
+    rows = 16 // itemsize
+    tile = rows * TILE_THREADS
+    while True:
+        bands = _bands(lins, tile)
+        windows = tuple(_window(tile, lo, hi) for lo, hi in bands)
+        smem = 2 * 4 * sum(windows)
+        tiles = batch * -(-n // tile)
+        if tile == rows * MIN_TILE_THREADS or (
+                smem <= SMEM_BYTES and tiles >= n_sm):
+            break
+        tile //= 2
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{len(lins)} offsets need {smem} bytes of shared "
+                         f"memory at the least tile {tile}")
+    band_of = tuple(next(b for b, (lo, hi) in enumerate(bands)
+                         if lo <= o <= hi) for o in lins)
+    return TilePlan(tile=tile, rows=rows,
+                    vec=planes_aligned and n % rows == 0, bands=bands,
+                    band_of=band_of, windows=windows, smem_bytes=smem)
 
 
 def _strides(dims: Sequence[int]) -> Tuple[int, ...]:
@@ -129,6 +224,57 @@ def dia_spmv_halo_ref(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     return y
 
 
+def dia_spmv_tiled_ref(data: torch.Tensor, lins: Sequence[int],
+                       x: torch.Tensor, halo_left: Optional[torch.Tensor] = None,
+                       halo_right: Optional[torch.Tensor] = None,
+                       plan: Optional[TilePlan] = None,
+                       x_misalign: int = 0) -> torch.Tensor:
+    """Plain emulation of the tiled kernel (K1, K1v1, K3): for each tile of
+    ``plan.tile`` rows and each band, the window ``[a0, a0 + window)`` of
+    ``xw = [halo_left | x | halo_right]`` (0 beyond) is staged, ``a0`` being
+    the window's first element rounded down to a 16-byte boundary of x
+    (``x_misalign``: x's start, in elements past such a boundary); each row
+    then sums ``f32(data[k, i]) * window[...]`` in offset order, the first
+    term standing alone.  Without halos it is K1's (and K1v1's) function,
+    with them K3's.  x is (n,) or (B, n)."""
+    n = data.shape[1]
+    lins = [int(o) for o in lins]
+    if plan is None:
+        plan = tile_plan(tuple(lins), n, data.element_size(),
+                         batch=1 if x.dim() == 1 else x.shape[0])
+    hl = x.new_zeros(0) if halo_left is None else halo_left.to(x.dtype)
+    hr = x.new_zeros(0) if halo_right is None else halo_right.to(x.dtype)
+    if x.dim() == 1:
+        return dia_spmv_tiled_ref(data, lins, x[None], hl, hr, plan,
+                                  x_misalign)[0]
+    # xw over [-len(hl) - reach, n + len(hr) + reach): every window lies
+    # inside, and is 0 beyond the halos
+    pad = max(abs(o) for o in lins) + plan.tile + WIN_SLACK + 4
+    lo_end = hl.shape[0] + pad
+    y = torch.empty_like(x)
+    for b in range(x.shape[0]):
+        xw = torch.cat([x.new_zeros(pad), hl, x[b], hr, x.new_zeros(pad)])
+        mis = (x_misalign + b * n) % 4
+        for row0 in range(0, n, plan.tile):
+            rows = min(plan.tile, n - row0)
+            wins = []
+            for (lo, _), width in zip(plan.bands, plan.windows):
+                j0 = row0 + lo
+                a0 = j0 - (mis + j0) % 4
+                wins.append(xw[lo_end + a0:lo_end + a0 + width])
+            acc = None
+            for k, o in enumerate(lins):
+                lo = plan.bands[plan.band_of[k]][0]
+                # the kernel's read start: the offset's place in its band,
+                # plus the window's 16-byte remainder (row0 % 4 == 0)
+                start = o - lo + (mis + lo) % 4
+                win = wins[plan.band_of[k]][start:start + rows]
+                term = data[k, row0:row0 + rows] * win
+                acc = term if acc is None else acc + term
+            y[b, row0:row0 + rows] = acc
+    return y
+
+
 def dia_spmv_const_ref(consts: Sequence[float], offsets, dims,
                        x: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: the roll sum with each plane synthesized as
@@ -182,6 +328,35 @@ def _check_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
         raise ValueError(f"{n_off} planes, {len(lins)} offsets (max {MAX_OFF})")
 
 
+@functools.lru_cache(maxsize=64)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_args(lins: Tuple[int, ...], n: int, itemsize: int, aligned: bool,
+               batch: int, n_sm: int) -> tuple:
+    """The C arguments of a tiled launch: lins, n_off, tile, n_band,
+    band_lo, band_win, band_of, vec."""
+    p = _tile_plan(lins, n, itemsize, aligned, batch, n_sm)
+    return (_int_array(lins), len(lins), p.tile, len(p.bands),
+            _int_array([lo for lo, _ in p.bands]), _int_array(p.windows),
+            _int_array(p.band_of), int(p.vec))
+
+
+def _tiled_args(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
+                batch: int) -> tuple:
+    return _plan_args(tuple(int(o) for o in lins), data.shape[1],
+                      data.element_size(), data.data_ptr() % 16 == 0, batch,
+                      _n_sm(x.device))
+
+
+def _count(key: str, data: torch.Tensor) -> None:
+    launches[key] += 1
+    launches_by_shape[(key, data.shape[1], data.shape[0],
+                       str(data.dtype).removeprefix("torch."))] += 1
+
+
 def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
                    key: str) -> torch.Tensor:
     """K1's device code on CUDA tensors; counted under ``key``."""
@@ -197,10 +372,10 @@ def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch,
-                _int_array(lins), n_off, stream)
+                *_tiled_args(data, lins, x, batch), stream)
     if rc != 0:
         raise RuntimeError(f"{key} launch failed: cudaError {rc}")
-    launches[key] += 1
+    _count(key, data)
     return y
 
 
@@ -258,11 +433,11 @@ def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), hl.data_ptr(), hr.data_ptr(),
-                y.data_ptr(), nl, hl.shape[0], hr.shape[0], _int_array(lins),
-                n_off, stream)
+                y.data_ptr(), nl, hl.shape[0], hr.shape[0],
+                *_tiled_args(data, lins, x, 1), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")
-    launches["K3"] += 1
+    _count("K3", data)
     return y
 
 
@@ -301,4 +476,5 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     launches["K2"] += 1
+    launches_by_shape[("K2", n, n_off, "float32")] += 1
     return y

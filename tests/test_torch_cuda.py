@@ -33,10 +33,13 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-6
 CUBE = list(itertools.product((-1, 0, 1), repeat=3))
-OFFSETS = {3: [(-1, 0, 0), (0, 0, 0), (1, 0, 0)],
+OFFSETS = {1: [(0, 1, 0)],
+           3: [(-1, 0, 0), (0, 0, 0), (1, 0, 0)],
            7: [o for o in CUBE if sum(map(abs, o)) <= 1],
            15: [o for o in CUBE if abs(o[1]) + abs(o[2]) <= 1],
-           27: CUBE}
+           27: CUBE,
+           # the cube and five offsets reaching two cells
+           32: CUBE + [(-2, 0, 0), (0, -2, 0), (0, 0, 2), (0, 2, 0), (2, 0, 0)]}
 CFG = dict(smoother="cheb4", cheb_degree=2, coarse_size=64, max_levels=40)
 
 
@@ -133,6 +136,85 @@ def test_k1v1_kernel_matches_plain(batch, dtype):
     y = tk.dia_spmv_v1(data, lins, x)
     assert tk.launches["K1v1"] == before + 1
     assert rel_err(y.cpu(), tk.dia_spmv_v1_ref(data, lins, x).cpu()) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernel (K1, K1v1, K3) at its edges: bit for bit
+# ---------------------------------------------------------------------------
+
+def _view_at(t: torch.Tensor, skip: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``skip`` elements into a
+    larger buffer, so its address is off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    v = buf[skip:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# (dims, batch, x misalignment, planes misaligned): odd n, so plane k >= 1
+# is off 16 bytes; an x view at an odd element offset; a level shorter
+# than one tile; a batch of 3 whose rows start at every 16-byte remainder;
+# planes whose base address is off 16 bytes
+EDGES = {"odd n": ((7, 9, 11), None, 0, False),
+         "x view": ((8, 16, 16), None, 1, False),
+         "short": ((3, 5, 7), None, 3, False),
+         "batch 3": ((5, 7, 9), 3, 2, False),
+         "planes view": ((8, 8, 16), None, 0, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_off", [1, 7, 27, 32])
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_k1_tiles_at_the_edges_bit_for_bit(edge, n_off, dtype):
+    dev = cuda_device()
+    dims, batch, mis, planes_view = EDGES[edge]
+    data, lins = _planes(dims, OFFSETS[n_off], dtype, dev)
+    n = data.shape[1]
+    if planes_view:
+        data = _view_at(data, 1)
+    x = _view_at(_x(n, dev, batch), mis)
+    plan = tk.tile_plan(lins, n, data.element_size(), data.data_ptr() % 16 == 0,
+                        batch or 1, torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    assert plan.vec == (not planes_view and n % plan.rows == 0)
+    if edge == "short":
+        assert n < plan.tile
+    before = tk.launches["K1"]
+    y = tk.dia_spmv_v2(data, lins, x)
+    assert tk.launches["K1"] == before + 1
+    assert torch.equal(y.cpu(), tk.dia_spmv_v2_ref(data, lins, x).cpu())
+    y1 = tk.dia_spmv_v1(data, lins, x)
+    assert torch.equal(y1.cpu(), tk.dia_spmv_v1_ref(data, lins, x).cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", ["empty", "reach", "longer"])
+@pytest.mark.parametrize("edge", ["odd n", "x view", "short"])
+def test_k3_tiles_at_the_edges_bit_for_bit(edge, halo, dtype):
+    dev = cuda_device()
+    dims, _, mis, _ = EDGES[edge]
+    data, lins = _planes(dims, OFFSETS[27], dtype, dev, seed=7)
+    n = data.shape[1]
+    LP, RP = tk.halo_reach(lins)
+    lengths = {"empty": (0, 0), "reach": (LP, RP),
+               "longer": (LP + 301, RP + 33)}[halo]
+    x = _view_at(_x(n, dev, seed=8), mis)
+    hl = _view_at(_x(lengths[0], dev, seed=9), 1)
+    hr = _view_at(_x(lengths[1], dev, seed=10), 2)
+    before = tk.launches["K3"]
+    y = tk.dia_spmv_halo(data, lins, x, hl, hr)
+    assert tk.launches["K3"] == before + 1
+    assert torch.equal(y.cpu(), tk.dia_spmv_halo_ref(data, lins, x, hl, hr).cpu())
+
+
+def test_tiled_launches_count_by_shape():
+    dev = cuda_device()
+    data, lins = _planes((8, 8, 16), OFFSETS[7], torch.bfloat16, dev)
+    x = _x(data.shape[1], dev)
+    key = ("K1", data.shape[1], 7, "bfloat16")
+    before = tk.launches_by_shape[key]
+    tk.dia_spmv_v2(data, lins, x)
+    assert tk.launches_by_shape[key] == before + 1
 
 
 def test_k3_refuses_what_it_does_not_take():
