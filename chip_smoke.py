@@ -9,9 +9,9 @@ Phases, each of which raises on failure (there is no CPU path):
    versions; TF32 off, so the dense coarse solve stays full fp32;
 2. build: nvcc compiles raptor_tpu_torch/csrc/*.cu into build/raptor_tpu_torch;
 3. kernel equality: K1 and K2 against their plain PyTorch versions on the
-   same CUDA tensors, at the shapes the main path gives them (K1 timed
-   L2-warm and L2-cold at each), and one small V-cycle on the card against
-   the same cycle on the CPU;
+   same CUDA tensors, at the shapes the main path gives them (each timed
+   L2-warm and L2-cold; K2 also at 256^3), and one small V-cycle on the
+   card against the same cycle on the CPU;
 4. main path: 3D 7-point Poisson at 128^3 -> build_structured_hierarchy
    (cheb4 degree 2, coarse_size 2048) -> cast_hierarchy(bf16) -> V-cycles
    -> structured_solve_refined, checked by a host fp64 residual;
@@ -30,8 +30,9 @@ Phases, each of which raises on failure (there is no CPU path):
    kernel at least once (counts set to 0 just before phase 7, read just
    after it);
 9. the same path at shuffled 96^3 with every level built on the host, and
-   the same proof on its own counts; then K4 and K6 on the 96^3 level 0
-   against their plain versions;
+   the same proof on its own counts; then K4 on every banded level and K6
+   on level 0 of the 96^3 hierarchy against their plain versions, K4 timed
+   at each;
 10. halo kernel equality: K3 against its plain version at the shapes the
     sharded path gives it (the 256^3 fine level with 65536-row halos, a
     15- and a 27-offset coarse level, the 4-rank 128^3 block, bf16
@@ -48,8 +49,8 @@ Phases, each of which raises on failure (there is no CPU path):
     residual and its iterations against one rank at 128^3.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
-K6 also at every shape of the 48^3 path, for the launches-by-shape
-ranking), one
+K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
+variant K4's launch plan took, for the launches-by-shape ranking), one
 cuSPARSE CSR matvec of the same operator (torch.mv; none for K5), and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s (H100 SXM, NVIDIA's data sheet).
@@ -251,8 +252,10 @@ def _check(name, y, y_ref) -> float:
 
 def phase_kernels(dev) -> dict:
     from raptor_tpu_torch.ops.cuda.dia_kernel import (
-        dia_spmv_const, dia_spmv_const_ref, dia_spmv_v2, dia_spmv_v2_ref)
+        const_tile_plan, dia_spmv_const, dia_spmv_const_ref, dia_spmv_v2,
+        dia_spmv_v2_ref)
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     st = stencil_7pt()
     fine = (SIZE,) * 3
@@ -270,20 +273,38 @@ def phase_kernels(dev) -> dict:
 
     from raptor_tpu_torch.structured.dia import dia_from_stencil
 
-    # K2: the const fine level, and a batched small grid
-    for dims, batch in ((fine, None), ((16, 16, 16), 4)):
+    # K2: the const fine level, a batched small grid, and 256^3 (134 MB of
+    # x and y: outside the L2)
+    for dims, batch in ((fine, None), ((16, 16, 16), 4), ((2 * SIZE,) * 3, None)):
         x = vec(int(np.prod(dims)), batch)
         y = dia_spmv_const(consts, off7, dims, x)
         y_ref = dia_spmv_const_ref(consts, off7, dims, x)
         name = f"K2 {dims} 7 offsets" + (f" batch {batch}" if batch else "")
         rec["K2"]["err"] = max(rec["K2"]["err"], _check(name, y, y_ref))
-        if batch is None:
-            rec["K2"]["ms"] = cuda_ms(lambda: dia_spmv_const(consts, off7, dims, x))
+        del y, y_ref
+        if batch is not None:
+            continue
+        warm = cuda_ms(lambda: dia_spmv_const(consts, off7, dims, x))
+        cold = cuda_ms(lambda: dia_spmv_const(consts, off7, dims, x),
+                       flush_l2=True)
+        plan = const_tile_plan(off7, dims, 1, n_sm)
+        print(f"[kernel] {name}: {warm * 1e3:.1f} us L2-warm, {cold * 1e3:.1f} "
+              f"us L2-cold, bound {bound(8 * x.numel(), 0)[0] * 1e3:.1f} us "
+              f"({plan.rows} rows a thread, tiles of {plan.tile}; device "
+              f"time, graph replay)")
+        if dims == fine:
+            rec["K2"]["ms"], rec["K2"]["cold_ms"] = warm, cold
             rec["K2"]["plain_ms"] = cuda_ms(
                 lambda: dia_spmv_const_ref(consts, off7, dims, x))
+            rec["K2"]["cold_plain_ms"] = cuda_ms(
+                lambda: dia_spmv_const_ref(consts, off7, dims, x), flush_l2=True)
             Af = dia_from_stencil(st, dims, device=dev)
             yardsticks(rec["K2"], dia_csr(Af.data, Af.linear_offsets(), Af.n),
                        x, 8 * Af.n)
+            del Af
+        else:
+            rec["K2"]["ms_256"], rec["K2"]["cold_ms_256"] = warm, cold
+        del x
 
     # K1: level 1 (bf16, fp32), level 2 (bf16), a fine-level Pt, a batch
     cases = [("level 1", lev1, off15, torch.bfloat16, None),
@@ -462,10 +483,34 @@ def shuffled_poisson(nx: int, scale: float = 1.0) -> sp.csr_matrix:
 
 
 def _banded_bytes(plan: dict, itemsize: int) -> int:
-    """Bytes a K4/K6 call must move: vals + pidx, x (or the transfer's
-    x span) and y."""
-    n, K = plan["n"], plan["K"]
-    return K * n * (itemsize + 4) + 4 * n + 4 * plan.get("n_cols", n)
+    """Bytes a K4/K6 call must move: vals + pidx of the live slots (the
+    others are never read), x (or the transfer's x span) and y."""
+    from raptor_tpu_torch.ops.cuda.banded_kernel import live_slots
+
+    n = plan["n"]
+    return (len(live_slots(plan)) * n * (itemsize + 4) + 4 * n
+            + 4 * plan.get("n_cols", n))
+
+
+def _k4_line(dev, name: str, plan: dict, x) -> tuple:
+    """Time K4 on ``plan`` L2-warm and L2-cold and print the line of that
+    shape with its bound and the variant its launch plan took."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+
+    lp = bk.banded_launch_plan(
+        plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    live = len(bk.live_slots(plan))
+    warm = cuda_ms(lambda: bk.banded_spmv(plan, x))
+    cold = cuda_ms(lambda: bk.banded_spmv(plan, x), flush_l2=True)
+    bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
+                2 * live * plan["n"])[0]
+    variant = (f"staged, {lp.pages} of {(plan['tile'] + 2 * plan['Wp']) // 1024} "
+               f"pages, {lp.smem_bytes} B" if lp.staged else "direct")
+    print(f"[banded] {name} n={plan['n']} live {live}: {warm * 1e3:.1f} us "
+          f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us; "
+          f"{variant}, {lp.threads} threads a block (device time, graph "
+          f"replay)")
+    return warm, cold
 
 
 def _print_levels(tag: str, h) -> None:
@@ -547,11 +592,16 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
         x = vec(plan["n"] if square else plan["n_cols"])
         name = f"{k} 48^3 {label} K {plan['K']} {dtype}"
         rec[k]["err"] = max(rec[k]["err"], _check(name, fn(plan, x), ref(plan, x)))
-        ms = cuda_ms(lambda: fn(plan, x))
-        bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
-                    2 * plan["K"] * plan["n"])[0]
-        print(f"[banded] {name} n={plan['n']}: {ms * 1e3:.1f} us L2-warm, "
-              f"bound {bms * 1e3:.1f} us (device time, graph replay)")
+        if square:
+            _k4_line(dev, name, plan, x)
+        else:
+            ms = cuda_ms(lambda: fn(plan, x))
+            cold = cuda_ms(lambda: fn(plan, x), flush_l2=True)
+            bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
+                        2 * len(bk.live_slots(plan)) * plan["n"])[0]
+            print(f"[banded] {name} n={plan['n']}: {ms * 1e3:.1f} us L2-warm, "
+                  f"{cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
+                  f"(device time, graph replay)")
         if (label, dtype) in (("L0 A", torch.float32), ("L0 R", torch.float32)):
             timed[k] = (plan, fn, ref, x)
     from raptor_tpu_torch.core.ell import ell_to_csr
@@ -717,27 +767,44 @@ def clear_banded_counts() -> None:
 
 
 def phase_banded_96(dev, h, rec) -> None:
-    """K4 and K6 on the 96^3 level 0 against their plain versions (after
-    the proof, so these launches stay out of its counts); times K4."""
+    """K4 on every banded level and K6 on level 0 of the 96^3 hierarchy
+    against their plain versions (after the proof, so these launches stay
+    out of its counts); times K4 at each shape, level 0 also with bf16
+    values."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     rng = np.random.default_rng(4)
-    lv = h.levels[0]
-    a, r = lv.Aband.plan(), lv.Rband.plan()
-    xa = torch.from_numpy(rng.standard_normal(a["n"]).astype(np.float32)).to(dev)
-    xr = torch.from_numpy(rng.standard_normal(r["n_cols"]).astype(np.float32)).to(dev)
-    rec["K4"]["err"] = max(rec["K4"]["err"], _check(
-        f"K4 96^3 L0 A kh {a['kh']} npage {a['npage']}",
-        bk.banded_spmv(a, xa), bk.banded_spmv_ref(a, xa)))
+
+    def vec(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    rec["K4"]["shapes_96"] = {}
+    for i, lv in enumerate(h.levels):
+        if lv.Aband is None:
+            continue
+        a = lv.Aband.plan()
+        plans = [(a, "torch.float32")]
+        if i == 0:
+            plans.append((dict(a, vals=a["vals"].bfloat16()), "torch.bfloat16"))
+        for plan, dtype in plans:
+            x = vec(plan["n"])
+            name = (f"K4 96^3 L{i} A K {plan['K']} kh {plan['kh']} npage "
+                    f"{plan['npage']} {dtype}")
+            rec["K4"]["err"] = max(rec["K4"]["err"], _check(
+                name, bk.banded_spmv(plan, x), bk.banded_spmv_ref(plan, x)))
+            warm, cold = _k4_line(dev, name, plan, x)
+            rec["K4"]["shapes_96"][f"L{i} {dtype}"] = [warm, cold]
+            if i == 0 and dtype == "torch.float32":
+                plain = cuda_ms(lambda: bk.banded_spmv_ref(plan, x))
+                print(f"[banded] K4 96^3 L0 A: {warm * 1e3:.1f} us kernel "
+                      f"({_banded_bytes(plan, 4) / warm / 1e9:.3f} TB/s), "
+                      f"{plain * 1e3:.1f} us plain (device time, graph replay)")
+                rec["K4"]["ms_96"], rec["K4"]["plain_ms_96"] = warm, plain
+    r = h.levels[0].Rband.plan()
+    xr = vec(r["n_cols"])
     rec["K6"]["err"] = max(rec["K6"]["err"], _check(
         f"K6 96^3 L0 R npage {r['npage']}",
         bk.banded_spmv_rect(r, xr), bk.banded_spmv_rect_ref(r, xr)))
-    ms = cuda_ms(lambda: bk.banded_spmv(a, xa))
-    plain = cuda_ms(lambda: bk.banded_spmv_ref(a, xa))
-    print(f"[banded] K4 96^3 L0 A: {ms * 1e3:.1f} us kernel "
-          f"({_banded_bytes(a, 4) / ms / 1e9:.3f} TB/s), {plain * 1e3:.1f} us "
-          f"plain (device time, graph replay)")
-    rec["K4"]["ms_96"], rec["K4"]["plain_ms_96"] = ms, plain
 
 
 # ---------------------------------------------------------------------------
@@ -1093,7 +1160,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "raptor_tpu_torch/csrc/" + (
-             "banded_kernel.cu" if k in ("K4", "K5", "K6") else "dia_kernel.cu"),
+             "banded_kernel.cu" if k in ("K4", "K5", "K6") else
+             "dia_const_kernel.cu" if k == "K2" else "dia_kernel.cu"),
          "replaces": replaces[k], "launches": launch_counts[k],
          "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],
          "plain_ms": rec[k]["plain_ms"], "bound_ms": rec[k]["bound_ms"],

@@ -1,4 +1,5 @@
-// DIA (offset-diagonal) SpMV kernels for NVIDIA Hopper (sm_90a).
+// DIA (offset-diagonal) SpMV kernels K1, K1v1 and K3 for NVIDIA Hopper
+// (sm_90a).
 //
 // Plain C interface, built by nvcc into a shared library and loaded with
 // ctypes (raptor_tpu_torch/ops/cuda/build.py, dia_kernel.py).  Every entry
@@ -10,8 +11,8 @@
 // below: K1 takes x of shape (batch, n), contiguous; K3 takes one vector
 // and its two halos; K1v1 is K1's entry point given planes that need not be
 // boundary-zeroed (K1 reads x as zero outside [0, n), which is K1v1's
-// function).  K2 takes x of shape (batch, n); blockIdx.y is the batch row
-// and a grid-stride loop over blockIdx.x covers the n rows.
+// function).  K2, which walks the same tiles and windows with its planes
+// synthesized, is in dia_const_kernel.cu.
 //
 // Rounding: each term is rounded as the plain PyTorch version rounds it
 // (__fmul_rn, then __fadd_rn, in the reference's offset order, the first
@@ -23,93 +24,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RAPTOR_MAX_OFF 32
-#define RAPTOR_MAX_DIMS 4
-#define RAPTOR_THREADS 256
-#define RAPTOR_MAX_BLOCKS 8192
-// shared memory a block may take on Hopper (227 KB)
-#define RAPTOR_SMEM_MAX 232448
-// floats a window holds beyond tile + span: the 16-byte round-down of its
-// start (up to 3) and the last thread's extra float4 read (up to 4)
-#define RAPTOR_WIN_SLACK 7
-#define RAPTOR_MAX_DEVICES 64
+#include "dia_tiles.cuh"
+#include "hopper_copy.cuh"
 
 namespace {
-
-struct ConstStencil {
-  int n_off;
-  int nd;
-  int dims[RAPTOR_MAX_DIMS];
-  int strides[RAPTOR_MAX_DIMS];
-  int lin[RAPTOR_MAX_OFF];
-  int off[RAPTOR_MAX_OFF][RAPTOR_MAX_DIMS];
-  float c[RAPTOR_MAX_OFF];
-};
-
-// The tiled kernel's plan, built on the host from the wrapper's bands
-// (ops/cuda/dia_kernel.py::tile_plan).  A stage of shared memory holds one
-// window per band, window b at floats [base[b], base[b] + win[b]); offset k
-// reads its band's window from float koff[k] (+ the 16-byte remainder of
-// the window's start, which depends on x's address and klo[k]).
-struct TilePlan {
-  int n_off;
-  int n_band;
-  int tile;   // rows per tile
-  int stage;  // floats per stage (sum of win)
-  int koff[RAPTOR_MAX_OFF];  // base[band] + lin_k - lo[band]
-  int klo[RAPTOR_MAX_OFF];   // lo[band] of offset k
-  int lo[RAPTOR_MAX_OFF];    // a band's least linear offset
-  int base[RAPTOR_MAX_OFF];
-  int win[RAPTOR_MAX_OFF];
-};
-
-// one 16-byte plane load: read once, so not kept in L1, and fetched into
-// L2 in 256-byte pieces (the neighbouring threads' rows)
-__device__ __forceinline__ uint4 ld_plane(const void* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// ---------------------------------------------------------------------------
-// asynchronous global -> shared copies (cp.async, commit groups)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-// 4 bytes from src, or 4 zero bytes when !valid (src is then not read)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// element misalignment of a float pointer against 16 bytes
-__device__ __forceinline__ int misalign4(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
 // Stage one tile's windows into ``buf``.  Window b holds the elements
@@ -439,99 +361,6 @@ constexpr auto tiles_kernel() {
   }
 }
 
-// ---------------------------------------------------------------------------
-// K2: constant-coefficient DIA SpMV.
-//
-// Replaces raptor_tpu/ops/pallas/dia_kernel.py::_dia_pallas_call_const.
-//   y[b, i] = sum_k c_k * [coord(i) + off_k inside dims] * x[b, i + lin_k]
-// Plane k is c_k wherever the neighbour stays on the grid and 0 elsewhere,
-// so the kernel builds it from the row's grid coordinates (division and
-// modulo by the C-order strides, as the TPU kernel does from its iota) and
-// reads only x.  An in-grid neighbour always has 0 <= i + lin_k < n.
-//
-// Bound: device-memory bytes, about 4n for x and 4n for y per batch row
-// (16.8 MB at 128^3).  Design: one thread per row; the shifted x reads are
-// coalesced and re-read from L1/L2 across offsets.  The grid coordinates
-// cost one 32-bit division and modulo per dimension.
-// ---------------------------------------------------------------------------
-template <int ND>
-__global__ void __launch_bounds__(RAPTOR_THREADS)
-dia_const_kernel(const float* __restrict__ x, float* __restrict__ y,
-                 int64_t n, ConstStencil st) {
-  const float* xb = x + static_cast<int64_t>(blockIdx.y) * n;
-  float* yb = y + static_cast<int64_t>(blockIdx.y) * n;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    // 32-bit division (n < 2^31): 64-bit division is emulated and slow;
-    // ND is a template argument so the coordinates stay in registers
-    const unsigned int ui = static_cast<unsigned int>(i);
-    int coord[ND];
-#pragma unroll
-    for (int a = 0; a < ND; ++a) {
-      coord[a] = static_cast<int>(
-          (ui / static_cast<unsigned int>(st.strides[a])) %
-          static_cast<unsigned int>(st.dims[a]));
-    }
-    float acc = 0.0f;
-    for (int k = 0; k < st.n_off; ++k) {
-      bool ok = true;
-#pragma unroll
-      for (int a = 0; a < ND; ++a) {
-        const int c = coord[a] + st.off[k][a];
-        ok = ok && c >= 0 && c < st.dims[a];
-      }
-      if (ok) {
-        acc = __fadd_rn(acc, __fmul_rn(st.c[k], xb[i + st.lin[k]]));
-      }
-    }
-    yb[i] = acc;
-  }
-}
-
-dim3 grid_for(int64_t n, int batch) {
-  int64_t blocks = (n + RAPTOR_THREADS - 1) / RAPTOR_THREADS;
-  if (blocks > RAPTOR_MAX_BLOCKS) blocks = RAPTOR_MAX_BLOCKS;
-  if (blocks < 1) blocks = 1;
-  return dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-}
-
-// Fill and check a TilePlan from the wrapper's bands: every offset's reads
-// must stay inside its band's window, and two stages inside a block's
-// shared memory.
-int make_plan(TilePlan* p, const int* lins, int n_off, int tile, int rows,
-              int n_band, const int* band_lo, const int* band_win,
-              const int* band_of) {
-  if (n_off < 1 || n_off > RAPTOR_MAX_OFF || n_band < 1 || n_band > n_off ||
-      tile < rows || tile % rows != 0 || tile / rows > RAPTOR_THREADS) {
-    return 1;
-  }
-  p->n_off = n_off;
-  p->n_band = n_band;
-  p->tile = tile;
-  int64_t stage = 0;
-  for (int b = 0; b < n_band; ++b) {
-    if (band_win[b] < tile || band_win[b] % 4 != 0) return 1;
-    p->lo[b] = band_lo[b];
-    p->base[b] = static_cast<int>(stage);
-    p->win[b] = band_win[b];
-    stage += band_win[b];
-  }
-  if (2 * stage * static_cast<int64_t>(sizeof(float)) > RAPTOR_SMEM_MAX) {
-    return 1;
-  }
-  p->stage = static_cast<int>(stage);
-  for (int k = 0; k < n_off; ++k) {
-    const int b = band_of[k];
-    if (b < 0 || b >= n_band) return 1;
-    const int64_t d = static_cast<int64_t>(lins[k]) - band_lo[b];
-    if (d < 0 || d + tile + RAPTOR_WIN_SLACK > band_win[b]) return 1;
-    p->koff[k] = p->base[b] + static_cast<int>(d);
-    p->klo[k] = band_lo[b];
-  }
-  return 0;
-}
-
 template <typename T, int KMAX, bool EXACT, bool VEC>
 cudaError_t launch_tiles_as(const T* data, const float* x, const float* hl,
                             const float* hr, float* y, int64_t n,
@@ -671,42 +500,6 @@ int raptor_dia_halo_bf16(const void* data, const void* x,
                                      len_l, len_r, 1, lins, n_off, tile,
                                      n_band, band_lo, band_win, band_of, vec,
                                      stream);
-}
-
-// offs: n_off * nd ints, row-major (offset k, dimension a).
-int raptor_dia_const_f32(const void* x, void* y, int64_t n, int batch,
-                         const int* dims, int nd, const int* offs,
-                         const int* lins, const float* consts, int n_off,
-                         void* stream) {
-  if (n_off < 0 || n_off > RAPTOR_MAX_OFF || nd < 1 || nd > RAPTOR_MAX_DIMS ||
-      batch < 1 || batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  ConstStencil st;
-  st.n_off = n_off;
-  st.nd = nd;
-  int s = 1;
-  for (int a = nd - 1; a >= 0; --a) {
-    st.dims[a] = dims[a];
-    st.strides[a] = s;
-    s *= dims[a];
-  }
-  for (int k = 0; k < n_off; ++k) {
-    st.lin[k] = lins[k];
-    st.c[k] = consts[k];
-    for (int a = 0; a < nd; ++a) st.off[k][a] = offs[k * nd + a];
-  }
-  const dim3 grid = grid_for(n, batch);
-  cudaStream_t s_ = static_cast<cudaStream_t>(stream);
-  const float* xp = static_cast<const float*>(x);
-  float* yp = static_cast<float*>(y);
-  switch (nd) {
-    case 1: dia_const_kernel<1><<<grid, RAPTOR_THREADS, 0, s_>>>(xp, yp, n, st); break;
-    case 2: dia_const_kernel<2><<<grid, RAPTOR_THREADS, 0, s_>>>(xp, yp, n, st); break;
-    case 3: dia_const_kernel<3><<<grid, RAPTOR_THREADS, 0, s_>>>(xp, yp, n, st); break;
-    default: dia_const_kernel<4><<<grid, RAPTOR_THREADS, 0, s_>>>(xp, yp, n, st); break;
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -22,12 +22,19 @@ A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises; there is no fallback.  ``launches`` counts
 kernel launches (plain-version calls are not counted), ``launches_by_shape``
 counts them by (kernel, n, K, vals dtype).
+
+K4's host-side launch plan (``banded_launch_plan``: x from a shared-memory
+window or straight from device memory, threads per block, the window's
+pages) is built here; ``banded_spmv_tiled_ref`` is a plain emulation of the
+kernel's algorithm, block by block, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,9 +43,29 @@ from raptor_tpu_torch.utils.df64 import df_add, two_prod
 
 __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_rect",
            "banded_spmv_rect_ref", "banded_df64_residual",
-           "banded_df64_residual_ref", "live_slots", "launches", "launches_by_shape"]
+           "banded_df64_residual_ref", "banded_launch_plan",
+           "banded_spmv_tiled_ref", "BandedLaunch", "live_slots", "launches",
+           "launches_by_shape"]
 
 MAX_SLOTS = 256  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
+# K4 (csrc/banded_kernel.cu): the slots its live mask covers, rows per
+# thread, the most live slots of its loop-free kernels and the looping
+# kernel's slots per chunk, threads per block at most and at least,
+# the shared memory a window may take on Hopper (a block's 227 KB less the
+# kernel's slot list), the floats a staged window holds beyond its pages
+# (the 16-byte round-down of its start)
+MAX_K = 1024
+K4_ROWS, K4_SINGLE_MAX, K4_LOOP_CHUNK = 4, 8, 4
+K4_THREADS, K4_MIN_THREADS = 256, 128
+SMEM_BYTES = 232448 - 2 * MAX_SLOTS
+WINDOW_SLACK = 4
+H100_SMS = 132
+# K4 stages the window when each staged value is read at least this often
+# (live slots x a block's rows / the window's floats).  Measured on an H100
+# (scripts/bench_banded_const_ab.py): staged is faster down to 0.47 (96^3
+# level 0: 20.6 against 24.8 us), direct from 0.18 down (3 slots over 17
+# pages: 6.3 against 6.5 us; over 47 pages: 6.3 against 12.7)
+STAGE_MIN_REUSE = 0.3
 
 launches: collections.Counter = collections.Counter()  # keys "K4", "K5", "K6"
 # keys (kernel, n, K, vals dtype name)
@@ -123,6 +150,132 @@ def banded_df64_residual_ref(plan: dict, vals_lo, xh, bh, bl, v):
 
 
 # ---------------------------------------------------------------------------
+# K4: the launch plan and a plain emulation of the kernel's algorithm
+# ---------------------------------------------------------------------------
+
+class BandedLaunch(NamedTuple):
+    """K4's launch plan for one banded plan."""
+    staged: bool      # x from a shared-memory window (else from device memory)
+    rows: int         # consecutive rows per thread
+    threads: int      # threads per block: a block covers rows * threads rows
+    split: int        # blocks per tile
+    page0: int        # the staged window: pages [page0, page0 + pages) of
+    pages: int        # the tile's window (what the live slots' ranges touch)
+    smem_bytes: int   # the window's shared memory, 0 when not staged
+
+
+def _live_pages(plan: dict) -> tuple:
+    """(page0, pages): the pages of a tile's window that the live slots'
+    ranges touch; the whole window where the plan keeps no ranges."""
+    npage = (plan["tile"] + 2 * plan["Wp"]) // PAGE
+    ranges = plan.get("ranges")
+    if ranges is None:
+        return 0, npage
+    live = [(lo, hi) for lo, hi in ranges if lo <= hi]
+    if not live:
+        return 0, 1
+    lo, hi = min(r[0] for r in live), max(r[1] for r in live)
+    if lo < 0 or hi >= npage:
+        raise ValueError(f"slot ranges {lo}..{hi} outside the window's "
+                         f"{npage} pages")
+    return lo, hi - lo + 1
+
+
+def banded_launch_plan(plan: dict, n_sm: int = H100_SMS,
+                       staged: Optional[bool] = None,
+                       threads: Optional[int] = None) -> BandedLaunch:
+    """The host-side launch plan of K4 for a square banded plan.
+
+    A thread takes ``K4_ROWS`` consecutive rows, a block of 256 threads a
+    page of 1024 rows; a level with fewer such blocks than SMs takes 128
+    threads a block, so that it spreads further over the card (a block is
+    then half a page and, when staged, copies the whole window all the
+    same; smaller blocks measured slower).  x is staged in shared memory
+    when every staged value is read at least ``STAGE_MIN_REUSE`` times
+    (live slots x the block's rows over the window's floats) and the window
+    fits a block's shared memory; ``staged`` given forces the choice, and a
+    forced window that does not fit raises.  ``threads`` given (32, 64, 128
+    or 256) forces the block size."""
+    n, tile = plan["n"], plan["tile"]
+    if n % tile or tile % PAGE or n < 1:
+        raise ValueError(f"K4: n={n}, tile={tile} out of range")
+    if threads is None:
+        threads = K4_THREADS
+        while threads > K4_MIN_THREADS and n // (threads * K4_ROWS) < n_sm:
+            threads //= 2
+    elif threads not in (32, 64, 128, 256):
+        raise ValueError(f"K4: {threads} threads a block: 32, 64, 128 or 256")
+    page0, pages = _live_pages(plan)
+    smem = 4 * (pages * PAGE + WINDOW_SLACK)
+    if staged is None:
+        reuse = len(live_slots(plan)) * threads * K4_ROWS / (pages * PAGE)
+        staged = reuse >= STAGE_MIN_REUSE and smem <= SMEM_BYTES
+    elif staged and smem > SMEM_BYTES:
+        raise ValueError(f"K4: a window of {pages} pages needs {smem} bytes "
+                         f"of shared memory (max {SMEM_BYTES})")
+    if not staged:
+        return BandedLaunch(False, K4_ROWS, threads,
+                            tile // (threads * K4_ROWS), 0, 0, 0)
+    return BandedLaunch(True, K4_ROWS, threads, tile // (threads * K4_ROWS),
+                        page0, pages, smem)
+
+
+def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
+                          launch: Optional[BandedLaunch] = None,
+                          x_misalign: int = 0) -> torch.Tensor:
+    """Plain emulation of K4 (``csrc/banded_kernel.cu``), block by block.
+
+    Staged: the block's window, pages ``[page0, page0 + pages)`` of its
+    tile's, is copied from the 16-byte boundary of x at or below its start
+    (``x_misalign``: x's start, in elements past such a boundary), zeros
+    outside [0, n), and ``pidx`` indexes that copy.  Direct: x is read at
+    the index clamped into [0, n) and a select gives 0 outside.  Either
+    way each thread's ``rows`` rows sum ``f32(vals) * x`` over the live
+    slots in slot order, a chunk of slots at a time (all of them up to
+    ``K4_SINGLE_MAX``, else ``K4_LOOP_CHUNK``)."""
+    if launch is None:
+        launch = banded_launch_plan(plan)
+    n, K, tile, Wp = plan["n"], plan["K"], plan["tile"], plan["Wp"]
+    live = live_slots(plan)
+    vals = plan["vals"].reshape(n // tile, K, tile)
+    pidx = plan["pidx"].reshape(n // tile, K, tile).long()
+    rows_blk = launch.rows * launch.threads
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    for row0 in range(0, n, rows_blk):
+        t, j = divmod(row0, tile)
+        xbase = t * tile - Wp
+        if launch.staged:
+            j0 = xbase + launch.page0 * PAGE
+            rem = (x_misalign + j0) % 4
+            a0, width = j0 - rem, launch.pages * PAGE + WINDOW_SLACK
+            if launch.smem_bytes < 4 * width:
+                raise ValueError("the launch plan's shared memory does not "
+                                 "hold its window")
+            win = x.new_zeros(width)
+            lo, hi = max(a0, 0), min(a0 + width, n)
+            if lo < hi:
+                win[lo - a0:hi - a0] = x[lo:hi]
+            wbase = launch.page0 * PAGE - rem
+
+            def gather(p):
+                return win[p - wbase]
+        else:
+            def gather(p):
+                xi = xbase + p
+                ok = (xi >= 0) & (xi < n)
+                return torch.where(ok, x[torch.where(ok, xi, 0)], 0.0)
+        acc = torch.zeros(rows_blk, dtype=x.dtype, device=x.device)
+        step = K4_SINGLE_MAX if len(live) <= K4_SINGLE_MAX else K4_LOOP_CHUNK
+        for s0 in range(0, len(live), step):
+            chunk = live[s0:s0 + step]
+            g = [gather(pidx[t, k, j:j + rows_blk]) for k in chunk]
+            for k, gk in zip(chunk, g):
+                acc = acc + vals[t, k, j:j + rows_blk] * gk
+        y[row0:row0 + rows_blk] = acc
+    return y
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -179,28 +332,68 @@ def _lib():
     return load_library()
 
 
-def banded_spmv(plan: dict, x: torch.Tensor) -> torch.Tensor:
-    """K4: y = A @ x over a square banded plan; x fp32 (n,), vals fp32 or
-    bf16."""
+@functools.lru_cache(maxsize=64)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _live_mask(live) -> ctypes.Array:
+    """The live slots as the kernel's bit mask: bit k of word k // 32."""
+    words = [0] * (MAX_K // 32)
+    for k in live:
+        words[k >> 5] |= 1 << (k & 31)
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+@functools.lru_cache(maxsize=256)
+def _default_launch(ranges, n: int, K: int, tile: int, Wp: int,
+                    n_sm: int) -> BandedLaunch:
+    return banded_launch_plan(dict(ranges=ranges, n=n, K=K, tile=tile, Wp=Wp),
+                              n_sm)
+
+
+def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = None
+               ) -> torch.Tensor:
+    """K4 on CUDA tensors with ``launch`` (default: ``banded_launch_plan``
+    for x's card); raises on what the kernel does not take."""
     vals = plan["vals"]
-    if x.device.type == "cpu" and vals.device.type == "cpu":
-        return banded_spmv_ref(plan, x)
-    n = plan["n"]
+    n, K = plan["n"], plan["K"]
     _check_vec(x, n, "K4")
     live = _check_plan(plan, x.device, "K4")
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"K4: vals dtype {vals.dtype}: float32 or bfloat16")
+    if K > MAX_K:
+        raise ValueError(f"K4: K={K} slots (max {MAX_K})")
+    if vals.data_ptr() % 16 or plan["pidx"].data_ptr() % 16:
+        raise ValueError("K4: vals and pidx must be 16-byte aligned")
+    if launch is None:
+        ranges = plan.get("ranges")
+        launch = _default_launch(None if ranges is None else tuple(ranges), n,
+                                 K, plan["tile"], plan["Wp"], _n_sm(x.device))
+    if (launch.rows != K4_ROWS or launch.split * launch.threads * launch.rows
+            != plan["tile"]):
+        raise ValueError(f"K4: launch plan {launch} does not tile "
+                         f"{plan['tile']} rows")
     lib = _lib()
     fn = lib.raptor_banded_bf16 if vals.dtype == torch.bfloat16 else lib.raptor_banded_f32
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
-                y.data_ptr(), n, plan["K"], plan["tile"], plan["Wp"],
-                _slots(live), len(live), _stream(x.device))
+                y.data_ptr(), n, K, plan["tile"], plan["Wp"],
+                _live_mask(live), len(live), int(launch.staged),
+                launch.threads, launch.page0, launch.pages, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {rc}")
     _count("K4", plan)
     return y
+
+
+def banded_spmv(plan: dict, x: torch.Tensor) -> torch.Tensor:
+    """K4: y = A @ x over a square banded plan; x fp32 (n,), vals fp32 or
+    bf16."""
+    if x.device.type == "cpu" and plan["vals"].device.type == "cpu":
+        return banded_spmv_ref(plan, x)
+    return _launch_k4(plan, x)
 
 
 def banded_spmv_rect(plan: dict, x: torch.Tensor) -> torch.Tensor:

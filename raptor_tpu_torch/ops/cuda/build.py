@@ -49,7 +49,8 @@ def build() -> tuple[Path, float]:
     if not sources:
         raise RuntimeError(f"no CUDA sources in {SRC_DIR}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for s in sources:
+    # the headers the sources include count too
+    for s in sources + sorted(SRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libraptor_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -111,14 +112,17 @@ def load_library() -> ctypes.CDLL:
         # stream
         fn.argtypes = [p, p, p, p, p, i64, i64, i64, *plan, p]
         fn.restype = i32
-    # x, y, n, batch, dims, nd, offs, lins, consts, n_off, stream
+    # x, y, n, batch, dims, nd, offs, lins, consts, n_off, rows, tile,
+    # n_band, band_lo, band_win, band_of, stream
     lib.raptor_dia_const_f32.argtypes = [p, p, i64, i32, p, i32, p, p, p, i32,
-                                         p]
+                                         i32, i32, i32, p, p, p, p]
     lib.raptor_dia_const_f32.restype = i32
     for name in ("raptor_banded_f32", "raptor_banded_bf16"):
         fn = getattr(lib, name)
-        # vals, pidx, x, y, n, K, tile, Wp, slots, n_live, stream
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p, i32, p]
+        # vals, pidx, x, y, n, K, tile, Wp, live mask, n_live, staged,
+        # threads, page0, pages, stream
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p, i32, i32, i32, i32,
+                       i32, p]
         fn.restype = i32
     for name in ("raptor_banded_rect_f32", "raptor_banded_rect_bf16"):
         fn = getattr(lib, name)

@@ -1,5 +1,6 @@
 """DIA SpMV kernels K1, K1v1, K2 and K3: wrappers around
-``csrc/dia_kernel.cu`` and their plain PyTorch versions.
+``csrc/dia_kernel.cu`` (K2: ``csrc/dia_const_kernel.cu``) and their plain
+PyTorch versions.
 
 * K1 ``dia_spmv_v2``: ``y[i] = sum_k f32(data[k, i]) * x[i + lin_k]`` over
   boundary-zeroed planes (fp32 or bf16), fp32 x.  Counterpart of
@@ -26,6 +27,8 @@ K1, K1v1 and K3 launch one tiled kernel whose host-side plan
 (``tile_plan``: row tile, offset bands, window sizes, whether the planes
 take 16-byte loads) is built here; ``dia_spmv_tiled_ref`` is a plain
 emulation of that kernel's algorithm, window by window, for the CPU tests.
+K2 walks the same tiles and windows (``tile_plan`` with four rows per
+thread) over planes it synthesizes (``const_planes``).
 """
 
 from __future__ import annotations
@@ -39,13 +42,15 @@ import torch
 
 __all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
            "dia_spmv_const", "dia_spmv_const_ref", "dia_spmv_halo",
-           "dia_spmv_halo_ref", "dia_spmv_tiled_ref", "halo_reach",
+           "dia_spmv_halo_ref", "dia_spmv_tiled_ref", "const_planes",
+           "const_tile_plan", "halo_reach",
            "in_grid_mask", "launches", "launches_by_shape", "tile_plan",
            "TilePlan"]
 
 MAX_OFF = 32
 MAX_DIMS = 4
 MAX_BATCH = 65535
+MAX_CONST_REACH = 32767  # K2 keeps a stencil's per-dimension steps in 16 bits
 # the tiled kernel (csrc/dia_kernel.cu): threads per block at most and at
 # least, a block's shared memory on Hopper (227 KB), and the floats a window
 # holds beyond tile + span (RAPTOR_WIN_SLACK: the 16-byte round-down of its
@@ -94,7 +99,8 @@ def _window(tile: int, lo: int, hi: int) -> int:
 
 def tile_plan(lins: Sequence[int], n: int, itemsize: int,
               planes_aligned: bool = True, batch: int = 1,
-              n_sm: int = H100_SMS) -> TilePlan:
+              n_sm: int = H100_SMS, rows: Optional[int] = None,
+              max_threads: int = TILE_THREADS) -> TilePlan:
     """The host-side plan of the tiled kernel for ``n`` rows, offsets
     ``lins``, planes of ``itemsize`` bytes (4 fp32, 2 bf16) and ``batch``
     vectors.
@@ -105,19 +111,28 @@ def tile_plan(lins: Sequence[int], n: int, itemsize: int,
     memory, or while there are fewer tiles than SMs (a short level then
     still spreads over the card).  The planes take 16-byte loads when
     ``planes_aligned`` (their base address is) and n is a multiple of
-    ``rows``, so that every plane's rows stay aligned."""
+    ``rows``, so that every plane's rows stay aligned.  ``rows`` given
+    (a multiple of 4) sets the rows per thread, and ``max_threads`` the
+    largest block, for a kernel that loads no planes (K2)."""
     return _tile_plan(tuple(int(o) for o in lins), int(n), int(itemsize),
-                      bool(planes_aligned), int(batch), int(n_sm))
+                      bool(planes_aligned), int(batch), int(n_sm),
+                      None if rows is None else int(rows), int(max_threads))
 
 
 @functools.lru_cache(maxsize=1024)
 def _tile_plan(lins: Tuple[int, ...], n: int, itemsize: int,
-               planes_aligned: bool, batch: int, n_sm: int) -> TilePlan:
-    if not 0 < len(lins) <= MAX_OFF or n < 1 or itemsize not in (2, 4):
+               planes_aligned: bool, batch: int, n_sm: int,
+               rows: Optional[int] = None,
+               max_threads: int = TILE_THREADS) -> TilePlan:
+    if (not 0 < len(lins) <= MAX_OFF or n < 1 or itemsize not in (2, 4)
+            or (rows is not None and (rows < 4 or rows % 4))
+            or max_threads not in (32, 64, 128, 256)):
         raise ValueError(f"no tile plan for {len(lins)} offsets, n={n}, "
-                         f"itemsize {itemsize}")
-    rows = 16 // itemsize
-    tile = rows * TILE_THREADS
+                         f"itemsize {itemsize}, rows {rows}, at most "
+                         f"{max_threads} threads")
+    if rows is None:
+        rows = 16 // itemsize
+    tile = rows * max_threads
     while True:
         bands = _bands(lins, tile)
         windows = tuple(_window(tile, lo, hi) for lo, hi in bands)
@@ -275,20 +290,61 @@ def dia_spmv_tiled_ref(data: torch.Tensor, lins: Sequence[int],
     return y
 
 
+def const_planes(consts: Sequence[float], offsets, dims, dtype=torch.float32,
+                 device="cpu") -> torch.Tensor:
+    """(n_off, n) planes of a constant-coefficient stencil: ``c_k`` where
+    offset k's neighbour stays inside the grid, 0 elsewhere."""
+    n = 1
+    for d in dims:
+        n *= int(d)
+    data = torch.zeros((len(offsets), n), dtype=dtype, device=device)
+    for k, (c, off) in enumerate(zip(consts, offsets)):
+        data[k].masked_fill_(in_grid_mask(dims, off, device), float(c))
+    return data
+
+
+def _const_lins(offsets, dims) -> list:
+    strides = _strides(dims)
+    return [sum(o * s for o, s in zip(off, strides)) for off in offsets]
+
+
 def dia_spmv_const_ref(consts: Sequence[float], offsets, dims,
                        x: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: the roll sum with each plane synthesized as
     ``c_k`` inside the grid and 0 outside."""
-    n = x.shape[-1]
-    lins = [sum(o * s for o, s in zip(off, _strides(dims))) for off in offsets]
+    lins = _const_lins(offsets, dims)
+    data = const_planes(consts, offsets, dims, x.dtype, x.device)
     y = None
-    for c, off, o in zip(consts, offsets, lins):
+    for k, o in enumerate(lins):
         shifted = x if o == 0 else torch.roll(x, -o, dims=-1)
-        plane = torch.zeros(n, dtype=x.dtype, device=x.device).masked_fill_(
-            in_grid_mask(dims, off, x.device), float(c))
-        term = plane * shifted
+        term = data[k] * shifted
         y = term if y is None else y + term
     return y
+
+
+CONST_ROWS = (16, 8, 4)  # rows per thread K2 is built for
+CONST_TILE = 2048  # K2's full tile: 16 rows x 128 threads or 8 x 256
+
+
+def const_tile_plan(offsets, dims, batch: int = 1,
+                    n_sm: int = H100_SMS) -> TilePlan:
+    """K2's launch plan: the tiled kernel's plan for the stencil's linear
+    offsets (no planes are loaded, so ``vec`` means nothing here).  On a
+    grid that gives every SM a full tile of 2048 rows a thread takes 16 or 8
+    rows, whichever divides the last dimension (the rows then share every
+    other coordinate); 4 on any other grid.  Measured on an H100
+    (scripts/bench_banded_const_ab.py --sweep-k2, 7 points at 256^3): 73.1
+    us at 16 rows x 128 threads, 85.2 at 8 x 256, 136.6 at 4 x 256."""
+    n = 1
+    for d in dims:
+        n *= int(d)
+    big = n * batch >= CONST_TILE * n_sm
+    rows = next((r for r in CONST_ROWS[:-1] if big and int(dims[-1]) % r == 0),
+                CONST_ROWS[-1])
+    p = tile_plan(_const_lins(offsets, dims), n, 4, True, batch, n_sm, rows,
+                  CONST_TILE // rows if rows > 4 else TILE_THREADS)
+    # the kernel rounds a stage up to whole 256-byte swizzle groups
+    return p._replace(smem_bytes=2 * 4 * (-(-sum(p.windows) // 64) * 64))
 
 
 def _int_array(values) -> ctypes.Array:
@@ -441,6 +497,22 @@ def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=256)
+def _const_args(consts: tuple, offsets: tuple, dims: tuple, batch: int,
+                n_sm: int) -> tuple:
+    """The C arguments of a K2 launch after x, y, n and batch: dims, nd,
+    offs, lins, consts, n_off, rows, tile, n_band, band_lo, band_win,
+    band_of."""
+    lins = _const_lins(offsets, dims)
+    p = const_tile_plan(offsets, dims, batch, n_sm)
+    return (_int_array(dims), len(dims),
+            _int_array([v for o in offsets for v in o]), _int_array(lins),
+            (ctypes.c_float * len(consts))(*consts), len(offsets), p.rows,
+            p.tile,
+            len(p.bands), _int_array([lo for lo, _ in p.bands]),
+            _int_array(p.windows), _int_array(p.band_of))
+
+
 def dia_spmv_const(consts: Sequence[float], offsets, dims,
                    x: torch.Tensor) -> torch.Tensor:
     """K2: constant-coefficient DIA SpMV on grid ``dims`` (1 to 4 dims);
@@ -460,19 +532,20 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
         raise ValueError(f"{n_off} offsets, {len(consts)} consts (max {MAX_OFF})")
     if any(len(o) != nd for o in offsets):
         raise ValueError(f"offsets {offsets} do not match dims {dims}")
-    strides = _strides(dims)
-    lins = [sum(o * s for o, s in zip(off, strides)) for off in offsets]
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    if any(abs(v) > MAX_CONST_REACH for o in offsets for v in o):
+        raise ValueError(f"offsets {offsets}: K2 takes steps of at most "
+                         f"{MAX_CONST_REACH} cells per dimension")
     from raptor_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    c = (ctypes.c_float * n_off)(*[float(v) for v in consts])
+    args = _const_args(tuple(float(v) for v in consts), offsets, dims, batch,
+                       _n_sm(x.device))
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.raptor_dia_const_f32(
-            x.data_ptr(), y.data_ptr(), n, batch, _int_array(dims), nd,
-            _int_array([v for o in offsets for v in o]), _int_array(lins), c,
-            n_off, stream)
+        rc = lib.raptor_dia_const_f32(x.data_ptr(), y.data_ptr(), n, batch,
+                                      *args, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     launches["K2"] += 1

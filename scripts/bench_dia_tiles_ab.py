@@ -56,15 +56,18 @@ PT = [(-1, 0, 0), (0, 0, 0), (1, 0, 0)]
 
 
 def _library(src: Path, prefix: str) -> ctypes.CDLL:
-    """nvcc builds ``src`` alone into a library of its own under build/."""
-    from raptor_tpu_torch.ops.cuda.build import BUILD_DIR, NVCC_FLAGS, _nvcc
+    """nvcc builds ``src`` alone into a library of its own under build/
+    (the package's headers, csrc/*.cuh, are on its include path)."""
+    from raptor_tpu_torch.ops.cuda.build import (BUILD_DIR, NVCC_FLAGS,
+                                                 SRC_DIR, _nvcc)
 
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     lib = BUILD_DIR / f"libdia_{prefix}_{tag}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
-                        str(src)], check=True, capture_output=True, text=True)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared",
+                        "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
 

@@ -87,6 +87,68 @@ def shuffled_poisson(nx: int, scale: float = 1.0, seed: int = 0):
     return A[p][:, p].tocsr()
 
 
+def rcm_ell(nx: int):
+    """Shuffled nx^3 Poisson, RCM-ordered, as ELL arrays (cols, row_nnz,
+    data) with the rows padded to a multiple of 1024."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from raptor_tpu_torch.core.ell import ell_from_csr
+
+    A = shuffled_poisson(nx)
+    p = reverse_cuthill_mckee(A + A.T, symmetric_mode=True)
+    E = ell_from_csr(A[p][:, p].tocsr(), dtype=np.float32,
+                     row_pad_multiple=1024)
+    return E.cols, E.row_nnz, E.data
+
+
+def wide_band(n: int, reach: int):
+    """ELL arrays of a matrix with entries at row - reach, row and row +
+    reach (clipped to the matrix), random values."""
+    rows = np.arange(n)
+    cols = np.stack([np.clip(rows - reach, 0, n - 1), rows,
+                     np.clip(rows + reach, 0, n - 1)]).astype(np.int32)
+    vals = np.random.default_rng(3).standard_normal((3, n)).astype(np.float32)
+    return cols, np.full(n, 3, np.int32), vals
+
+
+def banded_tensors(plan: dict, dtype=torch.float32, device="cpu") -> dict:
+    """A NumPy banded plan with ``vals`` (cast to ``dtype``) and ``pidx`` as
+    tensors on ``device``."""
+    return dict(plan,
+                vals=torch.from_numpy(plan["vals"]).to(device=device, dtype=dtype),
+                pidx=torch.from_numpy(plan["pidx"]).to(device))
+
+
+def with_dead_slots(plan: dict, at=(0, 3)) -> dict:
+    """A tensor plan with a padding-only slot (range (1, 0), zero values,
+    offset 0) put in before each slot index of ``at``: the live slots are
+    then no prefix of the slots."""
+    vals, pidx, ranges = plan["vals"], plan["pidx"], list(plan["ranges"])
+    for k in sorted(at, reverse=True):
+        vals = torch.cat([vals[:, :k], torch.zeros_like(vals[:, :1]),
+                          vals[:, k:]], 1)
+        pidx = torch.cat([pidx[:, :k], torch.zeros_like(pidx[:, :1]),
+                          pidx[:, k:]], 1)
+        ranges.insert(k, (1, 0))
+    return dict(plan, vals=vals.contiguous(), pidx=pidx.contiguous(),
+                K=vals.shape[1], ranges=tuple(ranges))
+
+
+def slots_twice(plan: dict) -> dict:
+    """A tensor plan with every slot stored twice (twice the matrix)."""
+    return dict(plan, vals=torch.cat([plan["vals"]] * 2, 1).contiguous(),
+                pidx=torch.cat([plan["pidx"]] * 2, 1).contiguous(),
+                K=2 * plan["K"], ranges=tuple(plan["ranges"]) * 2)
+
+
+def star(nd: int) -> list:
+    """The 2 * nd + 1 point star's offsets, in C order."""
+    import itertools
+
+    return [o for o in itertools.product((-1, 0, 1), repeat=nd)
+            if sum(map(abs, o)) <= 1]
+
+
 def _opt(a):
     return None if a is None else np.asarray(a)
 

@@ -27,7 +27,9 @@ from raptor_tpu_torch.config import AmgConfig, SolveConfig
 from raptor_tpu_torch.gallery import default_rhs, poisson_3d
 from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
-from tests._torch_ref import cuda_device, rel_err, stencil_5pt, stencil_7pt
+from tests._torch_ref import (banded_tensors, cuda_device, rcm_ell, rel_err,
+                              slots_twice, star, stencil_5pt, stencil_7pt,
+                              wide_band, with_dead_slots)
 
 pytestmark = pytest.mark.cuda
 
@@ -205,6 +207,66 @@ def test_k3_tiles_at_the_edges_bit_for_bit(edge, halo, dtype):
     y = tk.dia_spmv_halo(data, lins, x, hl, hr)
     assert tk.launches["K3"] == before + 1
     assert torch.equal(y.cpu(), tk.dia_spmv_halo_ref(data, lins, x, hl, hr).cpu())
+
+
+# name: (dims, offsets, batch, x misalignment): 1 to 4 dims; last dimensions
+# that are no multiple of 4 (the per-row coordinates); a batch whose rows
+# start at every 16-byte remainder; n smaller than the least tile; 5, 7, 9
+# and 27 offsets (the generic body takes the 9)
+K2_EDGES = {"1d": ((4099,), star(1), None, 0),
+            "2d odd last": ((37, 18), star(2), None, 1),
+            "2d": ((48, 64), star(2), 2, 0),
+            "3d": ((16, 20, 24), star(3), None, 2),
+            "3d odd last": ((9, 10, 11), star(3), 3, 3),
+            "3d 27-point": ((12, 16, 20), CUBE, None, 0),
+            "3d 27-point odd": ((7, 9, 13), CUBE, 2, 1),
+            "4d": ((5, 6, 7, 8), star(4), None, 0),
+            "4d odd last": ((3, 4, 5, 6), star(4), 3, 2),
+            "short": ((5, 6), star(2), None, 1),
+            # large enough for 8 or 16 rows a thread (the last dimension a
+            # multiple of them)
+            "3d 8 rows": ((64, 64, 72), star(3), None, 3),
+            "3d 8 rows 27-point": ((48, 80, 88), CUBE, None, 0),
+            "2d 16 rows": ((600, 512), star(2), 2, 1),
+            "4d 8 rows": ((8, 8, 64, 72), star(4), None, 2),
+            "1d 8 rows": ((300008,), star(1), None, 0),
+            "3d 16 rows": ((80, 96, 80), star(3), None, 1),
+            "3d 16 rows 27-point": ((96, 80, 96), CUBE, None, 2),
+            "1d 16 rows, batch 2": ((300000,), star(1), 2, 3)}
+
+
+@pytest.mark.parametrize("edge", list(K2_EDGES))
+def test_k2_tiles_at_the_edges_bit_for_bit(edge):
+    dev = cuda_device()
+    dims, offsets, batch, mis = K2_EDGES[edge]
+    n = int(np.prod(dims))
+    consts = [float(c) for c in
+              np.random.default_rng(2).standard_normal(len(offsets))]
+    x = _view_at(_x(n, dev, batch), mis)
+    plan = tk.const_tile_plan(offsets, dims, batch or 1,
+                              torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    assert plan.rows == (int(edge.split()[1]) if "rows" in edge else 4)
+    if edge == "short":
+        assert n < plan.tile
+    before = tk.launches["K2"]
+    y = tk.dia_spmv_const(consts, offsets, dims, x)
+    assert tk.launches["K2"] == before + 1
+    y_ref = tk.dia_spmv_const_ref(consts, offsets, dims, x)
+    assert torch.equal(y.cpu(), y_ref.cpu())
+
+
+def test_k2_refuses_what_it_does_not_take():
+    dev = cuda_device()
+    x = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="dims"):
+        tk.dia_spmv_const([1.0], [(0,) * 5], (2, 2, 2, 2, 4), x)
+    with pytest.raises(ValueError, match="consts"):
+        tk.dia_spmv_const([1.0, 2.0], [(0, 0)], (8, 8), x)
+    with pytest.raises(ValueError, match="shape"):
+        tk.dia_spmv_const([1.0], [(0, 0)], (8, 9), x)
+    with pytest.raises(ValueError, match="steps"):
+        tk.dia_spmv_const([1.0], [(0, 40000)], (8, 8), x)
 
 
 def test_tiled_launches_count_by_shape():
@@ -411,3 +473,66 @@ def test_banded_cycle_and_solve_on_card_match_cpu(alg16):
     _, info_c = solve(A, rhs, AmgConfig(**ALG), sc, hier=hc)
     assert info["iterations"] == info_c["iterations"] == 7
     assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# K4 at every variant its launch plan can pick: bit for bit
+# ---------------------------------------------------------------------------
+
+def _k4_plan(case: str, dtype, dev) -> dict:
+    from raptor_tpu_torch.ops import banded_plan as bp
+
+    if case == "page cap":
+        return banded_tensors(bp.banded_plan(*wide_band(48 * 1024, 23 * 1024)),
+                              dtype, dev)
+    plan = banded_tensors(bp.banded_plan(*rcm_ell(10 if case == "one tile"
+                                                  else 16)), dtype, dev)
+    if case in ("dead slots", "two chunks"):
+        plan = with_dead_slots(plan)
+    return slots_twice(plan) if case == "two chunks" else plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("threads", [256, 128, 64, 32])
+@pytest.mark.parametrize("case", ["one tile", "four tiles", "dead slots",
+                                  "two chunks", "page cap"])
+def test_k4_variants_bit_for_bit(case, threads, staged, dtype):
+    """Staged and direct; 256, 128, 64 and 32 threads a block; 3, 7 and 14
+    live slots (the two loop-free kernels and the looping one); live slots
+    that are no prefix; a one-tile level; a 47-page window (188 KB of
+    shared memory); x views at 16-byte remainders 0, 1 and 3."""
+    dev = cuda_device()
+    plan = _k4_plan(case, dtype, dev)
+    if case != "page cap":
+        live = bk.live_slots(plan)
+        assert (live != list(range(len(live)))) == (case in ("dead slots",
+                                                             "two chunks"))
+    lp = bk.banded_launch_plan(plan, staged=staged, threads=threads)
+    assert lp.staged == staged and lp.threads == threads
+    for mis in (0, 1, 3):
+        x = _view_at(_x(plan["n"], dev, seed=4 + mis), mis)
+        before = bk.launches["K4"]
+        y = bk._launch_k4(plan, x, lp)
+        assert bk.launches["K4"] == before + 1
+        assert torch.equal(y.cpu(), bk.banded_spmv_ref(plan, x).cpu())
+        assert torch.equal(y.cpu(), bk.banded_spmv_tiled_ref(
+            {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in plan.items()},
+            x.cpu(), lp, mis).cpu())
+
+
+def test_k4_default_launch_and_refusals():
+    dev = cuda_device()
+    plan = _k4_plan("dead slots", torch.float32, dev)
+    x = _x(plan["n"], dev)
+    assert torch.equal(bk.banded_spmv(plan, x).cpu(),
+                       bk.banded_spmv_ref(plan, x).cpu())
+    lp = bk.banded_launch_plan(plan)
+    with pytest.raises(ValueError, match="does not tile"):
+        bk._launch_k4(plan, x, lp._replace(threads=lp.threads * 2))
+    with pytest.raises(ValueError, match="aligned"):
+        bk._launch_k4(dict(plan, vals=_view_at(plan["vals"], 1)), x)
+    # the C entry point refuses a window beyond the tile's
+    with pytest.raises(RuntimeError, match="cudaError"):
+        bk._launch_k4(plan, x, bk.banded_launch_plan(plan, staged=True)
+                      ._replace(pages=64))
