@@ -46,7 +46,31 @@ Phases, each of which raises on failure (there is no CPU path):
     just before phase 11, read just after it); the launches by shape;
 13. four ranks sharing the card over gloo (host-staged messages) at 128^3:
     every rank launched K3, rank 0's gathered x is checked by a host fp64
-    residual and its iterations against one rank at 128^3.
+    residual and its iterations against one rank at 128^3;
+14. sharded-banded kernel equality: the shuffled 96^3 hierarchy built for
+    four ranks (pad_multiple 4096, level sizes checked against the
+    reference's); K4's halo form on rank 0's and the last rank's tiles of
+    every sharded banded A, K6's map_cols form on theirs of every sharded
+    banded P and R (level 2's R reads 17 pages right of a 13-page block),
+    each bit for bit against its plain version and timed L2-warm and
+    L2-cold beside cuSPARSE on the same local block and the bound;
+15. the algebraic sharded solve on one rank over NCCL at shuffled 96^3, full
+    width, on phase 9's hierarchy: distribute_hierarchy -> dist_solve (cg,
+    tol 1e-6), cold then warm -> V-cycles; the route of every sharded
+    level; x, put back into the caller's ordering, checked by a host fp64
+    residual against the caller's matrix, the iterations against the
+    single-device solve_hier on the same hierarchy; torch.profiler over 10
+    of its V-cycles;
+16. proof: every CUDA sharded banded operator apply of phase 15 launched
+    K4's halo form (counts set to 0 just before, read just after; at one
+    rank no transfer shards, as in the reference);
+17. four ranks sharing the card over gloo at shuffled 96^3: each rank runs
+    dist_solve and dist_solve_taps (2 nodes x 2 chips) on its block; every
+    rank must launch K4's halo form and K6's map_cols form; rank 0's
+    gathered x passes the host fp64 check, its iterations are one rank's
+    +- 1, and TAPS equals the flat solve on the ELL route exactly (its
+    extended vectors are the flat ones'); comm_report's halo bytes and the
+    messages per V-cycle of each exchange, from the host plans.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -55,7 +79,9 @@ cuSPARSE CSR matvec of the same operator (torch.mv; none for K5), and its
 bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s (H100 SXM, NVIDIA's data sheet).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (K1, K1v1, K2, K3, K4,
+K5, K6, and the sharded forms K4-halo and K6-map_cols, each with the
+launches of its own path); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -94,6 +120,15 @@ SDIST_TOL = 1e-6  # the certified (recurrence) relres of the fp32 PCG
 # the sharded solve has no df64 refinement: fp32 PCG to 1e-6 leaves a true
 # fp64 relres a little above the recurrence's
 SDIST_MAX_TRUE = 1e-5
+# the algebraic sharded solve (raptor_tpu/parallel/dist.py): one rank at
+# shuffled 96^3 on phase 9's hierarchy, four ranks sharing the card on one
+# padded for them (1024 rows a tile, a whole number of tiles a rank); the
+# same tolerances as the sharded config 5 (fp32 PCG, no df64 refinement)
+ADIST_N, ADIST_RANKS, ADIST_TAIL = 96, 4, 4096
+ADIST_PAD = 1024 * ADIST_RANKS
+ADIST_TOL, ADIST_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
+TAPS_GRID = (2, 2)  # (nodes, chips) of the four ranks
+N_PROFILED = 10
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1090,6 +1125,500 @@ def phase_sdist_ranks(dev, one_rank_iters: int) -> dict:
             "k1v1_launches": [o["k1v1"] for o in outs]}
 
 
+# ---------------------------------------------------------------------------
+# the algebraic sharded solve: K4's halo form and K6's map_cols form
+# ---------------------------------------------------------------------------
+
+def n_sharded(h) -> int:
+    """The levels distribute_hierarchy shards with ADIST_TAIL (its own
+    rule)."""
+    t = 1
+    while t < len(h.levels) - 1 and h.levels[t].n > ADIST_TAIL:
+        t += 1
+    return t
+
+
+def ell_block_csr(E, r0: int, r1: int, shift: int, n_cols: int, dev):
+    """Rows [r0, r1) of an ELL operator as a float32 CSR tensor on ``dev``
+    whose column c sits at c + shift (a rank's halo buffer); raises if an
+    entry falls outside the buffer."""
+    data, cols, nnz = (t.cpu().numpy() for t in (E.data, E.cols, E.row_nnz))
+    d, z = data[:, r0:r1], nnz[r0:r1]
+    c = cols[:, r0:r1].astype(np.int64) + shift
+    keep = np.arange(E.K)[:, None] < z[None, :]
+    if (c[keep] < 0).any() or (c[keep] >= n_cols).any():
+        raise AssertionError("a block's entry reaches outside its buffer")
+    rows = np.broadcast_to(np.arange(r1 - r0)[None, :], d.shape)
+    a = sp.csr_matrix((d[keep], (rows[keep], c[keep])), shape=(r1 - r0, n_cols))
+    return host_csr(a, a.shape, dev)
+
+
+def sharded_cases(h, ndev: int) -> list:
+    """(kernel, label, rank, local plan, buffer length, map_cols, ELL
+    operator, first row, column shift) for rank 0's and the last rank's
+    tiles of every operator the sharded path runs through K4's halo form
+    or K6's map_cols form: as dist_banded_spmv and dist_rect_banded_spmv
+    call them."""
+    from raptor_tpu_torch.parallel.dist import _shardable_band, _shardable_rect
+
+    t = n_sharded(h)
+    out = []
+    for k in range(t):
+        lev = h.levels[k]
+        B = _shardable_band(lev.Aband, ndev)
+        if B is None:
+            raise AssertionError(f"L{k}'s banded A does not shard over {ndev}")
+        K, n, tile, kh, npage, Wp = B.meta
+        nl, hw = n // ndev, kh * tile
+        for rank in (0, ndev - 1):
+            tiles = slice(rank * nl // tile, (rank + 1) * nl // tile)
+            plan = dict(B.plan(), n=nl, vals=B.vals[tiles].contiguous(),
+                        pidx=B.pidx[tiles].contiguous())
+            out.append(("K4-halo", f"L{k} A", rank, plan, nl + 2 * hw, None,
+                        lev.A, rank * nl, hw - rank * nl))
+        if k + 1 >= t:
+            continue
+        nf, nc = lev.A.n_rows_pad, h.levels[k + 1].A.n_rows_pad
+        for name, band, E, rows, cols in (("R", lev.Rband, lev.R, nc, nf),
+                                          ("P", lev.Pband, lev.P, nf, nc)):
+            B = _shardable_rect(band, ndev, rows, cols)
+            if B is None:
+                raise AssertionError(f"L{k}'s banded {name} does not shard")
+            K, n, n_cols, tile, WpP, npage = B.meta
+            nl, cl = n // ndev, n_cols // ndev
+            for rank in (0, ndev - 1):
+                tiles = slice(rank * nl // tile, (rank + 1) * nl // tile)
+                length = cl + npage * 1024
+                plan = dict(B.plan(), n=nl, n_cols=length, WpP=0,
+                            vals=B.vals[tiles].contiguous(),
+                            pidx=B.pidx[tiles].contiguous())
+                out.append(("K6-map_cols", f"L{k} {name}", rank, plan, length,
+                            cl, E, rank * nl, WpP * 1024 - rank * cl))
+    return out
+
+
+def phase_sharded_kernels(dev, h4) -> dict:
+    """Phase 14: K4's halo form and K6's map_cols form against their plain
+    versions, bit for bit, at every shape the four-rank 96^3 path gives
+    them (rank 0's and the last rank's blocks, random buffers); each timed
+    L2-warm and L2-cold with its bound; L0 A and L0 R of rank 0 also
+    against the plain version and cuSPARSE on the same local block."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    rec = {k: {"err": 0.0, "shapes": {}} for k in ("K4-halo", "K6-map_cols")}
+    for kern, label, rank, plan, length, map_cols, E, r0, shift in sharded_cases(
+            h4, ADIST_RANKS):
+        x = torch.randn(length, generator=gen, device=dev)
+        if kern == "K4-halo":
+            fn = lambda: bk.banded_spmv_halo(plan, x)  # noqa: E731
+            ref = lambda: bk.banded_spmv_halo_ref(plan, x)  # noqa: E731
+        else:
+            fn = lambda: bk.banded_spmv_rect(plan, x, map_cols=map_cols)  # noqa: E731
+            ref = lambda: bk.banded_spmv_rect_ref(plan, x, map_cols=map_cols)  # noqa: E731
+        name = f"{kern} {ADIST_N}^3 {label} rank {rank} n={plan['n']} K {plan['K']}"
+        y, y_ref = fn(), ref()
+        err = _check(name, y, y_ref)
+        if not torch.equal(y, y_ref):
+            raise AssertionError(f"{name}: not bit-equal to its plain version")
+        r = rec[kern]
+        r["err"] = max(r["err"], err)
+        live = len(bk.live_slots(plan))
+        nbytes = live * plan["n"] * 8 + 4 * plan["n"] + 4 * length
+        bms = bound(nbytes, 2 * live * plan["n"])[0]
+        warm = cuda_ms(fn)
+        cold = cuda_ms(fn, flush_l2=True)
+        r["shapes"][f"{label} rank {rank}"] = [plan["n"], plan["K"], warm, cold, bms]
+        print(f"[sharded] {name} live {live} buffer {length}: {warm * 1e3:.1f} us "
+              f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
+              f"(device time, graph replay)")
+        if label in ("L0 A", "L0 R") and rank == 0:
+            r.update(ms=warm, cold_ms=cold, bytes=nbytes, plain_ms=cuda_ms(ref),
+                     cold_plain_ms=cuda_ms(ref, flush_l2=True))
+            yardsticks(r, ell_block_csr(E, r0, r0 + plan["n"], shift, length, dev),
+                       x, nbytes)
+    for k, what in (("K4-halo", "L0 A"), ("K6-map_cols", "L0 R")):
+        r = rec[k]
+        print(f"[sharded] {k} {ADIST_N}^3 {what}, rank 0 of {ADIST_RANKS}: "
+              f"{r['ms'] * 1e3:.1f} us kernel ({r['bytes'] / r['ms'] / 1e9:.3f} "
+              f"TB/s), {r['plain_ms'] * 1e3:.1f} us plain, "
+              f"{r['library_ms'] * 1e3:.1f} us cuSPARSE CSR (device time, graph "
+              f"replay, L2-warm); L2-cold {r['cold_ms'] * 1e3:.1f} us kernel, "
+              f"{r['cold_plain_ms'] * 1e3:.1f} us plain; bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+    return rec
+
+
+def clear_adist_counts() -> None:
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    clear_banded_counts()
+    pdist.cuda_calls.clear()
+
+
+def adist_routes(tag: str, dh) -> list:
+    """Print and return each sharded level's route for A, P and R."""
+    rows = []
+    for k, lv in enumerate(dh.levels):
+        a = lv.Aband
+        route = {"A": "banded" if a is not None else "ELL",
+                 "P": ("banded" if lv.Pband is not None else "ELL")
+                 if lv.Pmat is not None else "bridge",
+                 "R": ("banded" if lv.Rband is not None else "ELL")
+                 if lv.Rmat is not None else "bridge"}
+        print(f"[{tag}]   L{k} n {lv.n} n_local {lv.n_local}: A {route['A']}"
+              + (f" (kh {a.meta[3]}, reordered {a.reordered})" if a is not None
+                 else "") + f", P {route['P']}, R {route['R']}")
+        rows.append(route)
+    return rows
+
+
+def caller_relres(A, x_rcm, pm, b) -> float:
+    """The true fp64 relres of x, put back into the caller's ordering,
+    against the caller's matrix and right-hand side."""
+    n = A.shape[0]
+    x = np.empty(n)
+    x[pm] = x_rcm[:n]
+    return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+
+
+def profile_cycles(cycle, reps: int = N_PROFILED) -> dict:
+    """torch.profiler over ``reps`` calls of ``cycle()``: wall (host clock,
+    ends in a synchronize), device busy (the union of the device events'
+    intervals), device events, busy share; per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            cycle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device events")
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    out = {"wall_ms": wall * 1e3 / reps, "busy_ms": busy * 1e-3 / reps,
+           "device_events": len(spans) / reps}
+    out["busy_share"] = out["busy_ms"] / out["wall_ms"]
+    return out
+
+
+def phase_adist_one_rank(dev, h96) -> dict:
+    """Phases 15 and 16: distribute_hierarchy and dist_solve at shuffled
+    96^3 on one rank over NCCL, on phase 9's hierarchy (its pad_multiple,
+    1024, serves a ring of one), cold then warm; V-cycles; the proof on the
+    counts of that run; then, outside them, the single-device solve_hier
+    on the same hierarchy and the profile of 10 V-cycles."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.api import solve_hier
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.parallel import Ring, dist_solve, distribute_hierarchy
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    A = shuffled_poisson(ADIST_N)
+    n = A.shape[0]
+    pm = h96.perm[:n].cpu().numpy()
+    b = default_rhs(n)  # the caller's ordering
+    bd = pad_vector(b[pm].astype(np.float32), h96.levels[0].A.n_rows_pad,
+                    device=dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        clear_adist_counts()
+        runs = []
+        for _ in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dh = distribute_hierarchy(h96, ring, ADIST_TAIL)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, info = dist_solve(dh, bd, ring, tol=ADIST_TOL, maxiter=200)
+            torch.cuda.synchronize()
+            runs.append((t1 - t0, time.perf_counter() - t1, int(info.iterations),
+                         float(info.relres), x))
+        ctx = pdist.CommCtx.flat(ring)
+        y = pdist.dist_cycle(dh, bd, ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_CYCLES):
+            y = pdist.dist_cycle(dh, bd, ctx)
+        torch.cuda.synchronize()
+        vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+        k4h, calls = bk.launches["K4-halo"], pdist.cuda_calls["dist_banded_spmv"]
+        k6m, rcalls = (bk.launches["K6-map_cols"],
+                       pdist.cuda_calls["dist_rect_banded_spmv"])
+        print(f"[proof] sharded {ADIST_N}^3 path, 1 rank: {calls} CUDA sharded banded "
+              f"operator applies, {k4h} K4-halo launches; {rcalls} sharded "
+              f"banded transfers, {k6m} K6-map_cols launches; {bk.launches['K4']} "
+              f"K4 launches (tail)")
+        if k4h != calls or calls == 0 or k6m != rcalls:
+            raise AssertionError("the one-rank sharded path did not run "
+                                 "through K4's halo form")
+        shapes = by_shape("adist 1 rank", bk.launches_by_shape,
+                          ("K4-halo", "K6-map_cols", "K4", "K6"))
+        if not torch.isfinite(y).all():
+            raise AssertionError("sharded V-cycle output not finite")
+        routes = adist_routes("adist1", dh)
+
+        (dist_cold, sol_cold, it_cold, _, _), (dist_s, sol, iters, certified, x) = runs
+        relres = caller_relres(A, x.double().cpu().numpy(), pm, b)
+        x1, info1 = solve_hier(h96, bd, tol=ADIST_TOL, maxiter=200)
+        it1 = int(info1.iterations)
+        rel1 = caller_relres(A, x1.double().cpu().numpy(), pm, b)
+        prof = profile_cycles(lambda: pdist.dist_cycle(dh, bd, ctx))
+        print(f"[adist1] {ADIST_N}^3 on 1 rank (NCCL): distribute {dist_s:.3f} s "
+              f"warm, {dist_cold:.3f} s cold; solve {sol:.3f} s warm, "
+              f"{sol_cold:.3f} s cold; {iters} PCG iterations, certified "
+              f"{certified:.3e}, true fp64 relres {relres:.3e} (caller's "
+              f"ordering); single-device solve_hier {it1} iterations, true "
+              f"{rel1:.3e}; V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} DOF/s, "
+              f"{N_CYCLES} cycles between syncs)")
+        print(f"[profile] sharded {ADIST_N}^3 V-cycle, 1 rank, {N_PROFILED} cycles "
+              f"under torch.profiler: wall {prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms, {prof['device_events']:g} device "
+              f"events, busy share {prof['busy_share'] * 100:.1f}% (per cycle)")
+        if x.shape != (h96.levels[0].A.n_rows_pad,) or not torch.isfinite(x).all():
+            raise AssertionError("sharded solution not finite or misshapen")
+        if it_cold != iters:
+            raise AssertionError("cold and warm runs took different iterations")
+        if not (certified <= ADIST_TOL and relres <= ADIST_MAX_TRUE):
+            raise AssertionError(f"certified {certified} (max {ADIST_TOL}), "
+                                 f"true {relres} (max {ADIST_MAX_TRUE})")
+        if abs(iters - it1) > 1:
+            raise AssertionError(f"{iters} iterations, single-device {it1}")
+        return {"n": n, "distribute_warm_s": dist_s, "distribute_cold_s": dist_cold,
+                "solve_s": sol, "solve_cold_s": sol_cold, "iters": iters,
+                "certified": certified, "relres": relres,
+                "single_device_iters": it1, "vcycle_ms": vc, "profile": prof,
+                "k4_halo_launches": k4h, "k6_map_cols_launches": k6m,
+                "routes": routes, "launches_by_shape": shapes}
+    finally:
+        dist.destroy_process_group()
+
+
+def exchange_counts(dh, th) -> dict:
+    """Messages and words a rank sends per V-cycle, from the host plans:
+    the flat solve as it runs (banded levels by tile halos, the rest by
+    their ELL plans), the ELL plans alone (comm_report's), and TAPS
+    (inter-node shifts and their words; intra-node all-gathers)."""
+    from raptor_tpu_torch.parallel.dist import comm_report
+
+    rep = comm_report(dh)
+    ndev = dh.ndev
+    out = {"flat": [0, 0], "flat_ell": [0, 0], "taps_inter": [0, 0],
+           "taps_gathers": 0}
+    for k, (lv, row) in enumerate(zip(dh.levels, rep["levels"])):
+        a_ex = row["exchanges_per_vcycle"] - (2 if "P" in row else 0)
+        for op, times in (("A", a_ex), ("R", 1), ("P", 1)):
+            if op not in row:
+                continue
+            ell = (row[op]["ppermute_rounds"], sum(row[op]["halo_words_per_round"]))
+            band = {"A": lv.Aband, "R": lv.Rband, "P": lv.Pband}[op]
+            if band is None:
+                flat = ell
+            elif op == "A":
+                flat = (2, 2 * band.meta[3] * band.meta[2])
+            else:
+                K, n, n_cols, tile, WpP, npage = band.meta
+                cl = n_cols // ndev
+                lh, rh = WpP * 1024, (npage - WpP) * 1024
+                flat = (-(-lh // cl) + -(-rh // cl), lh + rh)
+            tp = th.plan((op, k))
+            taps = (len(tp.offsets), sum(int(s.shape[-1]) for s in tp.send_idx))
+            for key, (msgs, words) in (("flat", flat), ("flat_ell", ell),
+                                       ("taps_inter", taps)):
+                out[key][0] += times * msgs
+                out[key][1] += times * words
+            out["taps_gathers"] += times * (1 + len(tp.offsets))
+    out["comm_report_bytes"] = rep["halo_bytes_per_vcycle_per_dev"]
+    return out
+
+
+def rank_adist(ring, device, path: str, b_rcm) -> dict:
+    """One rank of phase 17 (runs in a spawned process): the hierarchy
+    saved by the parent, sharded; the flat solve on the counts set to 0
+    just before it; then TAPS against the flat solve on the ELL route;
+    rank 0 returns the gathered x."""
+    import dataclasses
+
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.parallel import (dist_solve, dist_solve_taps,
+                                           distribute_hierarchy,
+                                           distribute_hierarchy_taps,
+                                           make_taps_mesh)
+    from raptor_tpu_torch.parallel import dist as pdist
+    from raptor_tpu_torch.parallel.halo import halo_exchange
+    from raptor_tpu_torch.parallel.taps import taps_exchange
+
+    h = torch.load(path, weights_only=False, map_location=device)
+    b = torch.from_numpy(b_rcm).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dh = distribute_hierarchy(h, ring, ADIST_TAIL)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    clear_adist_counts()
+    t0 = time.perf_counter()
+    x, info = dist_solve(dh, b, ring, tol=ADIST_TOL, maxiter=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = {k: bk.launches[k] for k in ("K4-halo", "K6-map_cols", "K4", "K6")}
+    calls = dict(pdist.cuda_calls)
+    shapes = sorted([*key, c] for key, c in bk.launches_by_shape.items())
+    xg = ring.all_gather(x)
+
+    mesh = make_taps_mesh(*TAPS_GRID)
+    th = distribute_hierarchy_taps(h, mesh, ADIST_TAIL)
+    t0 = time.perf_counter()
+    xt, it_t = dist_solve_taps(th, b, mesh, tol=ADIST_TOL, maxiter=200)
+    torch.cuda.synchronize()
+    taps_s = time.perf_counter() - t0
+    dh_ell = dataclasses.replace(dh, levels=tuple(
+        dataclasses.replace(lv, Aband=None, Pband=None, Rband=None)
+        for lv in dh.levels))
+    xe, it_e = dist_solve(dh_ell, b, ring, tol=ADIST_TOL, maxiter=200)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ring.axis_index)
+    ext_equal = []
+    for (op, k), plan in zip(th.keys, th.plans):
+        lv = dh.levels[k]
+        dm = {"A": lv.A, "R": lv.Rmat, "P": lv.Pmat}[op]
+        v = torch.randn(plan.n_local, generator=gen, device=device)
+        ext_equal.append(torch.equal(taps_exchange(v, plan, mesh),
+                                     halo_exchange(v, dm.halo, ring)))
+    return {"iters": int(info.iterations), "certified": float(info.relres),
+            "distribute_s": dist_s, "solve_s": solve_s, "taps_s": taps_s,
+            "counts": counts, "calls": calls, "shapes": shapes,
+            "routes": [(lv.Aband is not None, lv.Pband is not None,
+                        lv.Rband is not None) for lv in dh.levels],
+            "taps_iters": int(it_t.iterations), "ell_iters": int(it_e.iterations),
+            "taps_equal": torch.equal(xt, xe), "ext_equal": ext_equal,
+            "exchanges": exchange_counts(dh, th),
+            "x": xg.cpu().numpy() if ring.axis_index == 0 else None}
+
+
+def phase_adist_ranks(dev, h4_cpu, one_rank_iters: int) -> dict:
+    """Phase 17: ADIST_RANKS ranks sharing the card over gloo at shuffled
+    96^3 on the hierarchy padded for them (``h4_cpu``, moved to the CPU to
+    be saved for the ranks); each must launch both sharded forms."""
+    import tempfile
+
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.parallel import spawn
+
+    A = shuffled_poisson(ADIST_N)
+    n = A.shape[0]
+    pm = h4_cpu.perm[:n].numpy()
+    b = default_rhs(n)
+    b_rcm = np.zeros(h4_cpu.levels[0].A.n_rows_pad, np.float32)
+    b_rcm[:n] = b[pm]
+    with tempfile.TemporaryDirectory(prefix="raptor_adist_") as tmp:
+        path = f"{tmp}/hier.pt"
+        torch.save(h4_cpu, path)
+        t0 = time.perf_counter()
+        outs = spawn(rank_adist, ADIST_RANKS, "gloo", dev, path, b_rcm,
+                     timeout=900.0)
+        wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        c = o["counts"]
+        print(f"[adist{ADIST_RANKS}] rank {r}: {o['iters']} iterations, "
+              f"distribute {o['distribute_s']:.3f} s, solve {o['solve_s']:.3f} s, "
+              f"TAPS solve {o['taps_s']:.3f} s; {o['calls']} CUDA sharded banded "
+              f"applies, launches {c}")
+        if (c["K4-halo"] == 0 or c["K6-map_cols"] == 0
+                or c["K4-halo"] != o["calls"].get("dist_banded_spmv")
+                or c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv")):
+            raise AssertionError(f"rank {r} did not run through both sharded forms")
+        if not (o["taps_equal"] and all(o["ext_equal"])
+                and o["taps_iters"] == o["ell_iters"]):
+            raise AssertionError(f"rank {r}: TAPS differs from the flat solve "
+                                 f"on the ELL route")
+    iters = outs[0]["iters"]
+    if any(o["iters"] != iters for o in outs):
+        raise AssertionError("the ranks disagree on the iteration count")
+    x = outs[0]["x"].astype(np.float64)
+    relres = caller_relres(A, x, pm, b)
+    ex = outs[0]["exchanges"]
+    print(f"[adist{ADIST_RANKS}] {ADIST_N}^3 on {ADIST_RANKS} ranks sharing the "
+          f"card (gloo, host-staged): {iters} iterations (one rank: "
+          f"{one_rank_iters}), certified {outs[0]['certified']:.3e}, true fp64 "
+          f"relres {relres:.3e}; TAPS {outs[0]['taps_iters']} iterations, x equal "
+          f"to the flat ELL-route solve's ({outs[0]['ell_iters']} iterations) "
+          f"bit for bit; {wall:.1f} s with the processes' start")
+    print(f"[adist{ADIST_RANKS}] per V-cycle per rank, from the host plans: "
+          f"comm_report {ex['comm_report_bytes']} halo bytes; flat as run "
+          f"{ex['flat'][0]} messages, {ex['flat'][1]} words; flat ELL plans "
+          f"{ex['flat_ell'][0]} messages, {ex['flat_ell'][1]} words; TAPS "
+          f"{ex['taps_inter'][0]} inter-node messages, {ex['taps_inter'][1]} "
+          f"words, {ex['taps_gathers']} intra-node all-gathers")
+    for k, (a, p, r) in enumerate(outs[0]["routes"]):
+        print(f"[adist{ADIST_RANKS}]   L{k}: A {'banded' if a else 'ELL'}, "
+              f"P {'banded' if p else 'ELL'}, R {'banded' if r else 'ELL'}")
+    by_shape(f"adist {ADIST_RANKS} ranks, rank 0",
+             {tuple(s[:-1]): s[-1] for s in outs[0]["shapes"]},
+             ("K4-halo", "K6-map_cols", "K4", "K6"))
+    if x.shape != (h4_cpu.levels[0].A.n_rows_pad,) or not np.isfinite(x).all():
+        raise AssertionError("gathered solution not finite or misshapen")
+    if not relres <= ADIST_MAX_TRUE:
+        raise AssertionError(f"true relres {relres} > {ADIST_MAX_TRUE}")
+    if abs(iters - one_rank_iters) > 1:
+        raise AssertionError(f"{iters} iterations, one rank {one_rank_iters}")
+    return {"n": n, "ranks": ADIST_RANKS, "iters": iters, "relres": relres,
+            "taps_iters": outs[0]["taps_iters"], "exchanges": ex,
+            "distribute_s": [o["distribute_s"] for o in outs],
+            "solve_s": [o["solve_s"] for o in outs],
+            "taps_s": [o["taps_s"] for o in outs],
+            "launches": [o["counts"] for o in outs],
+            "launches_by_shape": outs[0]["shapes"]}
+
+
+def sharded_excess(rec: dict, shapes: list) -> None:
+    """Sigma over the four-rank path's shapes (rank 0's launches) of
+    launches x (L2-warm time - bound), from phase 14's times of rank 0's
+    blocks; into rec[kernel]["excess_ms"]."""
+    for kern in ("K4-halo", "K6-map_cols"):
+        timed = {(n, K): (warm, b) for label, (n, K, warm, _, b)
+                 in rec[kern]["shapes"].items() if label.endswith("rank 0")}
+        total = sum(c * (timed[(n, K)][0] - timed[(n, K)][1])
+                    for k, n, K, _, c in shapes if k == kern)
+        rec[kern]["excess_ms"] = total
+        print(f"[sharded] {kern}: sum over rank 0's shapes of the "
+              f"{ADIST_RANKS}-rank path of launches x (L2-warm - bound): "
+              f"{total:.4f} ms")
+
+
+def setup_four_rank_hierarchy(dev):
+    """The shuffled 96^3 hierarchy padded for ADIST_RANKS ranks, with its
+    unpadded level sizes checked against the reference's."""
+    from raptor_tpu_torch import AmgConfig, setup
+
+    t0 = time.perf_counter()
+    h = setup(shuffled_poisson(ADIST_N),
+              AmgConfig(**ALG_CFG, host_setup_threshold=2**20,
+                        pad_multiple=ADIST_PAD), device=dev)
+    torch.cuda.synchronize()
+    sizes = [lv.n for lv in h.levels]
+    print(f"[adist{ADIST_RANKS}] setup (pad_multiple {ADIST_PAD}) "
+          f"{time.perf_counter() - t0:.3f} s, sizes {sizes}")
+    _print_levels(f"adist{ADIST_RANKS}", h)
+    if sizes != ALG_SIZES[ADIST_N]:
+        raise AssertionError(f"level sizes {sizes}, the reference's "
+                             f"{ALG_SIZES[ADIST_N]}")
+    return h
+
+
 def main() -> None:
     # the CSR yardsticks are built from checked indices; PyTorch warns on
     # every sparse CSR tensor that its support is in beta
@@ -1136,7 +1665,6 @@ def main() -> None:
                                  host_setup_threshold=2**20)
     alg96["launches"] = banded_proof("alg96")
     phase_banded_96(dev, h96, rec)
-    del h96
 
     rec.update(phase_halo_kernels(dev))
     sdist = phase_sdist_one_rank(dev)
@@ -1148,19 +1676,42 @@ def main() -> None:
     launch_counts.update(K3=sdist["k3_launches"], K1v1=(
         v1_main + sdist["k1v1_launches"] + sum(sdist4["k1v1_launches"])))
 
+    # the algebraic sharded solve: the sharded forms' launches are rank 0's
+    # of the four-rank run, the one path that runs both
+    h4 = setup_four_rank_hierarchy(dev)
+    rec.update(phase_sharded_kernels(dev, h4))
+    h4_cpu = h4.to("cpu")
+    del h4
+    adist = phase_adist_one_rank(dev, h96)
+    del h96
+    torch.cuda.empty_cache()
+    adist4 = phase_adist_ranks(dev, h4_cpu, adist["iters"])
+    launch_counts.update({k: adist4["launches"][0][k]
+                          for k in ("K4-halo", "K6-map_cols")})
+    sharded_excess(rec, adist4["launches_by_shape"])
+    adist4["sharded_kernels"] = {k: rec[k] for k in ("K4-halo", "K6-map_cols")}
+
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
-                      "sdist": sdist, "sdist_ranks": sdist4}))
+                      "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
+                      "adist_ranks": adist4}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",
                 "K3": "raptor_tpu/ops/pallas/dia_kernel.py:388",
                 "K4": "raptor_tpu/ops/pallas/banded_kernel.py:280",
                 "K5": "raptor_tpu/ops/pallas/banded_kernel.py:405",
-                "K6": "raptor_tpu/ops/pallas/banded_kernel.py:602"}
+                "K6": "raptor_tpu/ops/pallas/banded_kernel.py:602",
+                "K4-halo": "raptor_tpu/ops/pallas/banded_kernel.py:280 "
+                           "(_banded_call) called from "
+                           "raptor_tpu/parallel/dist.py:315 (dist_banded_spmv)",
+                "K6-map_cols": "raptor_tpu/ops/pallas/banded_kernel.py:602 "
+                               "(_banded_call_rect, map_cols) called from "
+                               "raptor_tpu/parallel/dist.py:371 "
+                               "(dist_rect_banded_spmv)"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "raptor_tpu_torch/csrc/" + (
-             "banded_kernel.cu" if k in ("K4", "K5", "K6") else
+             "banded_kernel.cu" if k.startswith(("K4", "K5", "K6")) else
              "dia_const_kernel.cu" if k == "K2" else "dia_kernel.cu"),
          "replaces": replaces[k], "launches": launch_counts[k],
          "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],

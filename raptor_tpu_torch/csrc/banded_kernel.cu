@@ -137,18 +137,18 @@ __device__ __forceinline__ void slot_values(const SlotRegs<__nv_bfloat16>& r,
 }
 
 // x at window offset p.  Staged: ``win`` holds the window from offset
-// ``wbase`` on, zeros where it leaves [0, n), so the read has no test.
+// ``wbase`` on, zeros where it leaves [0, x_len), so the read has no test.
 // Direct: x[xbase + p] from device memory; the load is unconditional, on an
-// index clamped into [0, n), and a select gives 0 outside.
+// index clamped into [0, x_len), and a select gives 0 outside.
 template <bool STAGED>
 __device__ __forceinline__ float gather_x(const float* __restrict__ x,
                                           const float* win, int wbase,
-                                          int xbase, int n, unsigned p) {
+                                          int xbase, int x_len, unsigned p) {
   if constexpr (STAGED) {
     return win[static_cast<int>(p) - wbase];
   } else {
     const int xi = xbase + static_cast<int>(p);
-    const bool ok = static_cast<unsigned>(xi) < static_cast<unsigned>(n);
+    const bool ok = static_cast<unsigned>(xi) < static_cast<unsigned>(x_len);
     const float g = __ldg(x + (ok ? xi : 0));
     return ok ? g : 0.0f;
   }
@@ -164,18 +164,18 @@ __device__ __forceinline__ float gather_x(const float* __restrict__ x,
 template <typename T, bool STAGED, int CH, bool SINGLE>
 __device__ __forceinline__ void banded_rows(
     const T* __restrict__ vals, const int* __restrict__ pidx,
-    const float* __restrict__ x, const float* win, int wbase, int xbase, int n,
-    int64_t base, int tile, const unsigned short* slots, int n_live,
+    const float* __restrict__ x, const float* win, int wbase, int xbase,
+    int x_len, int64_t base, int tile, const unsigned short* slots, int n_live,
     SlotRegs<T> (&cur)[CH], float (&acc)[RAPTOR_K4_ROWS]) {
   for (int s0 = 0;; s0 += CH) {
     float g[CH][4], v[CH][4];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       if (s0 + c < n_live) {
-        g[c][0] = gather_x<STAGED>(x, win, wbase, xbase, n, cur[c].p.x);
-        g[c][1] = gather_x<STAGED>(x, win, wbase, xbase, n, cur[c].p.y);
-        g[c][2] = gather_x<STAGED>(x, win, wbase, xbase, n, cur[c].p.z);
-        g[c][3] = gather_x<STAGED>(x, win, wbase, xbase, n, cur[c].p.w);
+        g[c][0] = gather_x<STAGED>(x, win, wbase, xbase, x_len, cur[c].p.x);
+        g[c][1] = gather_x<STAGED>(x, win, wbase, xbase, x_len, cur[c].p.y);
+        g[c][2] = gather_x<STAGED>(x, win, wbase, xbase, x_len, cur[c].p.z);
+        g[c][3] = gather_x<STAGED>(x, win, wbase, xbase, x_len, cur[c].p.w);
       }
     }
 #pragma unroll
@@ -208,11 +208,16 @@ __device__ __forceinline__ void banded_rows(
 // K4: square banded SpMV.
 //
 // Replaces raptor_tpu/ops/pallas/banded_kernel.py::_banded_call.
-//   y[i] = sum_{live k} vals[t,k,j] * x[t*tile - Wp + pidx[t,k,j]]
-// with x read as 0 outside [0, n) (the TPU kernel's zero-padded x_pad; no
-// padded copy of x is made here).  The TPU kernel selects the window's
-// pages one by one (its only dynamic gather covers one vector register);
-// none of that is carried over.
+//   y[i] = sum_{live k} vals[t,k,j] * x[x_off + t*tile - Wp + pidx[t,k,j]]
+// with x read as 0 outside [0, x_len).  Two forms:
+//   * zero pad (x_off 0, x_len n): x is the vector itself, and the TPU
+//     kernel's zero-padded x_pad is never built;
+//   * halo (x_off h = kh*tile, x_len n + 2h): x is a rank's buffer
+//     [left halo | x_own | right halo], the x_pad of the sharded caller
+//     raptor_tpu/parallel/dist.py::dist_banded_spmv.  Every window read then
+//     lies inside the buffer (h >= Wp), so the bound never binds.
+// The TPU kernel selects the window's pages one by one (its only dynamic
+// gather covers one vector register); none of that is carried over.
 //
 // Bound: device-memory bytes, K*n*(sizeof(vals) + 4) for the plan plus 8n
 // for x and y (48^3 level 0: 7 slots, n = 110,592, about 7.1 MB a call;
@@ -235,7 +240,7 @@ __device__ __forceinline__ void banded_rows(
 //     load on a clamped index and a select, no branch) or from a window in
 //     shared memory (staged): the pages [page0, page0 + pages) of the
 //     tile's window that the live slots' ranges touch, copied once per
-//     block by 16-byte cp.async with zeros outside [0, n); pidx is then a
+//     block by 16-byte cp.async with zeros outside [0, x_len); pidx is then a
 //     shared-memory index.  The first chunk's plan loads are issued before
 //     the block waits for the window.  The host picks per plan
 //     (ops/cuda/banded_kernel.py::banded_launch_plan): staged where a
@@ -254,9 +259,9 @@ __device__ __forceinline__ void banded_rows(
 template <typename T, bool STAGED, int CH, bool SINGLE>
 __global__ void __launch_bounds__(RAPTOR_BANDED_THREADS, SINGLE ? 1 : 2)
 banded_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
-              const float* __restrict__ x, float* __restrict__ y, int n, int K,
-              int tile, int Wp, int page0, int pages, int n_live,
-              const __grid_constant__ LiveMask live) {
+              const float* __restrict__ x, float* __restrict__ y, int K,
+              int tile, int Wp, int x_off, int x_len, int page0, int pages,
+              int n_live, const __grid_constant__ LiveMask live) {
   constexpr int R = RAPTOR_K4_ROWS;
   __shared__ unsigned short slots[RAPTOR_MAX_SLOTS];
   extern __shared__ float4 win4[];
@@ -266,13 +271,13 @@ banded_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
   const int t = static_cast<int>(static_cast<unsigned>(row0) /
                                  static_cast<unsigned>(tile));
   const int j = row0 - t * tile + threadIdx.x * R;
-  const int xbase = t * tile - Wp;
+  const int xbase = x_off + t * tile - Wp;
   int wbase = 0;
   if constexpr (STAGED) {
     // the window's first staged element, rounded down to 16 bytes of x
     const int64_t j0 = static_cast<int64_t>(xbase) + page0 * RAPTOR_PAGE;
     const int rem = static_cast<int>((misalign4(x) + j0) & 3);
-    stage_window(win, x, n, j0 - rem, pages * (RAPTOR_PAGE / 4) + 1);
+    stage_window(win, x, x_len, j0 - rem, pages * (RAPTOR_PAGE / 4) + 1);
     cp_async_commit();
     wbase = page0 * RAPTOR_PAGE - rem;
   }
@@ -293,7 +298,7 @@ banded_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
     __syncthreads();
   }
   float acc[R] = {0.0f, 0.0f, 0.0f, 0.0f};
-  banded_rows<T, STAGED, CH, SINGLE>(vals, pidx, x, win, wbase, xbase, n,
+  banded_rows<T, STAGED, CH, SINGLE>(vals, pidx, x, win, wbase, xbase, x_len,
                                      base, tile, slots, n_live, cur, acc);
   float* yr = y + row0 + threadIdx.x * R;
   if ((reinterpret_cast<uintptr_t>(yr) & 15) == 0) {
@@ -308,10 +313,14 @@ banded_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
 // K6: rectangular banded transfer (P or R).
 //
 // Replaces raptor_tpu/ops/pallas/banded_kernel.py::_banded_call_rect.
-// Window page p of tile t is clamp((t*n_cols)//(T*1024) - WpP + p, 0,
-// n_cols/1024 - 1), exactly the TPU kernel's index map, with the clamp per
+// Window page p of tile t is clamp((t*map_cols)//(T*1024) - WpP + p, 0,
+// x_len/1024 - 1), exactly the TPU kernel's index map, with the clamp per
 // page so the dummy targets of masked slots stay in range:
 //   y[i] = sum_{live k} vals[t,k,j] * x[page(pidx >> 10) * 1024 + (pidx & 1023)]
+// Two forms: n_cols (map_cols = x_len = the column count) and map_cols, the
+// sharded caller's (raptor_tpu/parallel/dist.py::dist_rect_banded_spmv):
+// x is a rank's halo-extended buffer of x_len elements, map_cols its own
+// column count, and WpP, folded into the buffer's left halo, is 0.
 //
 // Bound: device-memory bytes, K*n*(sizeof(vals) + 4) + 4n + 4*n_cols
 // (48^3 level 0 R: 8 slots over 55,296 rows reading 110,592 fine values).
@@ -321,16 +330,16 @@ template <typename T>
 __global__ void __launch_bounds__(RAPTOR_BANDED_THREADS)
 banded_rect_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
                    const float* __restrict__ x, float* __restrict__ y,
-                   int64_t n, int K, int tile, int64_t n_cols, int WpP,
-                   SlotList live) {
+                   int64_t n, int K, int tile, int64_t x_len,
+                   int64_t map_cols, int WpP, SlotList live) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int64_t t = tile_of(i, tile);
   const int64_t j = i - t * tile;
   const int64_t n_tiles = n / tile;
   const int64_t row0 = t * K * tile + j;
-  const int64_t base = (t * n_cols) / (n_tiles * RAPTOR_PAGE) - WpP;
-  const int64_t last = n_cols / RAPTOR_PAGE - 1;
+  const int64_t base = (t * map_cols) / (n_tiles * RAPTOR_PAGE) - WpP;
+  const int64_t last = x_len / RAPTOR_PAGE - 1;
   float acc = 0.0f;
   for (int s = 0; s < live.n; ++s) {
     const int64_t e = row0 + static_cast<int64_t>(live.k[s]) * tile;
@@ -450,9 +459,9 @@ bool check_mask(const LiveMask& live, int n_live, int K) {
 template <typename T, bool STAGED, int CH, bool SINGLE>
 cudaError_t launch_banded_as(const T* vals, const int* pidx, const float* x,
                              float* y, int n, int K, int tile, int Wp,
-                             int page0, int pages, int n_live,
-                             const LiveMask& live, int threads, int smem,
-                             cudaStream_t stream) {
+                             int x_off, int x_len, int page0, int pages,
+                             int n_live, const LiveMask& live, int threads,
+                             int smem, cudaStream_t stream) {
   auto kern = banded_kernel<T, STAGED, CH, SINGLE>;
   if constexpr (STAGED) {
     // above 48 KB a block's shared memory must be allowed first: once per
@@ -472,8 +481,8 @@ cudaError_t launch_banded_as(const T* vals, const int* pidx, const float* x,
     }
   }
   const unsigned blocks = static_cast<unsigned>(n / (threads * RAPTOR_K4_ROWS));
-  kern<<<blocks, threads, smem, stream>>>(vals, pidx, x, y, n, K, tile, Wp,
-                                          page0, pages, n_live, live);
+  kern<<<blocks, threads, smem, stream>>>(vals, pidx, x, y, K, tile, Wp, x_off,
+                                          x_len, page0, pages, n_live, live);
   return cudaGetLastError();
 }
 
@@ -481,15 +490,18 @@ cudaError_t launch_banded_as(const T* vals, const int* pidx, const float* x,
 // RAPTOR_MAX_K / 32 words; ``threads`` per block, each of four rows;
 // ``staged`` with the window's pages [page0, page0 + pages), which must fit
 // a block's shared memory (nothing is truncated: what does not fit is
-// refused).
+// refused).  x holds x_len floats, row 0's x at x_off (the zero-pad form:
+// 0 and n; the halo form: kh*tile and n + 2*kh*tile).
 template <typename T>
 int launch_banded(const void* vals, const void* pidx, const void* x, void* y,
-                  int64_t n, int K, int tile, int Wp, const unsigned* mask,
-                  int n_live, int staged, int threads, int page0, int pages,
-                  void* stream) {
+                  int64_t n, int K, int tile, int Wp, int64_t x_off,
+                  int64_t x_len, const unsigned* mask, int n_live, int staged,
+                  int threads, int page0, int pages, void* stream) {
   if (n < 1 || n >= (int64_t(1) << 31) || K < 1 || K > RAPTOR_MAX_K ||
       tile < RAPTOR_PAGE || tile % RAPTOR_PAGE != 0 || n % tile != 0 ||
-      Wp < 0 || n_live < 0 || n_live > RAPTOR_MAX_SLOTS || threads < 32 ||
+      Wp < 0 || x_off < 0 || x_len < 1 || x_off + n > x_len ||
+      x_len + RAPTOR_PAGE + Wp >= (int64_t(1) << 31) || n_live < 0 ||
+      n_live > RAPTOR_MAX_SLOTS || threads < 32 ||
       threads > RAPTOR_BANDED_THREADS || (threads & (threads - 1)) != 0 ||
       ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(pidx)) &
        15) != 0) {
@@ -519,39 +531,44 @@ int launch_banded(const void* vals, const void* pidx, const void* x, void* y,
   float* yp = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ni = static_cast<int>(n);
+  const int xo = static_cast<int>(x_off), xl = static_cast<int>(x_len);
   // up to 4 and up to 8 live slots: one unrolled chunk; more: the loop
 #define RAPTOR_K4_LAUNCH(STAGED, PAGE0, PAGES, SMEM)                         \
   (n_live <= 4                                                               \
        ? launch_banded_as<T, STAGED, 4, true>(v, pi, xp, yp, ni, K, tile, Wp, \
-                                              PAGE0, PAGES, n_live, live,    \
-                                              threads, SMEM, s)              \
+                                              xo, xl, PAGE0, PAGES, n_live,  \
+                                              live, threads, SMEM, s)        \
    : n_live <= RAPTOR_K4_SINGLE_MAX                                          \
        ? launch_banded_as<T, STAGED, RAPTOR_K4_SINGLE_MAX, true>(            \
-             v, pi, xp, yp, ni, K, tile, Wp, PAGE0, PAGES, n_live, live,     \
-             threads, SMEM, s)                                               \
+             v, pi, xp, yp, ni, K, tile, Wp, xo, xl, PAGE0, PAGES, n_live,   \
+             live, threads, SMEM, s)                                         \
        : launch_banded_as<T, STAGED, RAPTOR_K4_LOOP_CHUNK, false>(           \
-             v, pi, xp, yp, ni, K, tile, Wp, PAGE0, PAGES, n_live, live,     \
-             threads, SMEM, s))
+             v, pi, xp, yp, ni, K, tile, Wp, xo, xl, PAGE0, PAGES, n_live,   \
+             live, threads, SMEM, s))
   const cudaError_t e = staged ? RAPTOR_K4_LAUNCH(true, page0, pages, smem)
                                : RAPTOR_K4_LAUNCH(false, 0, 0, 0);
 #undef RAPTOR_K4_LAUNCH
   return static_cast<int>(e);
 }
 
+// K6's launch: x holds x_len floats (a whole number of pages), and the
+// window's base page is (t*map_cols)//(T*1024) - WpP (map_cols = x_len in
+// the n_cols form).
 template <typename T>
 int launch_rect(const void* vals, const void* pidx, const void* x, void* y,
-                int64_t n, int K, int tile, int64_t n_cols, int WpP,
-                const int* slots, int n_live, void* stream) {
+                int64_t n, int K, int tile, int64_t x_len, int64_t map_cols,
+                int WpP, const int* slots, int n_live, void* stream) {
   SlotList live;
-  if (n < 1 || K < 1 || tile < 1 || n % tile != 0 || n_cols < RAPTOR_PAGE ||
-      n_cols % RAPTOR_PAGE != 0 || !fill_slots(live, slots, n_live, K)) {
+  if (n < 1 || K < 1 || tile < 1 || n % tile != 0 || x_len < RAPTOR_PAGE ||
+      x_len % RAPTOR_PAGE != 0 || map_cols < 0 ||
+      map_cols > (int64_t(1) << 40) || !fill_slots(live, slots, n_live, K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   banded_rect_kernel<T><<<blocks_for(n), RAPTOR_BANDED_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals), static_cast<const int*>(pidx),
       static_cast<const float*>(x), static_cast<float*>(y), n, K, tile,
-      n_cols, WpP, live);
+      x_len, map_cols, WpP, live);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,35 +578,38 @@ extern "C" {
 
 int raptor_banded_f32(const void* vals, const void* pidx, const void* x,
                       void* y, int64_t n, int K, int tile, int Wp,
-                      const unsigned* mask, int n_live, int staged,
-                      int threads, int page0, int pages, void* stream) {
-  return launch_banded<float>(vals, pidx, x, y, n, K, tile, Wp, mask, n_live,
-                              staged, threads, page0, pages, stream);
+                      int64_t x_off, int64_t x_len, const unsigned* mask,
+                      int n_live, int staged, int threads, int page0,
+                      int pages, void* stream) {
+  return launch_banded<float>(vals, pidx, x, y, n, K, tile, Wp, x_off, x_len,
+                              mask, n_live, staged, threads, page0, pages,
+                              stream);
 }
 
 int raptor_banded_bf16(const void* vals, const void* pidx, const void* x,
                        void* y, int64_t n, int K, int tile, int Wp,
-                       const unsigned* mask, int n_live, int staged,
-                       int threads, int page0, int pages, void* stream) {
-  return launch_banded<__nv_bfloat16>(vals, pidx, x, y, n, K, tile, Wp, mask,
-                                      n_live, staged, threads, page0, pages,
-                                      stream);
+                       int64_t x_off, int64_t x_len, const unsigned* mask,
+                       int n_live, int staged, int threads, int page0,
+                       int pages, void* stream) {
+  return launch_banded<__nv_bfloat16>(vals, pidx, x, y, n, K, tile, Wp, x_off,
+                                      x_len, mask, n_live, staged, threads,
+                                      page0, pages, stream);
 }
 
 int raptor_banded_rect_f32(const void* vals, const void* pidx, const void* x,
-                           void* y, int64_t n, int K, int tile, int64_t n_cols,
-                           int WpP, const int* slots, int n_live,
-                           void* stream) {
-  return launch_rect<float>(vals, pidx, x, y, n, K, tile, n_cols, WpP, slots,
-                            n_live, stream);
+                           void* y, int64_t n, int K, int tile, int64_t x_len,
+                           int64_t map_cols, int WpP, const int* slots,
+                           int n_live, void* stream) {
+  return launch_rect<float>(vals, pidx, x, y, n, K, tile, x_len, map_cols, WpP,
+                            slots, n_live, stream);
 }
 
 int raptor_banded_rect_bf16(const void* vals, const void* pidx, const void* x,
                             void* y, int64_t n, int K, int tile,
-                            int64_t n_cols, int WpP, const int* slots,
-                            int n_live, void* stream) {
-  return launch_rect<__nv_bfloat16>(vals, pidx, x, y, n, K, tile, n_cols, WpP,
-                                    slots, n_live, stream);
+                            int64_t x_len, int64_t map_cols, int WpP,
+                            const int* slots, int n_live, void* stream) {
+  return launch_rect<__nv_bfloat16>(vals, pidx, x, y, n, K, tile, x_len,
+                                    map_cols, WpP, slots, n_live, stream);
 }
 
 // vals_lo may be null (no truncation remainder).

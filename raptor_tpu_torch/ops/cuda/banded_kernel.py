@@ -5,9 +5,17 @@
   ``y[i] = sum_k vals[t,k,j] * x[t*tile - Wp + pidx[t,k,j]]`` (x read as 0
   outside [0, n)).  Counterpart of
   ``raptor_tpu/ops/pallas/banded_kernel.py::banded_spmv_pallas``.
+  ``banded_spmv_halo`` is the same kernel in its halo form: x is a rank's
+  buffer ``[left halo | x_own | right halo]`` of ``n + 2h`` elements,
+  ``h = kh * tile``, and window element ``t*tile - Wp + p`` is read at
+  ``h + t*tile - Wp + p``: the TPU kernel ``_banded_call`` on the x_pad
+  that ``raptor_tpu/parallel/dist.py::dist_banded_spmv`` builds.
 * K6 ``banded_spmv_rect``: rectangular transfer over a window of ``npage``
   pages whose base moves with the tile in proportion to the columns.
-  Counterpart of ``banded_spmv_rect_pallas``.
+  Counterpart of ``banded_spmv_rect_pallas``.  Given ``map_cols`` it takes
+  its map_cols form (``_banded_call_rect(map_cols=...)``, the sharded
+  caller's): x is a halo-extended buffer, the window base is
+  ``(t * map_cols) // (T * 1024) - WpP`` and the clamp is to the buffer.
 * K5 ``banded_df64_residual``: ``(rh, rl) = df64[(bh, bl) - v - A @ xh]``
   with Dekker's product error and an optional ``vals_lo * xh`` term.
   Counterpart of ``banded_df64_residual_pallas``.
@@ -20,8 +28,9 @@ versions are vectorised over all tiles.
 
 A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises; there is no fallback.  ``launches`` counts
-kernel launches (plain-version calls are not counted), ``launches_by_shape``
-counts them by (kernel, n, K, vals dtype).
+kernel launches (plain-version calls are not counted) under "K4", "K5",
+"K6" and, for the two sharded forms, "K4-halo" and "K6-map_cols";
+``launches_by_shape`` counts them by (that key, n, K, vals dtype).
 
 K4's host-side launch plan (``banded_launch_plan``: x from a shared-memory
 window or straight from device memory, threads per block, the window's
@@ -41,7 +50,8 @@ import torch
 from raptor_tpu_torch.ops.banded_plan import PAGE
 from raptor_tpu_torch.utils.df64 import df_add, two_prod
 
-__all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_rect",
+__all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_halo",
+           "banded_spmv_halo_ref", "banded_spmv_rect",
            "banded_spmv_rect_ref", "banded_df64_residual",
            "banded_df64_residual_ref", "banded_launch_plan",
            "banded_spmv_tiled_ref", "BandedLaunch", "live_slots", "launches",
@@ -67,7 +77,8 @@ H100_SMS = 132
 # pages: 6.3 against 6.5 us; over 47 pages: 6.3 against 12.7)
 STAGE_MIN_REUSE = 0.3
 
-launches: collections.Counter = collections.Counter()  # keys "K4", "K5", "K6"
+# keys "K4", "K4-halo", "K5", "K6", "K6-map_cols"
+launches: collections.Counter = collections.Counter()
 # keys (kernel, n, K, vals dtype name)
 launches_by_shape: collections.Counter = collections.Counter()
 
@@ -96,19 +107,26 @@ def _tiles(plan: dict, device) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _window_gather(plan: dict, x: torch.Tensor):
-    """Closure k -> x at slot k's window offsets, (T, R, 128), with 0
-    outside [0, n): x padded by Wp zeros on each side."""
+def halo_width(plan: dict) -> int:
+    """h = kh * tile: the halo on each side of K4's halo-form buffer."""
+    return plan["kh"] * plan["tile"]
+
+
+def _window_gather(plan: dict, x: torch.Tensor, halo: bool = False):
+    """Closure k -> x at slot k's window offsets, (T, R, 128).  Zero-pad
+    form: 0 outside [0, n) (x padded by Wp zeros on each side).  Halo form:
+    x is the buffer of ``n + 2h`` elements, and the windows start at its
+    element h - Wp (every read lies inside it)."""
     Wp = plan["Wp"]
-    xp = torch.cat([x.new_zeros(Wp), x, x.new_zeros(Wp)])
+    if halo:
+        xp = x[halo_width(plan) - Wp:]
+    else:
+        xp = torch.cat([x.new_zeros(Wp), x, x.new_zeros(Wp)])
     base = _tiles(plan, x.device) * plan["tile"]
     return lambda k: xp[base + plan["pidx"][:, k]]
 
 
-def banded_spmv_ref(plan: dict, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: y = sum over live slots of ``vals * x_window``
-    in slot order (a bf16 value widens to fp32 in the multiply)."""
-    gather = _window_gather(plan, x)
+def _banded_sum(plan: dict, gather, x: torch.Tensor) -> torch.Tensor:
     T, _, R, L = plan["vals"].shape
     y = torch.zeros((T, R, L), dtype=x.dtype, device=x.device)
     for k in live_slots(plan):
@@ -116,14 +134,33 @@ def banded_spmv_ref(plan: dict, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)
 
 
-def banded_spmv_rect_ref(plan: dict, x: torch.Tensor) -> torch.Tensor:
+def banded_spmv_ref(plan: dict, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: y = sum over live slots of ``vals * x_window``
+    in slot order (a bf16 value widens to fp32 in the multiply)."""
+    return _banded_sum(plan, _window_gather(plan, x), x)
+
+
+def banded_spmv_halo_ref(plan: dict, x_pad: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's halo form: ``x_pad`` is
+    ``[left halo | x_own | right halo]`` with ``h = kh * tile`` values on
+    each side (``banded_ref_padded`` of the reference)."""
+    return _banded_sum(plan, _window_gather(plan, x_pad, halo=True), x_pad)
+
+
+def banded_spmv_rect_ref(plan: dict, x: torch.Tensor,
+                         map_cols: Optional[int] = None) -> torch.Tensor:
     """Plain version of K6: window page p of tile t is
-    ``clamp((t * n_cols) // (T * 1024) - WpP + p, 0, n_cols / 1024 - 1)``;
-    x has length ``n_cols``."""
-    n, tile, n_cols = plan["n"], plan["tile"], plan["n_cols"]
+    ``clamp((t * map_cols) // (T * 1024) - WpP + p, 0, len(x) / 1024 - 1)``.
+    n_cols form (``map_cols`` None): map_cols is ``n_cols`` and x has that
+    length.  map_cols form: x is a halo-extended buffer (the reference's
+    ``banded_rect_ref_buf`` with the plan's WpP, which its caller sets to
+    0)."""
+    n, tile = plan["n"], plan["tile"]
+    if map_cols is None:
+        map_cols = plan["n_cols"]
     T = n // tile
-    base = (_tiles(plan, x.device) * n_cols) // (T * PAGE) - plan["WpP"]
-    last = n_cols // PAGE - 1
+    base = (_tiles(plan, x.device) * map_cols) // (T * PAGE) - plan["WpP"]
+    last = x.shape[0] // PAGE - 1
     _, _, R, L = plan["vals"].shape
     y = torch.zeros((T, R, L), dtype=x.dtype, device=x.device)
     for k in live_slots(plan):
@@ -222,20 +259,25 @@ def banded_launch_plan(plan: dict, n_sm: int = H100_SMS,
 
 def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
                           launch: Optional[BandedLaunch] = None,
-                          x_misalign: int = 0) -> torch.Tensor:
+                          x_misalign: int = 0,
+                          halo: bool = False) -> torch.Tensor:
     """Plain emulation of K4 (``csrc/banded_kernel.cu``), block by block.
 
+    x holds ``x_len`` floats and row 0's x sits at ``x_off``: the vector
+    itself (0, n) or, with ``halo``, the halo-form buffer (h, n + 2h).
     Staged: the block's window, pages ``[page0, page0 + pages)`` of its
     tile's, is copied from the 16-byte boundary of x at or below its start
     (``x_misalign``: x's start, in elements past such a boundary), zeros
-    outside [0, n), and ``pidx`` indexes that copy.  Direct: x is read at
-    the index clamped into [0, n) and a select gives 0 outside.  Either
-    way each thread's ``rows`` rows sum ``f32(vals) * x`` over the live
-    slots in slot order, a chunk of slots at a time (all of them up to
+    outside [0, x_len), and ``pidx`` indexes that copy.  Direct: x is read
+    at the index clamped into [0, x_len) and a select gives 0 outside.
+    Either way each thread's ``rows`` rows sum ``f32(vals) * x`` over the
+    live slots in slot order, a chunk of slots at a time (all of them up to
     ``K4_SINGLE_MAX``, else ``K4_LOOP_CHUNK``)."""
     if launch is None:
         launch = banded_launch_plan(plan)
     n, K, tile, Wp = plan["n"], plan["K"], plan["tile"], plan["Wp"]
+    x_off = halo_width(plan) if halo else 0
+    x_len = x.shape[0]
     live = live_slots(plan)
     vals = plan["vals"].reshape(n // tile, K, tile)
     pidx = plan["pidx"].reshape(n // tile, K, tile).long()
@@ -243,7 +285,7 @@ def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     for row0 in range(0, n, rows_blk):
         t, j = divmod(row0, tile)
-        xbase = t * tile - Wp
+        xbase = x_off + t * tile - Wp
         if launch.staged:
             j0 = xbase + launch.page0 * PAGE
             rem = (x_misalign + j0) % 4
@@ -252,7 +294,7 @@ def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
                 raise ValueError("the launch plan's shared memory does not "
                                  "hold its window")
             win = x.new_zeros(width)
-            lo, hi = max(a0, 0), min(a0 + width, n)
+            lo, hi = max(a0, 0), min(a0 + width, x_len)
             if lo < hi:
                 win[lo - a0:hi - a0] = x[lo:hi]
             wbase = launch.page0 * PAGE - rem
@@ -262,7 +304,7 @@ def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
         else:
             def gather(p):
                 xi = xbase + p
-                ok = (xi >= 0) & (xi < n)
+                ok = (xi >= 0) & (xi < x_len)
                 return torch.where(ok, x[torch.where(ok, xi, 0)], 0.0)
         acc = torch.zeros(rows_blk, dtype=x.dtype, device=x.device)
         step = K4_SINGLE_MAX if len(live) <= K4_SINGLE_MAX else K4_LOOP_CHUNK
@@ -352,39 +394,44 @@ def _default_launch(ranges, n: int, K: int, tile: int, Wp: int,
                               n_sm)
 
 
-def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = None
-               ) -> torch.Tensor:
+def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = None,
+               halo: bool = False) -> torch.Tensor:
     """K4 on CUDA tensors with ``launch`` (default: ``banded_launch_plan``
-    for x's card); raises on what the kernel does not take."""
+    for x's card), in its zero-pad form or, with ``halo``, its halo form
+    (x the ``n + 2h`` buffer); raises on what the kernel does not take."""
     vals = plan["vals"]
     n, K = plan["n"], plan["K"]
-    _check_vec(x, n, "K4")
-    live = _check_plan(plan, x.device, "K4")
+    name = "K4-halo" if halo else "K4"
+    x_off = halo_width(plan) if halo else 0
+    _check_vec(x, n + 2 * x_off, name)
+    live = _check_plan(plan, x.device, name)
     if vals.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K4: vals dtype {vals.dtype}: float32 or bfloat16")
+        raise ValueError(f"{name}: vals dtype {vals.dtype}: float32 or bfloat16")
     if K > MAX_K:
-        raise ValueError(f"K4: K={K} slots (max {MAX_K})")
+        raise ValueError(f"{name}: K={K} slots (max {MAX_K})")
+    if halo and x_off < plan["Wp"]:
+        raise ValueError(f"{name}: halo {x_off} narrower than Wp={plan['Wp']}")
     if vals.data_ptr() % 16 or plan["pidx"].data_ptr() % 16:
-        raise ValueError("K4: vals and pidx must be 16-byte aligned")
+        raise ValueError(f"{name}: vals and pidx must be 16-byte aligned")
     if launch is None:
         ranges = plan.get("ranges")
         launch = _default_launch(None if ranges is None else tuple(ranges), n,
                                  K, plan["tile"], plan["Wp"], _n_sm(x.device))
     if (launch.rows != K4_ROWS or launch.split * launch.threads * launch.rows
             != plan["tile"]):
-        raise ValueError(f"K4: launch plan {launch} does not tile "
+        raise ValueError(f"{name}: launch plan {launch} does not tile "
                          f"{plan['tile']} rows")
     lib = _lib()
     fn = lib.raptor_banded_bf16 if vals.dtype == torch.bfloat16 else lib.raptor_banded_f32
-    y = torch.empty_like(x)
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
-                y.data_ptr(), n, K, plan["tile"], plan["Wp"],
-                _live_mask(live), len(live), int(launch.staged),
+                y.data_ptr(), n, K, plan["tile"], plan["Wp"], x_off,
+                x.shape[0], _live_mask(live), len(live), int(launch.staged),
                 launch.threads, launch.page0, launch.pages, _stream(x.device))
     if rc != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError {rc}")
-    _count("K4", plan)
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _count(name, plan)
     return y
 
 
@@ -396,15 +443,36 @@ def banded_spmv(plan: dict, x: torch.Tensor) -> torch.Tensor:
     return _launch_k4(plan, x)
 
 
-def banded_spmv_rect(plan: dict, x: torch.Tensor) -> torch.Tensor:
-    """K6: y = B @ x over a rectangular banded plan; x fp32 (n_cols,)."""
+def banded_spmv_halo(plan: dict, x_pad: torch.Tensor) -> torch.Tensor:
+    """K4 in its halo form: y = A_own @ x over a rank's tile block of a
+    square banded plan; x_pad fp32 ``(n + 2 * kh * tile,)``, the rank's
+    ``[left halo | x_own | right halo]``."""
+    if x_pad.device.type == "cpu" and plan["vals"].device.type == "cpu":
+        return banded_spmv_halo_ref(plan, x_pad)
+    return _launch_k4(plan, x_pad, halo=True)
+
+
+def banded_spmv_rect(plan: dict, x: torch.Tensor,
+                     map_cols: Optional[int] = None) -> torch.Tensor:
+    """K6: y = B @ x over a rectangular banded plan.  n_cols form: x fp32
+    ``(n_cols,)``.  map_cols form (``map_cols`` given): x fp32 is a
+    halo-extended buffer of whole pages and ``map_cols`` the numerator of
+    the window index map."""
     vals = plan["vals"]
     if x.device.type == "cpu" and vals.device.type == "cpu":
-        return banded_spmv_rect_ref(plan, x)
-    _check_vec(x, plan["n_cols"], "K6")
-    live = _check_plan(plan, x.device, "K6", rect=True)
+        return banded_spmv_rect_ref(plan, x, map_cols)
+    name = "K6" if map_cols is None else "K6-map_cols"
+    if map_cols is None:
+        _check_vec(x, plan["n_cols"], name)
+        map_cols = plan["n_cols"]
+    else:
+        _check_vec(x, x.shape[0], name)
+        if x.shape[0] % PAGE or x.shape[0] < PAGE or not 0 <= map_cols < 2**40:
+            raise ValueError(f"{name}: buffer of {x.shape[0]} (a positive "
+                             f"multiple of {PAGE}), map_cols={map_cols}")
+    live = _check_plan(plan, x.device, name, rect=True)
     if vals.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K6: vals dtype {vals.dtype}: float32 or bfloat16")
+        raise ValueError(f"{name}: vals dtype {vals.dtype}: float32 or bfloat16")
     lib = _lib()
     fn = (lib.raptor_banded_rect_bf16 if vals.dtype == torch.bfloat16
           else lib.raptor_banded_rect_f32)
@@ -412,11 +480,11 @@ def banded_spmv_rect(plan: dict, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
                 y.data_ptr(), plan["n"], plan["K"], plan["tile"],
-                plan["n_cols"], plan["WpP"], _slots(live), len(live),
+                x.shape[0], map_cols, plan["WpP"], _slots(live), len(live),
                 _stream(x.device))
     if rc != 0:
-        raise RuntimeError(f"K6 launch failed: cudaError {rc}")
-    _count("K6", plan)
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _count(name, plan)
     return y
 
 

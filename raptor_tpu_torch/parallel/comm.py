@@ -1,10 +1,12 @@
 """Ring collectives over ``torch.distributed`` and an SPMD launcher.
 
 Counterpart of the ``shard_map`` collectives the JAX package's sharded
-engines use on their one mesh axis: the two ring ``ppermute`` shifts
-(``raptor_tpu/structured/dist.py:197-202``), ``psum`` and the tiled
+engines use on a mesh axis: the ring ``ppermute`` by any offset (the two
+neighbour shifts of ``raptor_tpu/structured/dist.py:197-202``, the halo
+rounds of ``raptor_tpu/parallel/halo.py``), ``psum`` and the tiled
 ``all_gather``.  One process per rank holds its own shard; a ``Ring`` wraps
-the process group those ranks share.
+the process group those ranks share, the whole world or a subgroup (the
+"node" and "chip" axes of the TAPS exchange, ``parallel/taps.py``).
 
 Transports:
 
@@ -57,30 +59,40 @@ class Ring:
         self.axis_size = dist.get_world_size(group)
         self.axis_index = dist.get_rank(group)
         self.host_staged = dist.get_backend(group) == "gloo"
+        # the global rank of each ring position (point-to-point ops name
+        # their peer by global rank)
+        self._peer = (list(range(self.axis_size)) if group is None else
+                      [dist.get_global_rank(group, i)
+                       for i in range(self.axis_size)])
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
         return t.cpu() if self.host_staged else t
 
-    def _shift(self, t: torch.Tensor, step: int) -> torch.Tensor:
-        if self.axis_size == 1:
+    def shift(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """Send ``t`` to the rank ``d`` places to the right (mod the ring's
+        size) and return what the rank ``d`` places to the left sent:
+        ``ppermute`` with ``[(i, (i + d) % size)]``.  Every rank passes a
+        tensor of the same shape; a shift by a multiple of the size returns
+        ``t`` itself."""
+        r, p = self.axis_index, self.axis_size
+        if d % p == 0:
             return t
         send = self._stage(t)
         recv = torch.empty_like(send)
-        r, p = self.axis_index, self.axis_size
-        ops = [dist.P2POp(dist.isend, send, (r + step) % p, self.group),
-               dist.P2POp(dist.irecv, recv, (r - step) % p, self.group)]
+        ops = [dist.P2POp(dist.isend, send, self._peer[(r + d) % p], self.group),
+               dist.P2POp(dist.irecv, recv, self._peer[(r - d) % p], self.group)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return recv.to(t.device)
 
     def shift_right(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the right neighbour; return the left one's."""
-        return self._shift(t, 1)
+        return self.shift(t, 1)
 
     def shift_left(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the left neighbour; return the right one's."""
-        return self._shift(t, -1)
+        return self.shift(t, -1)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ring (a new tensor)."""

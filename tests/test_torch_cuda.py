@@ -536,3 +536,123 @@ def test_k4_default_launch_and_refusals():
     with pytest.raises(RuntimeError, match="cudaError"):
         bk._launch_k4(plan, x, bk.banded_launch_plan(plan, staged=True)
                       ._replace(pages=64))
+
+
+# ---------------------------------------------------------------------------
+# the sharded forms: K4 on a halo buffer, K6 with map_cols; bit for bit
+# ---------------------------------------------------------------------------
+
+def _tile_rows(plan: dict, t0: int, t1: int) -> dict:
+    """Tiles [t0, t1) of a tensor plan: one rank's block."""
+    return dict(plan, n=(t1 - t0) * plan["tile"],
+                vals=plan["vals"][t0:t1].contiguous(),
+                pidx=plan["pidx"][t0:t1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("threads", [256, 128, 32])
+@pytest.mark.parametrize("case", ["four tiles", "two chunks", "page cap"])
+def test_k4_halo_form_bit_for_bit(case, threads, staged, dtype):
+    """K4's halo form on a rank's tiles (the middle two of four, so every
+    window reaches into both halos; a 47-page window) against its plain
+    version and the block-by-block emulation, with x_pad views at 16-byte
+    remainders 0, 1 and 3."""
+    dev = cuda_device()
+    plan = _k4_plan(case, dtype, dev)
+    T = plan["n"] // plan["tile"]
+    mine = _tile_rows(plan, T // 4, T // 4 + max(T // 2, 1))
+    lp = bk.banded_launch_plan(mine, staged=staged, threads=threads)
+    h = bk.halo_width(mine)
+    for mis in (0, 1, 3):
+        x_pad = _view_at(_x(mine["n"] + 2 * h, dev, seed=7 + mis), mis)
+        before = bk.launches["K4-halo"]
+        y = bk._launch_k4(mine, x_pad, lp, halo=True)
+        assert bk.launches["K4-halo"] == before + 1
+        ref = bk.banded_spmv_halo_ref(mine, x_pad)
+        assert torch.equal(y.cpu(), ref.cpu())
+        assert torch.equal(y.cpu(), bk.banded_spmv_tiled_ref(
+            {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in mine.items()},
+            x_pad.cpu(), lp, mis, halo=True))
+
+
+def _rect_block(band, rank: int, ndev: int) -> tuple:
+    """Rank ``rank``'s tiles of a RectBanded over ``ndev`` ranks as
+    dist_rect_banded_spmv calls K6 (WpP folded into the buffer), the
+    buffer's length and the map_cols numerator."""
+    plan = band.plan()
+    K, n, n_cols, tile, WpP, npage = band.meta
+    t_loc = n // tile // ndev
+    mine = _tile_rows(plan, rank * t_loc, (rank + 1) * t_loc)
+    cols_loc = n_cols // ndev
+    return dict(mine, WpP=0), cols_loc + npage * 1024, cols_loc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_map_cols_form_bit_for_bit(alg16, dtype):
+    """K6's map_cols form on rank 0's and the last rank's tiles of every
+    banded P and R of the 16^3 hierarchy over 2 ranks, and with windows
+    clamped at both ends of a short buffer (WpP 2, three pages)."""
+    from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
+
+    _, h = alg16
+    if dtype == torch.bfloat16:
+        h = cast_hierarchy_algebraic(h, dtype)
+    # the transfers that split over 2 ranks in whole tiles and pages
+    bands = [(label, b) for label, b in _bands(h) if "Aband" not in label
+             and (b.meta[1] // b.meta[3]) % 2 == 0 and b.meta[2] % 2048 == 0]
+    assert {label for label, _ in bands} >= {"L0 Pband", "L0 Rband"}
+    for label, band in bands:
+        for rank in (0, 1):
+            plan, length, cols_loc = _rect_block(band, rank, 2)
+            cases = [(plan, length, cols_loc), (dict(plan, WpP=2), 3 * 1024,
+                                                 band.meta[2])]
+            for p, m, mc in cases:
+                x = _x(m, plan["vals"].device, seed=rank)
+                before = bk.launches["K6-map_cols"]
+                y = bk.banded_spmv_rect(p, x, map_cols=mc)
+                assert bk.launches["K6-map_cols"] == before + 1, label
+                assert torch.equal(y.cpu(), bk.banded_spmv_rect_ref(
+                    p, x, map_cols=mc).cpu()), (label, rank)
+
+
+def test_sharded_forms_refuse_what_they_do_not_take(alg16):
+    _, h = alg16
+    plan = h.levels[0].Aband.plan()
+    dev = plan["vals"].device
+    n, hw = plan["n"], bk.halo_width(plan)
+    with pytest.raises(ValueError, match="shape"):
+        bk.banded_spmv_halo(plan, torch.zeros(n, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_spmv_halo(plan, torch.zeros(n + 2 * hw))
+    rplan = h.levels[0].Rband.plan()
+    with pytest.raises(ValueError, match="multiple"):
+        bk.banded_spmv_rect(rplan, torch.zeros(1000, device=dev), map_cols=1024)
+
+
+def test_sharded_applies_on_card_launch_the_new_forms(alg16):
+    """On a ring of one (gloo, in this process), the sharded operator and
+    transfer applies of level 0 launch K4's halo form and K6's map_cols
+    form and agree bit for bit with the same applies on the CPU."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.parallel import Ring
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    _, h = alg16
+    lv = h.levels[0]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        ring = Ring()
+        for fn, band, key in ((pdist.dist_banded_spmv, lv.Aband, "K4-halo"),
+                              (pdist.dist_rect_banded_spmv, lv.Rband,
+                               "K6-map_cols")):
+            n_in = band.n_pad if key == "K4-halo" else band.meta[2]
+            x = _x(n_in, band.vals.device, seed=11)
+            before = bk.launches[key], pdist.cuda_calls[fn.__name__]
+            y = fn(band, x, ring)
+            assert (bk.launches[key], pdist.cuda_calls[fn.__name__]) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(y.cpu(), fn(band.to("cpu"), x.cpu(), ring))
+    finally:
+        dist.destroy_process_group()
