@@ -133,9 +133,9 @@ N_PROFILED = 10
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations per stored entry in banded_df64_kernel with vals_lo
-# (two_prod 11, the vals_lo term 2, df_add 14; csrc/banded_kernel.cu)
-K5_OPS_PER_ENTRY = 27
+# fp32 operations per stored entry in banded_df64_kernel: two_prod 11 and
+# df_add 14, and with vals_lo its term, 2 more (csrc/banded_kernel.cu)
+K5_OPS_PER_ENTRY = {False: 25, True: 27}
 
 
 def stencil_7pt() -> np.ndarray:
@@ -527,25 +527,35 @@ def _banded_bytes(plan: dict, itemsize: int) -> int:
             + 4 * plan.get("n_cols", n))
 
 
-def _k4_line(dev, name: str, plan: dict, x) -> tuple:
-    """Time K4 on ``plan`` L2-warm and L2-cold and print the line of that
-    shape with its bound and the variant its launch plan took."""
+def _banded_line(dev, name: str, plan: dict, call) -> tuple:
+    """Time ``call`` (K4, K6 or a sharded form on ``plan``) L2-warm and
+    L2-cold and print the line of that shape with its bound and the variant
+    its launch plan took; returns (warm, cold, bound) in ms."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     lp = bk.banded_launch_plan(
         plan, torch.cuda.get_device_properties(dev).multi_processor_count)
     live = len(bk.live_slots(plan))
-    warm = cuda_ms(lambda: bk.banded_spmv(plan, x))
-    cold = cuda_ms(lambda: bk.banded_spmv(plan, x), flush_l2=True)
+    warm = cuda_ms(call)
+    cold = cuda_ms(call, flush_l2=True)
     bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
                 2 * live * plan["n"])[0]
-    variant = (f"staged, {lp.pages} of {(plan['tile'] + 2 * plan['Wp']) // 1024} "
-               f"pages, {lp.smem_bytes} B" if lp.staged else "direct")
+    variant = (f"staged, {lp.pages} of {bk._window_pages(plan)} pages, "
+               f"{lp.smem_bytes} B" if lp.staged else "direct")
+    rows = f"{lp.rows} rows a thread" + (", 32 apart" if lp.stride == 32 else "")
     print(f"[banded] {name} n={plan['n']} live {live}: {warm * 1e3:.1f} us "
           f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us; "
-          f"{variant}, {lp.threads} threads a block (device time, graph "
-          f"replay)")
-    return warm, cold
+          f"{variant}, {rows}, {lp.threads} threads a block (device time, "
+          f"graph replay)")
+    return warm, cold, bms
+
+
+def _equal(name: str, y, y_ref) -> float:
+    """_check's tolerance, and then bit for bit."""
+    err = _check(name, y, y_ref)
+    if not torch.equal(y, y_ref):
+        raise AssertionError(f"{name}: not bit-equal to its plain version")
+    return err
 
 
 def _print_levels(tag: str, h) -> None:
@@ -562,8 +572,9 @@ def _print_levels(tag: str, h) -> None:
 
 
 def _k5_case(dev, h, A, rng) -> tuple:
-    """K5 on level 0 of ``h`` against its plain version and a host fp64
-    residual; returns (max_abs_err vs plain, call closures for timing)."""
+    """K5 on level 0 of ``h`` against its plain version (bit for bit) and a
+    host fp64 residual, timed L2-warm and L2-cold beside its bound; returns
+    (max_abs_err vs plain, the call, its plain version and its numbers)."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     band, lo = h.levels[0].Aband, h.a0_lo_band
@@ -584,8 +595,9 @@ def _k5_case(dev, h, A, rng) -> tuple:
     args = (pad(xh64), pad(bh), pad(b64 - bh), pad(v))
     rh, rl = bk.banded_df64_residual(plan, lo, *args)
     rh_ref, rl_ref = bk.banded_df64_residual_ref(plan, lo, *args)
-    label = f"K5 L0 {'with' if lo is not None else 'without'} vals_lo"
-    err = max(_check(f"{label} rh", rh, rh_ref), _check(f"{label} rl", rl, rl_ref))
+    label = (f"K5 {round(n ** (1 / 3))}^3 L0 "
+             f"{'with' if lo is not None else 'without'} vals_lo")
+    err = max(_equal(f"{label} rh", rh, rh_ref), _equal(f"{label} rl", rl, rl_ref))
     got = rh.double().cpu().numpy() + rl.double().cpu().numpy()
     ax = Ar @ xh64
     e64 = float(np.abs(got[:n] - (b64 - v - ax)).max())
@@ -593,18 +605,33 @@ def _k5_case(dev, h, A, rng) -> tuple:
     print(f"[banded] {label}: |rh + rl - r64| {e64:.3e} (max|A xh| {scale:.3e})")
     if not e64 <= K5_TOL * scale:
         raise AssertionError(f"{label}: {e64} > {K5_TOL} * {scale} against fp64")
-    return err, (lambda: bk.banded_df64_residual(plan, lo, *args),
-                 lambda: bk.banded_df64_residual_ref(plan, lo, *args))
+    call = lambda: bk.banded_df64_residual(plan, lo, *args)  # noqa: E731
+    # the live slots' values (and remainders) and offsets; xh, bh, bl, v
+    # in, rh, rl out
+    live = len(bk.live_slots(plan))
+    nbytes = live * plan["n"] * (8 if lo is None else 12) + 24 * plan["n"]
+    bms, by = bound(nbytes, K5_OPS_PER_ENTRY[lo is not None] * A.nnz)
+    warm, cold = cuda_ms(call), cuda_ms(call, flush_l2=True)
+    lp = bk.banded_launch_plan(
+        plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"[banded] {label} n={plan['n']} live {live}: {warm * 1e3:.1f} us "
+          f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
+          f"({by}); {'staged' if lp.staged else 'direct'}, {lp.threads} "
+          f"threads a block (device time, graph replay)")
+    return err, dict(call=call, ref=lambda: bk.banded_df64_residual_ref(
+        plan, lo, *args), ms=warm, cold_ms=cold, bytes=nbytes, bound_ms=bms,
+        bound_by=by, shape=(plan["n"], plan["K"]))
 
 
 def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
-    """K4, K6 and K5 against their plain versions at every shape the 48^3
-    path gives them; times K4 (L0), K6 (L0 R) and K5 (L0)."""
+    """K4, K6 and K5 against their plain versions, bit for bit, at every
+    shape the 48^3 path gives them; each shape timed L2-warm and L2-cold
+    beside its bound (``shapes_48``: (n, K) -> (warm, cold, bound) ms)."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
 
     rng = np.random.default_rng(2)
-    rec = {k: {"err": 0.0} for k in ("K4", "K5", "K6")}
+    rec = {k: {"err": 0.0, "shapes_48": {}} for k in ("K4", "K5", "K6")}
 
     def vec(n):
         return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
@@ -626,50 +653,40 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
                    else (bk.banded_spmv_rect, bk.banded_spmv_rect_ref))
         x = vec(plan["n"] if square else plan["n_cols"])
         name = f"{k} 48^3 {label} K {plan['K']} {dtype}"
-        rec[k]["err"] = max(rec[k]["err"], _check(name, fn(plan, x), ref(plan, x)))
-        if square:
-            _k4_line(dev, name, plan, x)
-        else:
-            ms = cuda_ms(lambda: fn(plan, x))
-            cold = cuda_ms(lambda: fn(plan, x), flush_l2=True)
-            bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
-                        2 * len(bk.live_slots(plan)) * plan["n"])[0]
-            print(f"[banded] {name} n={plan['n']}: {ms * 1e3:.1f} us L2-warm, "
-                  f"{cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
-                  f"(device time, graph replay)")
+        rec[k]["err"] = max(rec[k]["err"], _equal(name, fn(plan, x), ref(plan, x)))
+        line = _banded_line(dev, name, plan, lambda: fn(plan, x))
+        if dtype == torch.float32:
+            rec[k]["shapes_48"][(plan["n"], plan["K"])] = line
         if (label, dtype) in (("L0 A", torch.float32), ("L0 R", torch.float32)):
-            timed[k] = (plan, fn, ref, x)
+            timed[k] = (plan, fn, ref, x, line)
     from raptor_tpu_torch.core.ell import ell_to_csr
 
     lv0 = h.levels[0]
     pm = lv0.Aband.perm[:lv0.A.n_rows].cpu().numpy()
     a0 = ell_to_csr(lv0.A)
     same_op = {"K4": a0[pm][:, pm], "K6": ell_to_csr(lv0.R)}
-    for k, (plan, fn, ref, x) in timed.items():
-        rec[k]["ms"] = cuda_ms(lambda: fn(plan, x))
+    for k, (plan, fn, ref, x, (warm, cold, _)) in timed.items():
+        rec[k]["ms"], rec[k]["cold_ms"] = warm, cold
         rec[k]["plain_ms"] = cuda_ms(lambda: ref(plan, x))
-        rec[k]["cold_ms"] = cuda_ms(lambda: fn(plan, x), flush_l2=True)
         rec[k]["cold_plain_ms"] = cuda_ms(lambda: ref(plan, x), flush_l2=True)
         rec[k]["bytes"] = _banded_bytes(plan, 4)
         shape = (plan["n"], x.shape[0])
         yardsticks(rec[k], host_csr(same_op[k], shape, dev), x, rec[k]["bytes"])
-    errs, calls = [], None
+    errs, k5 = [], None
     for hh, AA in ((h, shuffled_poisson(48)), (h_pi, A_pi)):
-        err, calls = _k5_case(dev, hh, AA, rng)
+        err, k5 = _k5_case(dev, hh, AA, rng)
         errs.append(err)
+        if hh.a0_lo_band is None:  # the form the 48^3 path runs
+            rec["K5"]["shapes_48"][k5["shape"]] = (k5["ms"], k5["cold_ms"],
+                                                   k5["bound_ms"])
     if h_pi.a0_lo_band is None or h.a0_lo_band is not None:
         raise AssertionError("the pi-scaled operator must carry a0_lo_band")
-    rec["K5"]["err"] = max(errs)
-    rec["K5"]["ms"] = cuda_ms(calls[0])
-    rec["K5"]["plain_ms"] = cuda_ms(calls[1])
-    rec["K5"]["cold_ms"] = cuda_ms(calls[0], flush_l2=True)
-    rec["K5"]["cold_plain_ms"] = cuda_ms(calls[1], flush_l2=True)
-    p0 = h_pi.levels[0].Aband.plan()
-    rec["K5"]["bytes"] = p0["K"] * p0["n"] * 12 + 24 * p0["n"]
-    # no single PyTorch call computes the df64 residual
-    rec["K5"]["library_ms"] = None
-    rec["K5"]["bound_ms"], rec["K5"]["bound_by"] = bound(
-        rec["K5"]["bytes"], K5_OPS_PER_ENTRY * h_pi.levels[0].A.nnz)
+    # the kernels line carries K5 with vals_lo, the heavier of its forms
+    rec["K5"].update(err=max(errs), plain_ms=cuda_ms(k5["ref"]),
+                     cold_plain_ms=cuda_ms(k5["ref"], flush_l2=True),
+                     library_ms=None,  # no one PyTorch call computes it
+                     **{key: k5[key] for key in ("ms", "cold_ms", "bytes",
+                                                 "bound_ms", "bound_by")})
     for k, what in (("K4", "L0 A"), ("K6", "L0 R"), ("K5", "L0, with vals_lo")):
         r = rec[k]
         lib = ("none" if r["library_ms"] is None
@@ -774,10 +791,11 @@ def phase_algebraic(dev, nx: int, cold_and_warm: bool, **cfg_extra) -> tuple:
     return out, h
 
 
-def banded_proof(tag: str) -> dict:
+def banded_proof(tag: str) -> tuple:
     """Read the banded launch and CUDA call counts of the path just driven
     (set to 0 just before it): K4, K5 and K6 must each have launched, once
-    for every CUDA banded apply of their kind."""
+    for every CUDA banded apply of their kind.  Returns (launches by
+    kernel, launches by shape)."""
     from raptor_tpu_torch.core import hybrid
     from raptor_tpu_torch.ops.cuda import banded_kernel
 
@@ -788,8 +806,31 @@ def banded_proof(tag: str) -> dict:
         f"{k} {bl[k]} launches / {c} CUDA calls" for k, c in pairs.items()))
     if any(bl[k] != c or c == 0 for k, c in pairs.items()):
         raise AssertionError(f"the {tag} path did not run through the kernels")
-    by_shape(tag, banded_kernel.launches_by_shape, pairs)
-    return {k: bl[k] for k in pairs}
+    rows = by_shape(tag, banded_kernel.launches_by_shape, pairs)
+    return {k: bl[k] for k in pairs}, rows
+
+
+def banded_excess(tag: str, rec: dict, rows: list, key: str) -> dict:
+    """Sigma over a path's fp32 shapes (``rows`` of banded_proof) of
+    launches x (L2-warm time - bound), per kernel, from the per-shape times
+    in rec[kernel][key]; a shape with no time is counted apart."""
+    out = {}
+    for k in ("K4", "K5", "K6"):
+        timed = rec[k].get(key, {})
+        total, untimed = 0.0, 0
+        for kern, n, K, dtype, c in rows:
+            if kern != k:
+                continue
+            if dtype != "float32" or (n, K) not in timed:
+                untimed += c
+                continue
+            warm, _, b = timed[(n, K)]
+            total += c * (warm - b)
+        out[k] = total
+        print(f"[banded] {tag}: {k} sum over the path's shapes of launches x "
+              f"(L2-warm - bound) {total:.4f} ms ({untimed} launches at "
+              f"shapes not timed)")
+    return out
 
 
 def clear_banded_counts() -> None:
@@ -802,10 +843,10 @@ def clear_banded_counts() -> None:
 
 
 def phase_banded_96(dev, h, rec) -> None:
-    """K4 on every banded level and K6 on level 0 of the 96^3 hierarchy
-    against their plain versions (after the proof, so these launches stay
-    out of its counts); times K4 at each shape, level 0 also with bf16
-    values."""
+    """K4 on every banded level, K6 on every P and R and K5 on level 0 of
+    the 96^3 hierarchy against their plain versions, bit for bit (after the
+    proof, so these launches stay out of its counts); each shape timed
+    (``shapes_96``), K4's level 0 also with bf16 values."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     rng = np.random.default_rng(4)
@@ -813,7 +854,8 @@ def phase_banded_96(dev, h, rec) -> None:
     def vec(n):
         return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
 
-    rec["K4"]["shapes_96"] = {}
+    for k in ("K4", "K5", "K6"):
+        rec[k]["shapes_96"] = {}
     for i, lv in enumerate(h.levels):
         if lv.Aband is None:
             continue
@@ -825,21 +867,32 @@ def phase_banded_96(dev, h, rec) -> None:
             x = vec(plan["n"])
             name = (f"K4 96^3 L{i} A K {plan['K']} kh {plan['kh']} npage "
                     f"{plan['npage']} {dtype}")
-            rec["K4"]["err"] = max(rec["K4"]["err"], _check(
+            rec["K4"]["err"] = max(rec["K4"]["err"], _equal(
                 name, bk.banded_spmv(plan, x), bk.banded_spmv_ref(plan, x)))
-            warm, cold = _k4_line(dev, name, plan, x)
-            rec["K4"]["shapes_96"][f"L{i} {dtype}"] = [warm, cold]
+            line = _banded_line(dev, name, plan, lambda: bk.banded_spmv(plan, x))
+            if dtype == "torch.float32":
+                rec["K4"]["shapes_96"][(plan["n"], plan["K"])] = line
             if i == 0 and dtype == "torch.float32":
                 plain = cuda_ms(lambda: bk.banded_spmv_ref(plan, x))
-                print(f"[banded] K4 96^3 L0 A: {warm * 1e3:.1f} us kernel "
-                      f"({_banded_bytes(plan, 4) / warm / 1e9:.3f} TB/s), "
+                print(f"[banded] K4 96^3 L0 A: {line[0] * 1e3:.1f} us kernel "
+                      f"({_banded_bytes(plan, 4) / line[0] / 1e9:.3f} TB/s), "
                       f"{plain * 1e3:.1f} us plain (device time, graph replay)")
-                rec["K4"]["ms_96"], rec["K4"]["plain_ms_96"] = warm, plain
-    r = h.levels[0].Rband.plan()
-    xr = vec(r["n_cols"])
-    rec["K6"]["err"] = max(rec["K6"]["err"], _check(
-        f"K6 96^3 L0 R npage {r['npage']}",
-        bk.banded_spmv_rect(r, xr), bk.banded_spmv_rect_ref(r, xr)))
+                rec["K4"]["ms_96"], rec["K4"]["plain_ms_96"] = line[0], plain
+    for i, lv in enumerate(h.levels):
+        for nm, band in (("P", lv.Pband), ("R", lv.Rband)):
+            if band is None:
+                continue
+            r = band.plan()
+            xr = vec(r["n_cols"])
+            name = f"K6 96^3 L{i} {nm} K {r['K']} npage {r['npage']}"
+            rec["K6"]["err"] = max(rec["K6"]["err"], _equal(
+                name, bk.banded_spmv_rect(r, xr), bk.banded_spmv_rect_ref(r, xr)))
+            rec["K6"]["shapes_96"][(r["n"], r["K"])] = _banded_line(
+                dev, name, r, lambda: bk.banded_spmv_rect(r, xr))
+    err, k5 = _k5_case(dev, h, shuffled_poisson(96), rng)
+    rec["K5"]["err"] = max(rec["K5"]["err"], err)
+    rec["K5"]["shapes_96"][k5["shape"]] = (k5["ms"], k5["cold_ms"],
+                                           k5["bound_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1230,9 +1283,13 @@ def phase_sharded_kernels(dev, h4) -> dict:
         warm = cuda_ms(fn)
         cold = cuda_ms(fn, flush_l2=True)
         r["shapes"][f"{label} rank {rank}"] = [plan["n"], plan["K"], warm, cold, bms]
+        lp = bk.banded_launch_plan(plan, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
         print(f"[sharded] {name} live {live} buffer {length}: {warm * 1e3:.1f} us "
-              f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
-              f"(device time, graph replay)")
+              f"L2-warm, {cold * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us; "
+              f"{'staged' if lp.staged else 'direct'}, {lp.rows} rows a "
+              f"thread, {lp.threads} threads a block (device time, graph "
+              f"replay)")
         if label in ("L0 A", "L0 R") and rank == 0:
             r.update(ms=warm, cold_ms=cold, bytes=nbytes, plain_ms=cuda_ms(ref),
                      cold_plain_ms=cuda_ms(ref, flush_l2=True))
@@ -1659,12 +1716,15 @@ def main() -> None:
     # carries the 48^3 row's (the reference bench row)
     clear_banded_counts()
     alg48, _ = phase_algebraic(dev, 48, cold_and_warm=True)
-    launch_counts = {"K1": k1, "K2": k2, **banded_proof("alg48")}
+    counts48, rows48 = banded_proof("alg48")
+    launch_counts = {"K1": k1, "K2": k2, **counts48}
+    alg48["excess_ms"] = banded_excess("alg48", rec, rows48, "shapes_48")
     clear_banded_counts()
     alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False,
                                  host_setup_threshold=2**20)
-    alg96["launches"] = banded_proof("alg96")
+    alg96["launches"], rows96 = banded_proof("alg96")
     phase_banded_96(dev, h96, rec)
+    alg96["excess_ms"] = banded_excess("alg96", rec, rows96, "shapes_96")
 
     rec.update(phase_halo_kernels(dev))
     sdist = phase_sdist_one_rank(dev)

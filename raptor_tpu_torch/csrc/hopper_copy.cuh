@@ -1,5 +1,5 @@
 // Loads and asynchronous copies shared by the DIA and the banded kernels
-// (NVIDIA Hopper, sm_90a): read-once 16- and 8-byte global loads, cp.async
+// (NVIDIA Hopper, sm_90a): read-once 16-, 8-, 4- and 2-byte global loads, cp.async
 // global -> shared copies with commit groups, and the staging of one zero-
 // filled window of a vector into shared memory.
 //
@@ -29,6 +29,19 @@ __device__ __forceinline__ uint2 ld_plane8(const void* p) {
   asm("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];\n"
       : "=r"(v.x), "=r"(v.y)
       : "l"(p));
+  return v;
+}
+
+// one 4-byte and one 2-byte read-once load (a warp's 32 consecutive
+// elements: coalesced)
+__device__ __forceinline__ unsigned ld_once(const void* p) {
+  unsigned v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned ld_once16(const void* p) {
+  unsigned short v;
+  asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
   return v;
 }
 

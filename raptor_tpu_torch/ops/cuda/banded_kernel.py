@@ -32,10 +32,13 @@ kernel launches (plain-version calls are not counted) under "K4", "K5",
 "K6" and, for the two sharded forms, "K4-halo" and "K6-map_cols";
 ``launches_by_shape`` counts them by (that key, n, K, vals dtype).
 
-K4's host-side launch plan (``banded_launch_plan``: x from a shared-memory
-window or straight from device memory, threads per block, the window's
-pages) is built here; ``banded_spmv_tiled_ref`` is a plain emulation of the
-kernel's algorithm, block by block, for the CPU tests.
+The three kernels share K4's design and its host-side launch plan
+(``banded_launch_plan``: x from a shared-memory window or straight from
+device memory, threads per block, the window's pages), built here for a
+square plan (K4, K5) or a rectangular one (K6).  ``banded_spmv_tiled_ref``,
+``banded_spmv_rect_tiled_ref`` and ``banded_df64_residual_tiled_ref`` are
+plain emulations of the kernels' algorithms, block by block, for the CPU
+tests.
 """
 
 from __future__ import annotations
@@ -54,28 +57,53 @@ __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_halo",
            "banded_spmv_halo_ref", "banded_spmv_rect",
            "banded_spmv_rect_ref", "banded_df64_residual",
            "banded_df64_residual_ref", "banded_launch_plan",
-           "banded_spmv_tiled_ref", "BandedLaunch", "live_slots", "launches",
-           "launches_by_shape"]
+           "banded_spmv_tiled_ref", "banded_spmv_rect_tiled_ref",
+           "banded_df64_residual_tiled_ref", "BandedLaunch", "live_slots",
+           "launches", "launches_by_shape"]
 
 MAX_SLOTS = 256  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
-# K4 (csrc/banded_kernel.cu): the slots its live mask covers, rows per
-# thread, the most live slots of its loop-free kernels and the looping
-# kernel's slots per chunk, threads per block at most and at least,
+# K4, K5 and K6 (csrc/banded_kernel.cu): the slots a live mask covers,
+# rows per thread, the most live slots of the loop-free kernels and the
+# looping kernels' slots per chunk, threads per block at most and at least,
 # the shared memory a window may take on Hopper (a block's 227 KB less the
-# kernel's slot list), the floats a staged window holds beyond its pages
-# (the 16-byte round-down of its start)
+# kernel's slot list), the floats a staged square window holds beyond its
+# pages (the 16-byte round-down of its start), and the floats K6's staged
+# window gives each page (RAPTOR_WPAGE: a page and its round-down)
 MAX_K = 1024
 K4_ROWS, K4_SINGLE_MAX, K4_LOOP_CHUNK = 4, 8, 4
 K4_THREADS, K4_MIN_THREADS = 256, 128
 SMEM_BYTES = 232448 - 2 * MAX_SLOTS
 WINDOW_SLACK = 4
+RECT_PAGE_FLOATS = PAGE + WINDOW_SLACK
 H100_SMS = 132
-# K4 stages the window when each staged value is read at least this often
-# (live slots x a block's rows / the window's floats).  Measured on an H100
-# (scripts/bench_banded_const_ab.py): staged is faster down to 0.47 (96^3
-# level 0: 20.6 against 24.8 us), direct from 0.18 down (3 slots over 17
-# pages: 6.3 against 6.5 us; over 47 pages: 6.3 against 12.7)
+# The kernels stage the window when each staged value is read at least this
+# often (live slots x a block's rows / the window's floats).  Measured for
+# K4 on an H100 (scripts/bench_banded_const_ab.py): staged is faster down
+# to 0.47 (96^3 level 0: 20.6 against 24.8 us), direct from 0.18 down (3
+# slots over 17 pages: 6.3 against 6.5 us; over 47 pages: 6.3 against
+# 12.7).
 STAGE_MIN_REUSE = 0.3
+# K6 stages its window only where a staged value is read this often: with
+# four consecutive rows a thread, the staged variant lost to the direct one
+# at every path shape read less than 1.7 times (96^3 level 0 R, 0.30: 17.3
+# against 11.2 us; 48^3 level 1 R, 0.63: 6.0 against 5.2) and won from 1.7
+# up (48^3 level 2 R: 5.2 against 5.5; 96^3 level 3 P, 3.5: 2.6 against
+# 2.8; scripts/bench_banded_rect_ab.py, H100).  Its windows are wide for
+# the rows a block covers (an R block reads two pages of x a tile, its
+# window spans up to 39).
+RECT_STAGE_MIN_REUSE = 1.5
+# K6 gives a thread four rows 32 apart, so that a warp's gather covers 32
+# consecutive rows, whose x lies close (few L1 sectors direct, few
+# shared-memory bank conflicts staged: four consecutive rows put a warp's
+# R reads 8 floats apart, on 4 of the 32 banks), at the price of 4-byte
+# plan loads; on a level of at least RECT_CONSECUTIVE_BLOCKS blocks of
+# 1024 rows an SM, bound by its plan's bytes, the rows are consecutive and
+# the plan loads 16 bytes.  Measured on an H100 (scripts/
+# bench_banded_rect_ab.py), 32 apart against consecutive, direct: 96^3
+# level 0 R 10.2 against 13.5 us, level 1 P 8.1 against 11.7, 48^3 level 0
+# P 3.72 against 3.75; but 96^3 level 0 P (6.5 blocks an SM) 21.5 against
+# 20.5
+RECT_CONSECUTIVE_BLOCKS = 4
 
 # keys "K4", "K4-halo", "K5", "K6", "K6-map_cols"
 launches: collections.Counter = collections.Counter()
@@ -187,24 +215,47 @@ def banded_df64_residual_ref(plan: dict, vals_lo, xh, bh, bl, v):
 
 
 # ---------------------------------------------------------------------------
-# K4: the launch plan and a plain emulation of the kernel's algorithm
+# the launch plan and plain emulations of the kernels' algorithms
 # ---------------------------------------------------------------------------
 
 class BandedLaunch(NamedTuple):
-    """K4's launch plan for one banded plan."""
+    """The launch plan of K4, K5 or K6 for one banded plan."""
     staged: bool      # x from a shared-memory window (else from device memory)
-    rows: int         # consecutive rows per thread
+    rows: int         # rows per thread (K6 on levels of many slots: 1)
     threads: int      # threads per block: a block covers rows * threads rows
     split: int        # blocks per tile
     page0: int        # the staged window: pages [page0, page0 + pages) of
     pages: int        # the tile's window (what the live slots' ranges touch)
     smem_bytes: int   # the window's shared memory, 0 when not staged
+    stride: int = 1   # K6: a thread's rows lie 1 (consecutive) or 32 apart
+
+
+def _is_rect(plan: dict) -> bool:
+    return "n_cols" in plan
+
+
+def _window_pages(plan: dict) -> int:
+    """A tile's x window in pages: the rectangular plan's ``npage``, the
+    square one's (tile + 2 Wp) / 1024."""
+    if _is_rect(plan):
+        return plan["npage"]
+    return (plan["tile"] + 2 * plan["Wp"]) // PAGE
+
+
+def _window_bytes(plan: dict, pages: int) -> int:
+    """Shared memory of a staged window of ``pages`` pages: the square
+    window in one piece from its 16-byte round-down, the rectangular one
+    page by page, ``RECT_PAGE_FLOATS`` apart (its pages need not be
+    contiguous in x)."""
+    if _is_rect(plan):
+        return 4 * pages * RECT_PAGE_FLOATS
+    return 4 * (pages * PAGE + WINDOW_SLACK)
 
 
 def _live_pages(plan: dict) -> tuple:
     """(page0, pages): the pages of a tile's window that the live slots'
     ranges touch; the whole window where the plan keeps no ranges."""
-    npage = (plan["tile"] + 2 * plan["Wp"]) // PAGE
+    npage = _window_pages(plan)
     ranges = plan.get("ranges")
     if ranges is None:
         return 0, npage
@@ -220,8 +271,11 @@ def _live_pages(plan: dict) -> tuple:
 
 def banded_launch_plan(plan: dict, n_sm: int = H100_SMS,
                        staged: Optional[bool] = None,
-                       threads: Optional[int] = None) -> BandedLaunch:
-    """The host-side launch plan of K4 for a square banded plan.
+                       threads: Optional[int] = None,
+                       stride: Optional[int] = None,
+                       rows: Optional[int] = None) -> BandedLaunch:
+    """The host-side launch plan of K4 or K5 for a square banded plan, or
+    of K6 for a rectangular one (a plan with ``n_cols``).
 
     A thread takes ``K4_ROWS`` consecutive rows, a block of 256 threads a
     page of 1024 rows; a level with fewer such blocks than SMs takes 128
@@ -229,32 +283,164 @@ def banded_launch_plan(plan: dict, n_sm: int = H100_SMS,
     then half a page and, when staged, copies the whole window all the
     same; smaller blocks measured slower).  x is staged in shared memory
     when every staged value is read at least ``STAGE_MIN_REUSE`` times
-    (live slots x the block's rows over the window's floats) and the window
-    fits a block's shared memory; ``staged`` given forces the choice, and a
-    forced window that does not fit raises.  ``threads`` given (32, 64, 128
-    or 256) forces the block size."""
+    (K6: ``RECT_STAGE_MIN_REUSE``; live slots x the block's rows over the
+    window's floats) and the window fits a block's shared memory;
+    ``staged`` given forces the choice, and a forced window that does not
+    fit raises.  ``threads`` given (32, 64, 128
+    or 256) forces the block size.  The window is the tile's: ``tile + 2
+    Wp`` elements of a square plan, ``npage`` pages of a rectangular one.
+    ``stride``: K6's thread rows lie 1 or 32 apart (32 unless the level has
+    ``RECT_CONSECUTIVE_BLOCKS`` blocks of 1024 rows an SM); K4's and K5's
+    are consecutive.  ``rows``: K6 gives a thread one row, direct, on a
+    level of more than ``K4_SINGLE_MAX`` live slots unless staging is
+    forced; four everywhere else."""
     n, tile = plan["n"], plan["tile"]
     if n % tile or tile % PAGE or n < 1:
         raise ValueError(f"K4: n={n}, tile={tile} out of range")
+    if threads is not None and threads not in (32, 64, 128, 256):
+        raise ValueError(f"K4: {threads} threads a block: 32, 64, 128 or 256")
+    if rows is None:
+        rows = (1 if _is_rect(plan) and staged is not True
+                and len(live_slots(plan)) > K4_SINGLE_MAX else K4_ROWS)
+    elif rows not in ((1, K4_ROWS) if _is_rect(plan) else (K4_ROWS,)):
+        raise ValueError(f"{rows} rows a thread: K6 takes 1 or 4, K4 and K5 4")
+    if rows == 1:
+        if staged:
+            raise ValueError("K6 with one row a thread reads x direct")
+        threads = threads or K4_THREADS
+        return BandedLaunch(False, 1, threads, tile // threads, 0, 0, 0, 1)
+    if stride is None:
+        stride = (32 if _is_rect(plan) and n < RECT_CONSECUTIVE_BLOCKS * n_sm
+                  * PAGE else 1)
+    elif stride not in ((1, 32) if _is_rect(plan) else (1,)):
+        raise ValueError(f"rows {stride} apart: K6 takes 1 or 32, K4 and K5 1")
     if threads is None:
         threads = K4_THREADS
         while threads > K4_MIN_THREADS and n // (threads * K4_ROWS) < n_sm:
             threads //= 2
-    elif threads not in (32, 64, 128, 256):
-        raise ValueError(f"K4: {threads} threads a block: 32, 64, 128 or 256")
     page0, pages = _live_pages(plan)
-    smem = 4 * (pages * PAGE + WINDOW_SLACK)
+    smem = _window_bytes(plan, pages)
     if staged is None:
         reuse = len(live_slots(plan)) * threads * K4_ROWS / (pages * PAGE)
-        staged = reuse >= STAGE_MIN_REUSE and smem <= SMEM_BYTES
+        staged = (reuse >= (RECT_STAGE_MIN_REUSE if _is_rect(plan)
+                            else STAGE_MIN_REUSE) and smem <= SMEM_BYTES)
     elif staged and smem > SMEM_BYTES:
         raise ValueError(f"K4: a window of {pages} pages needs {smem} bytes "
                          f"of shared memory (max {SMEM_BYTES})")
     if not staged:
         return BandedLaunch(False, K4_ROWS, threads,
-                            tile // (threads * K4_ROWS), 0, 0, 0)
+                            tile // (threads * K4_ROWS), 0, 0, 0, stride)
     return BandedLaunch(True, K4_ROWS, threads, tile // (threads * K4_ROWS),
-                        page0, pages, smem)
+                        page0, pages, smem, stride)
+
+
+def _chunks(live: list) -> list:
+    """The live slots in the kernels' chunks: all of them up to
+    ``K4_SINGLE_MAX``, else ``K4_LOOP_CHUNK`` at a time."""
+    step = K4_SINGLE_MAX if len(live) <= K4_SINGLE_MAX else K4_LOOP_CHUNK
+    return [live[s:s + step] for s in range(0, len(live), step)]
+
+
+def _checked(win: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """win[idx], refusing an index outside the staged window (a negative
+    one would wrap around)."""
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= win.numel()):
+        raise IndexError("a read outside the staged window")
+    return win[idx]
+
+
+def _square_gather(plan: dict, x: torch.Tensor, launch: BandedLaunch,
+                   x_off: int, x_misalign: int):
+    """Closure t -> (p -> x at window offset p of tile t) of K4's and K5's
+    square window.  Staged: the block's window, pages ``[page0, page0 +
+    pages)`` of its tile's, is copied from the 16-byte boundary of x at or
+    below its start (``x_misalign``: x's start, in elements past such a
+    boundary), zeros outside [0, x_len), and ``pidx`` indexes that copy.
+    Direct: x is read at the index clamped into [0, x_len) and a select
+    gives 0 outside."""
+    tile, Wp = plan["tile"], plan["Wp"]
+    x_len = x.shape[0]
+
+    def gather_of(t):
+        xbase = x_off + t * tile - Wp
+        if launch.staged:
+            j0 = xbase + launch.page0 * PAGE
+            rem = (x_misalign + j0) % 4
+            a0, width = j0 - rem, launch.pages * PAGE + WINDOW_SLACK
+            if launch.smem_bytes < 4 * width:
+                raise ValueError("the launch plan's shared memory does not "
+                                 "hold its window")
+            win = x.new_zeros(width)
+            lo, hi = max(a0, 0), min(a0 + width, x_len)
+            if lo < hi:
+                win[lo - a0:hi - a0] = x[lo:hi]
+            wbase = launch.page0 * PAGE - rem
+            return lambda p: _checked(win, p - wbase)
+
+        def gather(p):
+            xi = xbase + p
+            ok = (xi >= 0) & (xi < x_len)
+            return torch.where(ok, x[torch.where(ok, xi, 0)], 0.0)
+        return gather
+    return gather_of
+
+
+def _rect_gather(plan: dict, x: torch.Tensor, launch: BandedLaunch,
+                 map_cols: int, x_misalign: int):
+    """Closure t -> (p -> x at window offset p of tile t) of K6's window,
+    whose page w is x's page ``clamp(base_t + w, 0, last)``.  Staged: each
+    window page of ``[page0, page0 + pages)`` copied on its own from the
+    16-byte boundary at or below its clamped page's start,
+    ``RECT_PAGE_FLOATS`` apart, zeros outside [0, x_len) (never read);
+    ``p`` reads ``p + 4 * (p >> 10)`` of that copy.  Direct: x at the
+    clamped page."""
+    n, tile = plan["n"], plan["tile"]
+    T, x_len = n // tile, x.shape[0]
+    last = x_len // PAGE - 1
+    rem = x_misalign % 4
+
+    def gather_of(t):
+        base = (t * map_cols) // (T * PAGE) - plan["WpP"]
+        if not launch.staged:
+            return lambda p: x[torch.clamp(base + (p >> 10), 0, last) * PAGE
+                               + (p & (PAGE - 1))]
+        width = launch.pages * RECT_PAGE_FLOATS
+        if launch.smem_bytes < 4 * width:
+            raise ValueError("the launch plan's shared memory does not "
+                             "hold its window")
+        win = x.new_zeros(width)
+        for w in range(launch.pages):
+            a0 = min(max(base + launch.page0 + w, 0), last) * PAGE - rem
+            lo, hi = max(a0, 0), min(a0 + RECT_PAGE_FLOATS, x_len)
+            at = w * RECT_PAGE_FLOATS - a0
+            win[lo + at:hi + at] = x[lo:hi]
+        wbase = launch.page0 * RECT_PAGE_FLOATS - rem
+        return lambda p: _checked(win, p + 4 * (p >> 10) - wbase)
+    return gather_of
+
+
+def _tiled_sum(plan: dict, x: torch.Tensor, launch: BandedLaunch,
+               gather_of) -> torch.Tensor:
+    """y block by block: each thread's ``rows`` rows sum ``f32(vals) * x``
+    over the live slots in slot order, a chunk of slots at a time, with x
+    read by the block's tile's ``gather_of(t)``."""
+    n, K, tile = plan["n"], plan["K"], plan["tile"]
+    vals = plan["vals"].reshape(n // tile, K, tile)
+    pidx = plan["pidx"].reshape(n // tile, K, tile).long()
+    rows_blk = launch.rows * launch.threads
+    chunks = _chunks(live_slots(plan))
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    for row0 in range(0, n, rows_blk):
+        t, j = divmod(row0, tile)
+        gather = gather_of(t)
+        rows = slice(j, j + rows_blk)
+        acc = torch.zeros(rows_blk, dtype=x.dtype, device=x.device)
+        for chunk in chunks:
+            g = [gather(pidx[t, k, rows]) for k in chunk]
+            for k, gk in zip(chunk, g):
+                acc = acc + vals[t, k, rows] * gk
+        y[row0:row0 + rows_blk] = acc
+    return y
 
 
 def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
@@ -275,54 +461,74 @@ def banded_spmv_tiled_ref(plan: dict, x: torch.Tensor,
     ``K4_SINGLE_MAX``, else ``K4_LOOP_CHUNK``)."""
     if launch is None:
         launch = banded_launch_plan(plan)
-    n, K, tile, Wp = plan["n"], plan["K"], plan["tile"], plan["Wp"]
     x_off = halo_width(plan) if halo else 0
-    x_len = x.shape[0]
-    live = live_slots(plan)
+    return _tiled_sum(plan, x, launch,
+                      _square_gather(plan, x, launch, x_off, x_misalign))
+
+
+def banded_spmv_rect_tiled_ref(plan: dict, x: torch.Tensor,
+                               launch: Optional[BandedLaunch] = None,
+                               map_cols: Optional[int] = None,
+                               x_misalign: int = 0) -> torch.Tensor:
+    """Plain emulation of K6 (``csrc/banded_kernel.cu``), block by block,
+    in either form (``map_cols`` as in ``banded_spmv_rect``).  Staged: the
+    block's window pages ``[page0, page0 + pages)``, each clamped into x
+    on its own and copied from the 16-byte boundary at or below its start
+    (``x_misalign`` as in ``banded_spmv_tiled_ref``), ``RECT_PAGE_FLOATS``
+    apart; direct: x at the clamped page.  Four rows a thread sum over the
+    live slots in slot order, a chunk at a time."""
+    if launch is None:
+        launch = banded_launch_plan(plan)
+    if map_cols is None:
+        map_cols = plan["n_cols"]
+    return _tiled_sum(plan, x, launch,
+                      _rect_gather(plan, x, launch, map_cols, x_misalign))
+
+
+def banded_df64_residual_tiled_ref(plan: dict, vals_lo, xh, bh, bl, v,
+                                   launch: Optional[BandedLaunch] = None,
+                                   x_misalign: int = 0):
+    """Plain emulation of K5 (``csrc/banded_kernel.cu``), block by block:
+    K4's square window over xh (staged or direct, ``x_misalign`` as in
+    ``banded_spmv_tiled_ref``), and for each thread's rows the error-free
+    sequence of ``banded_df64_residual_ref``, (sh, se) from (bh, bl, -v)
+    and then one compensated term per live slot, in slot order, a chunk at
+    a time."""
+    if launch is None:
+        launch = banded_launch_plan(plan)
+    n, K, tile = plan["n"], plan["K"], plan["tile"]
     vals = plan["vals"].reshape(n // tile, K, tile)
+    lo = None if vals_lo is None else vals_lo.reshape(n // tile, K, tile)
     pidx = plan["pidx"].reshape(n // tile, K, tile).long()
+    gather_of = _square_gather(plan, xh, launch, 0, x_misalign)
     rows_blk = launch.rows * launch.threads
-    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    chunks = _chunks(live_slots(plan))
+    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
     for row0 in range(0, n, rows_blk):
         t, j = divmod(row0, tile)
-        xbase = x_off + t * tile - Wp
-        if launch.staged:
-            j0 = xbase + launch.page0 * PAGE
-            rem = (x_misalign + j0) % 4
-            a0, width = j0 - rem, launch.pages * PAGE + WINDOW_SLACK
-            if launch.smem_bytes < 4 * width:
-                raise ValueError("the launch plan's shared memory does not "
-                                 "hold its window")
-            win = x.new_zeros(width)
-            lo, hi = max(a0, 0), min(a0 + width, x_len)
-            if lo < hi:
-                win[lo - a0:hi - a0] = x[lo:hi]
-            wbase = launch.page0 * PAGE - rem
-
-            def gather(p):
-                return win[p - wbase]
-        else:
-            def gather(p):
-                xi = xbase + p
-                ok = (xi >= 0) & (xi < x_len)
-                return torch.where(ok, x[torch.where(ok, xi, 0)], 0.0)
-        acc = torch.zeros(rows_blk, dtype=x.dtype, device=x.device)
-        step = K4_SINGLE_MAX if len(live) <= K4_SINGLE_MAX else K4_LOOP_CHUNK
-        for s0 in range(0, len(live), step):
-            chunk = live[s0:s0 + step]
-            g = [gather(pidx[t, k, j:j + rows_blk]) for k in chunk]
-            for k, gk in zip(chunk, g):
-                acc = acc + vals[t, k, j:j + rows_blk] * gk
-        y[row0:row0 + rows_blk] = acc
-    return y
+        gather = gather_of(t)
+        rows, out = slice(j, j + rows_blk), slice(row0, row0 + rows_blk)
+        sh, se = df_add(bh[out], bl[out], -v[out], torch.zeros_like(v[out]))
+        for chunk in chunks:
+            g = [gather(pidx[t, k, rows]) for k in chunk]
+            for k, gh in zip(chunk, g):
+                ph, pe = two_prod(vals[t, k, rows], gh)
+                if lo is not None:
+                    pe = pe + lo[t, k, rows] * gh
+                sh, se = df_add(sh, se, -ph, -pe)
+        rh[out], rl[out] = sh, se
+    return rh, rl
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_plan(plan: dict, dev, name: str, *, rect: bool = False) -> list:
-    """Validate a plan's tensors for a launch; returns its live slots."""
+def _check_plan(plan: dict, dev, name: str, dtypes=(torch.float32,
+                                                  torch.bfloat16)) -> list:
+    """Validate a plan's tensors for a launch (on ``dev``, contiguous,
+    16-byte aligned, shapes, vals of ``dtypes``); returns its live
+    slots."""
     vals, pidx = plan["vals"], plan["pidx"]
     K, n, tile = plan["K"], plan["n"], plan["tile"]
     T = n // tile
@@ -333,15 +539,23 @@ def _check_plan(plan: dict, dev, name: str, *, rect: bool = False) -> list:
             raise ValueError(f"{name}: {what} must be contiguous")
     if pidx.dtype != torch.int32:
         raise ValueError(f"{name}: pidx dtype {pidx.dtype}, expected int32")
+    if vals.dtype not in dtypes:
+        raise ValueError(f"{name}: vals dtype {vals.dtype}: " + " or ".join(
+            str(d).removeprefix("torch.") for d in dtypes))
     shape = (T, K, tile // 128, 128)
     if tuple(vals.shape) != shape or tuple(pidx.shape) != shape:
         raise ValueError(f"{name}: vals {tuple(vals.shape)}, pidx "
                          f"{tuple(pidx.shape)}: expected {shape}")
     if n % tile or tile % PAGE or not 0 < K * n < 2**31:
         raise ValueError(f"{name}: n={n}, tile={tile}, K={K} out of range")
-    if rect and (plan["n_cols"] % PAGE or not 0 < plan["n_cols"] < 2**31):
+    if _is_rect(plan) and (plan["n_cols"] % PAGE
+                           or not 0 < plan["n_cols"] < 2**31):
         raise ValueError(f"{name}: n_cols={plan['n_cols']} not a positive "
                          f"multiple of {PAGE}")
+    if K > MAX_K:
+        raise ValueError(f"{name}: K={K} slots (max {MAX_K})")
+    if vals.data_ptr() % 16 or pidx.data_ptr() % 16:
+        raise ValueError(f"{name}: vals and pidx must be 16-byte aligned")
     live = live_slots(plan)
     if len(live) > MAX_SLOTS:
         raise ValueError(f"{name}: {len(live)} live slots (max {MAX_SLOTS})")
@@ -361,6 +575,8 @@ def _check_vec(v: torch.Tensor, n: int, name: str, what: str = "x"):
 
 
 def _slots(live) -> ctypes.Array:
+    """The live slots as an int array (the C interface of the kernels
+    before the live mask; the A/B scripts bind it)."""
     return (ctypes.c_int * max(len(live), 1))(*live)
 
 
@@ -388,10 +604,34 @@ def _live_mask(live) -> ctypes.Array:
 
 
 @functools.lru_cache(maxsize=256)
-def _default_launch(ranges, n: int, K: int, tile: int, Wp: int,
-                    n_sm: int) -> BandedLaunch:
-    return banded_launch_plan(dict(ranges=ranges, n=n, K=K, tile=tile, Wp=Wp),
-                              n_sm)
+def _default_launch(ranges, n: int, K: int, tile: int, window: int,
+                    rect: bool, n_sm: int) -> BandedLaunch:
+    shape = dict(ranges=ranges, n=n, K=K, tile=tile)
+    shape.update(dict(n_cols=None, npage=window) if rect else dict(Wp=window))
+    return banded_launch_plan(shape, n_sm)
+
+
+def _launch_for(plan: dict, name: str, device,
+                launch: Optional[BandedLaunch]) -> BandedLaunch:
+    """``launch``, or by default ``banded_launch_plan`` for the card of
+    ``device`` (cached by the plan's shape); raises unless it tiles the
+    plan's tiles."""
+    if launch is None:
+        ranges = plan.get("ranges")
+        rect = _is_rect(plan)
+        launch = _default_launch(None if ranges is None else tuple(ranges),
+                                 plan["n"], plan["K"], plan["tile"],
+                                 plan["npage"] if rect else plan["Wp"], rect,
+                                 _n_sm(device))
+    if (launch.rows not in ((1, K4_ROWS) if _is_rect(plan) else (K4_ROWS,))
+            or launch.split * launch.threads * launch.rows != plan["tile"]):
+        raise ValueError(f"{name}: launch plan {launch} does not tile "
+                         f"{plan['tile']} rows")
+    if launch.stride not in ((1, 32) if _is_rect(plan) else (1,)):
+        raise ValueError(f"{name}: rows {launch.stride} apart")
+    if launch.rows == 1 and launch.staged:
+        raise ValueError(f"{name}: one row a thread reads x direct")
+    return launch
 
 
 def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = None,
@@ -405,22 +645,9 @@ def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = Non
     x_off = halo_width(plan) if halo else 0
     _check_vec(x, n + 2 * x_off, name)
     live = _check_plan(plan, x.device, name)
-    if vals.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: vals dtype {vals.dtype}: float32 or bfloat16")
-    if K > MAX_K:
-        raise ValueError(f"{name}: K={K} slots (max {MAX_K})")
     if halo and x_off < plan["Wp"]:
         raise ValueError(f"{name}: halo {x_off} narrower than Wp={plan['Wp']}")
-    if vals.data_ptr() % 16 or plan["pidx"].data_ptr() % 16:
-        raise ValueError(f"{name}: vals and pidx must be 16-byte aligned")
-    if launch is None:
-        ranges = plan.get("ranges")
-        launch = _default_launch(None if ranges is None else tuple(ranges), n,
-                                 K, plan["tile"], plan["Wp"], _n_sm(x.device))
-    if (launch.rows != K4_ROWS or launch.split * launch.threads * launch.rows
-            != plan["tile"]):
-        raise ValueError(f"{name}: launch plan {launch} does not tile "
-                         f"{plan['tile']} rows")
+    launch = _launch_for(plan, name, x.device, launch)
     lib = _lib()
     fn = lib.raptor_banded_bf16 if vals.dtype == torch.bfloat16 else lib.raptor_banded_f32
     y = torch.empty(n, dtype=x.dtype, device=x.device)
@@ -452,27 +679,24 @@ def banded_spmv_halo(plan: dict, x_pad: torch.Tensor) -> torch.Tensor:
     return _launch_k4(plan, x_pad, halo=True)
 
 
-def banded_spmv_rect(plan: dict, x: torch.Tensor,
-                     map_cols: Optional[int] = None) -> torch.Tensor:
-    """K6: y = B @ x over a rectangular banded plan.  n_cols form: x fp32
-    ``(n_cols,)``.  map_cols form (``map_cols`` given): x fp32 is a
-    halo-extended buffer of whole pages and ``map_cols`` the numerator of
-    the window index map."""
+def _launch_k6(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = None,
+               map_cols: Optional[int] = None) -> torch.Tensor:
+    """K6 on CUDA tensors with ``launch`` (default: ``banded_launch_plan``
+    for x's card), in its n_cols form or, with ``map_cols``, its map_cols
+    form; raises on what the kernel does not take."""
     vals = plan["vals"]
-    if x.device.type == "cpu" and vals.device.type == "cpu":
-        return banded_spmv_rect_ref(plan, x, map_cols)
     name = "K6" if map_cols is None else "K6-map_cols"
     if map_cols is None:
         _check_vec(x, plan["n_cols"], name)
         map_cols = plan["n_cols"]
     else:
         _check_vec(x, x.shape[0], name)
-        if x.shape[0] % PAGE or x.shape[0] < PAGE or not 0 <= map_cols < 2**40:
+        if (x.shape[0] % PAGE or not PAGE <= x.shape[0] < 2**31
+                or not 0 <= map_cols < 2**40):
             raise ValueError(f"{name}: buffer of {x.shape[0]} (a positive "
                              f"multiple of {PAGE}), map_cols={map_cols}")
-    live = _check_plan(plan, x.device, name, rect=True)
-    if vals.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: vals dtype {vals.dtype}: float32 or bfloat16")
+    live = _check_plan(plan, x.device, name)
+    launch = _launch_for(plan, name, x.device, launch)
     lib = _lib()
     fn = (lib.raptor_banded_rect_bf16 if vals.dtype == torch.bfloat16
           else lib.raptor_banded_rect_f32)
@@ -480,38 +704,52 @@ def banded_spmv_rect(plan: dict, x: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
                 y.data_ptr(), plan["n"], plan["K"], plan["tile"],
-                x.shape[0], map_cols, plan["WpP"], _slots(live), len(live),
-                _stream(x.device))
+                x.shape[0], map_cols, plan["WpP"], plan["npage"],
+                _live_mask(live), len(live), int(launch.staged),
+                2 if launch.rows == 1 else int(launch.stride == 32),
+                launch.threads, launch.page0, launch.pages, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     _count(name, plan)
     return y
 
 
-def banded_df64_residual(plan: dict, vals_lo, xh, bh, bl, v):
-    """K5: (rh, rl) = df64[(bh, bl) - v - A @ xh] over a square banded plan
-    with fp32 vals; ``vals_lo``: optional fp32 truncation remainder of the
-    operator in the plan's blocked layout."""
+def banded_spmv_rect(plan: dict, x: torch.Tensor,
+                     map_cols: Optional[int] = None) -> torch.Tensor:
+    """K6: y = B @ x over a rectangular banded plan.  n_cols form: x fp32
+    ``(n_cols,)``.  map_cols form (``map_cols`` given): x fp32 is a
+    halo-extended buffer of whole pages and ``map_cols`` the numerator of
+    the window index map."""
+    if x.device.type == "cpu" and plan["vals"].device.type == "cpu":
+        return banded_spmv_rect_ref(plan, x, map_cols)
+    return _launch_k6(plan, x, map_cols=map_cols)
+
+
+def _launch_k5(plan: dict, vals_lo, xh, bh, bl, v,
+               launch: Optional[BandedLaunch] = None):
+    """K5 on CUDA tensors with ``launch`` (default: ``banded_launch_plan``
+    for xh's card, as K4's); raises on what the kernel does not take."""
     vals = plan["vals"]
-    if xh.device.type == "cpu" and vals.device.type == "cpu":
-        return banded_df64_residual_ref(plan, vals_lo, xh, bh, bl, v)
     n = plan["n"]
     for what, t in (("xh", xh), ("bh", bh), ("bl", bl), ("v", v)):
         _check_vec(t, n, "K5", what)
         if t.device != xh.device:
             raise ValueError(f"K5: {what} on {t.device}, xh on {xh.device}")
-    live = _check_plan(plan, xh.device, "K5")
     if vals.dtype != torch.float32:
         raise ValueError(f"K5: vals dtype {vals.dtype}: the df64 residual "
                          f"takes float32")
+    live = _check_plan(plan, xh.device, "K5")
     lo_ptr = None
     if vals_lo is not None:
         if (vals_lo.device != xh.device or vals_lo.dtype != torch.float32
-                or vals_lo.shape != vals.shape or not vals_lo.is_contiguous()):
+                or vals_lo.shape != vals.shape or not vals_lo.is_contiguous()
+                or vals_lo.data_ptr() % 16):
             raise ValueError(f"K5: vals_lo {tuple(vals_lo.shape)} "
                              f"{vals_lo.dtype} on {vals_lo.device}: expected "
-                             f"contiguous float32 {tuple(vals.shape)}")
+                             f"contiguous, 16-byte aligned float32 "
+                             f"{tuple(vals.shape)}")
         lo_ptr = vals_lo.data_ptr()
+    launch = _launch_for(plan, "K5", xh.device, launch)
     rh = torch.empty_like(xh)
     rl = torch.empty_like(xh)
     with torch.cuda.device(xh.device):
@@ -519,8 +757,18 @@ def banded_df64_residual(plan: dict, vals_lo, xh, bh, bl, v):
             vals.data_ptr(), lo_ptr, plan["pidx"].data_ptr(), xh.data_ptr(),
             bh.data_ptr(), bl.data_ptr(), v.data_ptr(), rh.data_ptr(),
             rl.data_ptr(), n, plan["K"], plan["tile"], plan["Wp"],
-            _slots(live), len(live), _stream(xh.device))
+            _live_mask(live), len(live), int(launch.staged), launch.threads,
+            launch.page0, launch.pages, _stream(xh.device))
     if rc != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {rc}")
     _count("K5", plan)
     return rh, rl
+
+
+def banded_df64_residual(plan: dict, vals_lo, xh, bh, bl, v):
+    """K5: (rh, rl) = df64[(bh, bl) - v - A @ xh] over a square banded plan
+    with fp32 vals; ``vals_lo``: optional fp32 truncation remainder of the
+    operator in the plan's blocked layout."""
+    if xh.device.type == "cpu" and plan["vals"].device.type == "cpu":
+        return banded_df64_residual_ref(plan, vals_lo, xh, bh, bl, v)
+    return _launch_k5(plan, vals_lo, xh, bh, bl, v)

@@ -126,13 +126,15 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
     for name in ("raptor_banded_rect_f32", "raptor_banded_rect_bf16"):
         fn = getattr(lib, name)
-        # vals, pidx, x, y, n, K, tile, x_len, map_cols, WpP, slots, n_live,
-        # stream
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, i64, i32, p, i32, p]
+        # vals, pidx, x, y, n, K, tile, x_len, map_cols, WpP, npage, live
+        # mask, n_live, staged, layout, threads, page0, pages, stream
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, i64, i32, i32, p, i32,
+                       i32, i32, i32, i32, i32, p]
         fn.restype = i32
-    # vals, vals_lo, pidx, xh, bh, bl, v, rh, rl, n, K, tile, Wp, slots,
-    # n_live, stream
+    # vals, vals_lo, pidx, xh, bh, bl, v, rh, rl, n, K, tile, Wp, live mask,
+    # n_live, staged, threads, page0, pages, stream
     lib.raptor_banded_df64_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i32,
-                                           i32, i32, p, i32, p]
+                                           i32, i32, p, i32, i32, i32, i32,
+                                           i32, p]
     lib.raptor_banded_df64_f32.restype = i32
     return lib

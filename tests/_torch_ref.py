@@ -141,6 +141,32 @@ def slots_twice(plan: dict) -> dict:
                 K=2 * plan["K"], ranges=tuple(plan["ranges"]) * 2)
 
 
+def clamped_rect_plan(device="cpu") -> dict:
+    """A rectangular tensor plan (K6's) on ``device``: four tiles over four
+    pages of x with WpP 2 and a 5-page window.  Slot 0 reads two pages left
+    (x page t - 2), live from tile 2 on; slot 1 the diagonal; slot 2 two
+    pages right (x page t + 2), live up to tile 1.
+    A masked entry reads its slot's lowest page at index 0, so tiles 0-1
+    read x[0] through window pages that clamp from -2 and -1, and tiles 2-3
+    read x[3072] through pages that clamp from 4 and 5."""
+    T, tile, K = 4, 1024, 3
+    rng = np.random.default_rng(11)
+    vals = rng.standard_normal((T, K, tile)).astype(np.float32)
+    j = np.arange(tile)
+    pidx = np.empty((T, K, tile), np.int32)
+    for t in range(T):
+        pidx[t, 0] = j if t >= 2 else 0
+        pidx[t, 1] = 2 * 1024 + j
+        pidx[t, 2] = 4 * 1024 + j if t < 2 else 4 * 1024
+    vals[:2, 0] = 0.0
+    vals[2:, 2] = 0.0
+    shape = (T, K, tile // 128, 128)
+    return dict(vals=torch.from_numpy(vals.reshape(shape)).to(device),
+                pidx=torch.from_numpy(pidx.reshape(shape)).to(device), K=K,
+                n=T * tile, n_cols=T * tile, tile=tile, WpP=2, npage=5,
+                ranges=((0, 0), (2, 2), (4, 4)))
+
+
 def star(nd: int) -> list:
     """The 2 * nd + 1 point star's offsets, in C order."""
     import itertools

@@ -27,9 +27,10 @@ from raptor_tpu_torch.config import AmgConfig, SolveConfig
 from raptor_tpu_torch.gallery import default_rhs, poisson_3d
 from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
-from tests._torch_ref import (banded_tensors, cuda_device, rcm_ell, rel_err,
-                              slots_twice, star, stencil_5pt, stencil_7pt,
-                              wide_band, with_dead_slots)
+from tests._torch_ref import (banded_tensors, clamped_rect_plan, cuda_device,
+                              rcm_ell, rel_err, slots_twice, star,
+                              stencil_5pt, stencil_7pt, wide_band,
+                              with_dead_slots)
 
 pytestmark = pytest.mark.cuda
 
@@ -384,6 +385,7 @@ def test_k4_k6_kernels_match_plain(alg16, dtype):
         y = fn(plan, x)
         assert bk.launches[key] == before + 1, label
         assert rel_err(y.cpu(), ref(plan, x).cpu()) <= TOL, label
+        assert torch.equal(y.cpu(), ref(plan, x).cpu()), label
 
 
 @pytest.mark.parametrize("with_lo", [False, True])
@@ -410,16 +412,31 @@ def test_k5_kernel_matches_plain_and_fp64(with_lo):
     bh = b64.astype(np.float32)
     v = (rng.standard_normal(n) * 1e-6).astype(np.float32)
     args = (pad(xh64), pad(bh), pad(b64 - bh), pad(v))
+    plan = band.plan()
     before = bk.launches["K5"]
-    rh, rl = bk.banded_df64_residual(band.plan(), lo, *args)
+    rh, rl = bk.banded_df64_residual(plan, lo, *args)
     assert bk.launches["K5"] == before + 1
-    rh_ref, rl_ref = bk.banded_df64_residual_ref(band.plan(), lo, *args)
+    rh_ref, rl_ref = bk.banded_df64_residual_ref(plan, lo, *args)
     assert torch.equal(rh.cpu(), rh_ref.cpu())
     assert torch.equal(rl.cpu(), rl_ref.cpu())
     got = rh.double().cpu().numpy() + rl.double().cpu().numpy()
     ref = b64 - v - Ar @ xh64
     scale = np.abs(Ar @ xh64).max()
     assert np.abs(got[:n] - ref).max() <= 1e-12 * scale
+    # both variants forced at every block size, xh also as a view off 16
+    # bytes (the staged window's round-down)
+    for staged in (True, False):
+        for threads in (256, 128, 32):
+            lp = bk.banded_launch_plan(plan, staged=staged, threads=threads)
+            for mis in (0, 1):
+                xh = _view_at(args[0], mis)
+                before = bk.launches["K5"]
+                rh, rl = bk._launch_k5(plan, lo, xh, *args[1:], lp)
+                assert bk.launches["K5"] == before + 1
+                assert torch.equal(rh.cpu(), rh_ref.cpu()), (staged, threads)
+                assert torch.equal(rl.cpu(), rl_ref.cpu()), (staged, threads)
+                got = rh.double().cpu().numpy() + rl.double().cpu().numpy()
+                assert np.abs(got[:n] - ref).max() <= 1e-12 * scale
 
 
 def test_banded_kernels_refuse_what_they_do_not_take(alg16):
@@ -539,6 +556,110 @@ def test_k4_default_launch_and_refusals():
 
 
 # ---------------------------------------------------------------------------
+# K6 at every variant its launch plan can pick: bit for bit
+# ---------------------------------------------------------------------------
+
+def _k6_plan(case: str, h, dtype) -> dict:
+    if case == "clamped":
+        plan = clamped_rect_plan(h.device)
+    else:
+        level, name = int(case[1]), {"P": "Pband", "R": "Rband"}[case[3]]
+        plan = getattr(h.levels[level], name).plan()
+        if case.endswith("dead slots"):
+            plan = slots_twice(with_dead_slots(plan))
+    return dict(plan, vals=plan["vals"].to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("threads", [256, 128, 64, 32])
+@pytest.mark.parametrize("case", ["L0 P", "L0 R", "L1 R", "L0 R dead slots",
+                                  "clamped"])
+def test_k6_variants_bit_for_bit(alg16, case, threads, staged, dtype):
+    """Staged and direct, each with a thread's rows consecutive or 32
+    apart, and direct with one row a thread; 256, 128, 64 and 32 threads a
+    block; 3, 6, 7 and 19 live slots
+    and the slots twice over with dead ones among them (one chunk of 4, one
+    of 8, the loop); windows clamped at both ends of x; x views at 16-byte
+    remainders 0, 1 and 3."""
+    _, h = alg16
+    plan = _k6_plan(case, h, dtype)
+    lps = [bk.banded_launch_plan(plan, staged=staged, threads=threads,
+                                 rows=4, stride=stride) for stride in (1, 32)]
+    if not staged:
+        lps.append(bk.banded_launch_plan(plan, staged=False, threads=threads,
+                                         rows=1))
+    assert all(lp.staged == staged and lp.threads == threads for lp in lps)
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in plan.items()}
+    for mis in (0, 1, 3):
+        x = _view_at(_x(plan["n_cols"], h.device, seed=20 + mis), mis)
+        y_ref = bk.banded_spmv_rect_ref(plan, x).cpu()
+        assert torch.equal(y_ref, bk.banded_spmv_rect_tiled_ref(
+            cpu, x.cpu(), lps[0], x_misalign=mis))
+        for lp in lps:
+            before = bk.launches["K6"]
+            y = bk._launch_k6(plan, x, lp)
+            assert bk.launches["K6"] == before + 1
+            assert torch.equal(y.cpu(), y_ref), (lp, mis)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_k6_clamped_pages_carry_non_finite_x(alg16, staged):
+    """A NaN on x's first page and an inf on its last, read by masked
+    entries through window pages the clamp maps there: 0 * x is NaN on the
+    card as in the plain version."""
+    _, h = alg16
+    plan = clamped_rect_plan(h.device)
+    for at, bad in ((0, float("nan")), (3072, float("inf"))):
+        x = _x(plan["n_cols"], h.device, seed=30)
+        x[at] = bad
+        y_ref = bk.banded_spmv_rect_ref(plan, x)
+        assert int(torch.isnan(y_ref).sum()) >= 2048
+        for threads in (256, 64):
+            lps = [bk.banded_launch_plan(plan, staged=staged, threads=threads,
+                                         rows=4, stride=stride)
+                   for stride in (1, 32)]
+            if not staged:
+                lps.append(bk.banded_launch_plan(plan, staged=False,
+                                                 threads=threads, rows=1))
+            for lp in lps:
+                torch.testing.assert_close(bk._launch_k6(plan, x, lp), y_ref,
+                                           rtol=0, atol=0, equal_nan=True)
+
+
+def test_k6_k5_refusals(alg16):
+    """A window wider than a block's shared memory is refused when staging
+    is forced and runs direct otherwise; the C entry points refuse a
+    window beyond the plan's pages; vals_lo off 16 bytes is refused."""
+    _, h = alg16
+    rplan = h.levels[0].Rband.plan()
+    x = _x(rplan["n_cols"], h.device)
+    wide = dict(rplan, npage=60, ranges=None)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.banded_launch_plan(wide, staged=True)
+    assert not bk.banded_launch_plan(wide).staged
+    assert torch.equal(bk._launch_k6(wide, x).cpu(),
+                       bk.banded_spmv_rect_ref(wide, x).cpu())
+    lp = bk.banded_launch_plan(rplan, staged=True)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        bk._launch_k6(rplan, x, lp._replace(pages=rplan["npage"] + 1))
+    with pytest.raises(ValueError, match="does not tile"):
+        bk._launch_k6(rplan, x, lp._replace(threads=lp.threads * 2))
+    with pytest.raises(ValueError, match="apart"):
+        bk._launch_k6(rplan, x, lp._replace(stride=4))
+    with pytest.raises(ValueError, match="direct"):
+        bk._launch_k6(rplan, x, lp._replace(rows=1, split=lp.split * 4))
+    aplan = h.levels[0].Aband.plan()
+    z = torch.zeros(aplan["n"], device=h.device)
+    lo = torch.zeros(aplan["vals"].shape, device=h.device)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.banded_df64_residual(aplan, _view_at(lo, 1), z, z, z, z)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        bk._launch_k5(aplan, None, z, z, z, z, bk.banded_launch_plan(
+            aplan, staged=True)._replace(pages=64))
+
+
+# ---------------------------------------------------------------------------
 # the sharded forms: K4 on a halo buffer, K6 with map_cols; bit for bit
 # ---------------------------------------------------------------------------
 
@@ -592,7 +713,9 @@ def _rect_block(band, rank: int, ndev: int) -> tuple:
 def test_k6_map_cols_form_bit_for_bit(alg16, dtype):
     """K6's map_cols form on rank 0's and the last rank's tiles of every
     banded P and R of the 16^3 hierarchy over 2 ranks, and with windows
-    clamped at both ends of a short buffer (WpP 2, three pages)."""
+    clamped at both ends of a short buffer (WpP 2, three pages); by its
+    default launch and with each variant forced on buffers at 16-byte
+    remainders 0 and 1."""
     from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
 
     _, h = alg16
@@ -612,8 +735,20 @@ def test_k6_map_cols_form_bit_for_bit(alg16, dtype):
                 before = bk.launches["K6-map_cols"]
                 y = bk.banded_spmv_rect(p, x, map_cols=mc)
                 assert bk.launches["K6-map_cols"] == before + 1, label
-                assert torch.equal(y.cpu(), bk.banded_spmv_rect_ref(
-                    p, x, map_cols=mc).cpu()), (label, rank)
+                y_ref = bk.banded_spmv_rect_ref(p, x, map_cols=mc)
+                assert torch.equal(y.cpu(), y_ref.cpu()), (label, rank)
+                # both variants forced, the buffer also off 16 bytes
+                lps = [bk.banded_launch_plan(p, staged=staged, stride=stride,
+                                             rows=4)
+                       for staged, stride in itertools.product((True, False),
+                                                               (1, 32))]
+                lps.append(bk.banded_launch_plan(p, staged=False, rows=1))
+                for lp in lps:
+                    for mis in (0, 1):
+                        xv = _view_at(x, mis)
+                        assert torch.equal(bk._launch_k6(
+                            p, xv, lp, map_cols=mc).cpu(), y_ref.cpu()), (
+                                label, rank, lp, mis)
 
 
 def test_sharded_forms_refuse_what_they_do_not_take(alg16):
