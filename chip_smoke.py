@@ -33,6 +33,25 @@ Phases, each of which raises on failure (there is no CPU path):
    the same proof on its own counts; then K4 on every banded level and K6
    on level 0 of the 96^3 hierarchy against their plain versions, K4 timed
    at each;
+9a. the algebraic engine's plane mode (the reference bench's alg128 row):
+    natural-ordered 128^3 Poisson as scipy CSR with no grid information ->
+    api.setup (PMIS, extended interpolation, fine_layout 'banded', cheb4
+    degree 3, bf16 preconditioner; cut: host_setup_threshold 2**22, every
+    level built on the host), timed, each level's size, layout (hyb, band
+    or ell) and geo transfer printed -> 10 bf16 V-cycles, timed, and
+    torch.profiler over 10 more -> api.solve with the df64-refined PCG
+    (certified through the DIA-plane compensated residual), cold then warm
+    -> a host fp64 residual with the caller's matrix; checked: the
+    reference's 16 level sizes 2**21 ... 2**6, at most 10 PCG iterations
+    (the reference takes 9), true relres <= 1e-8;
+9b. proof: every CUDA planes_spmv call of phase 9a launched K1, at least
+    once; K4, K5 and K6 launched once for each CUDA call of their kind
+    (counts set to 0 just before phase 9a, read just after it); the
+    launches by shape;
+9c. K1 on the DIA planes of every level of that hierarchy, fp32 and bf16,
+    bit for bit against its plain version on the same CUDA tensors, each
+    timed L2-warm and L2-cold beside its bound and cuSPARSE; the path's sum
+    of launches x (L2-warm - bound); the hierarchy is then freed;
 10. halo kernel equality: K3 against its plain version at the shapes the
     sharded path gives it (the 256^3 fine level with 65536-row halos, a
     15- and a 27-offset coarse level, the 4-rank 128^3 block, bf16
@@ -129,6 +148,17 @@ ADIST_PAD = 1024 * ADIST_RANKS
 ADIST_TOL, ADIST_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
 TAPS_GRID = (2, 2)  # (nodes, chips) of the four ranks
 N_PROFILED = 10
+# the algebraic engine's plane mode (bench.py:228-320, the alg128 row):
+# natural-ordered 128^3 Poisson in, no grid information; one cut, every
+# level built on the host (host_setup_threshold 2**22)
+ALG128_N = 128
+ALG128_CFG = dict(splitting="pmis", interp="extended", fine_layout="banded",
+                  smoother="cheb4", cheb_degree=3,
+                  operator_store_dtype="bfloat16", host_setup_threshold=2**22)
+ALG128_SIZES = [2**k for k in range(21, 5, -1)]  # the reference's 16 levels
+ALG128_MAX_ITERS = 10  # the reference takes 9
+N_ALG128_CYCLES = 10
+ALG128_GRAPH_CALLS = 20
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -896,6 +926,215 @@ def phase_banded_96(dev, h, rec) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the algebraic engine's plane mode: natural-ordered 128^3 (alg128)
+# ---------------------------------------------------------------------------
+
+def _layout(lv) -> str:
+    return ("hyb" if lv.Ahyb is not None else
+            "band" if lv.Aband is not None else "ell")
+
+
+def phase_alg128(dev) -> tuple:
+    """Phase 9a: natural-ordered 128^3 Poisson as scipy CSR with no grid
+    information through api.setup and api.solve in plane mode (the
+    reference bench's alg128 row), every level built on the host."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, setup, solve
+    from raptor_tpu_torch.api import solve_hier_refined
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.gallery import poisson_3d
+    from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    A = sp.csr_matrix(poisson_3d(ALG128_N))
+    n = A.shape[0]
+    cfg = AmgConfig(**ALG128_CFG)
+    t0 = time.perf_counter()
+    h = setup(A, cfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    sizes = [lv.n for lv in h.levels]
+    layouts = [_layout(lv) for lv in h.levels]
+    print(f"[alg128] setup {setup_s:.3f} s (every level on the host: "
+          f"host_setup_threshold {cfg.host_setup_threshold}), {len(sizes)} levels")
+    for i, lv in enumerate(h.levels):
+        hy = lv.Ahyb
+        lay = layouts[i] + ("" if hy is None else
+                            f" {len(hy.offsets)} offsets, reach "
+                            f"{max(abs(o) for o in hy.offsets)}, spill "
+                            f"{hy.spill is not None}")
+        geo = "" if lv.Tgeo is None else f" Tgeo (H,m,mc,s,n,n_pad,nc_pad)={lv.Tgeo.meta}"
+        print(f"[alg128]   L{i} n {lv.n} n_pad {lv.A.n_rows_pad} K {lv.A.K} "
+              f"{lay}{geo}")
+    if h.tail_op is not None:
+        print(f"[alg128]   dense tail from L{h.tail_start}: {tuple(h.tail_op.shape)}")
+    if sizes != ALG128_SIZES:
+        raise AssertionError(f"level sizes {sizes}, the reference's {ALG128_SIZES}")
+    if h.levels[0].Ahyb is None or h.levels[0].Tgeo is None:
+        raise AssertionError("level 0 has no DIA planes or no geo transfer")
+
+    hM = cast_hierarchy_algebraic(h, torch.bfloat16)
+    bd = pad_vector(np.ones(n, np.float32), h.levels[0].A.n_rows_pad, device=dev)
+    y = cycle(hM, bd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_ALG128_CYCLES):
+        y = cycle(hM, bd)
+    torch.cuda.synchronize()
+    vc = (time.perf_counter() - t0) / N_ALG128_CYCLES * 1e3
+    if not torch.isfinite(y).all():
+        raise AssertionError("V-cycle output not finite")
+    prof = profile_cycles(lambda: cycle(hM, bd), N_ALG128_CYCLES, top=8)
+    print(f"[alg128] bf16 V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} DOF/s, "
+          f"{N_ALG128_CYCLES} cycles between syncs); profiled: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+          f"({prof['busy_share']:.1%}), {prof['device_events']:g} device "
+          f"events a cycle")
+    for name, us, c in prof["top"]:
+        print(f"[alg128]   {us:9.1f} us, {c:g} events a cycle: {name}")
+
+    b = np.ones(n)
+    sc = SolveConfig(tol=MAX_RELRES, refine=True)
+    t0 = time.perf_counter()
+    solve(A, b, cfg, sc, hier=h)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = solve(A, b, cfg, sc, hier=h)
+    warm = time.perf_counter() - t0
+    prof_solve = profile_cycles(lambda: solve(A, b, cfg, sc, hier=h), 1)
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    iters = int(info["iterations"])
+    # the solve on the device alone: api.solve also permutes the caller's
+    # matrix on the host (identity here) and casts the preconditioner
+    bl = torch.zeros_like(bd)
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev_out = solve_hier_refined(h, bd, tol=MAX_RELRES, maxiter=sc.maxiter,
+                                     b_lo=bl, M_hier=hM)
+    torch.cuda.synchronize()
+    sol_dev = (time.perf_counter() - t0) / reps
+    if int(dev_out[2]) != iters:
+        raise AssertionError(f"solve_hier_refined took {int(dev_out[2])} "
+                             f"iterations, api.solve {iters}")
+    print(f"[alg128] api.solve {cold:.3f} s cold, {warm:.3f} s warm; {iters} "
+          f"PCG iterations, certified {info['relres']:.3e}, true fp64 relres "
+          f"{relres:.3e}; solve_hier_refined {sol_dev:.3f} s (device, mean of "
+          f"{reps}); profiled api.solve: wall {prof_solve['wall_ms']:.1f} ms, "
+          f"device busy {prof_solve['busy_ms']:.3f} ms "
+          f"({prof_solve['busy_share']:.1%}), {prof_solve['device_events']:g} "
+          f"device events")
+    if x.shape != (n,) or not np.isfinite(x).all():
+        raise AssertionError("solution not finite or misshapen")
+    if not iters <= ALG128_MAX_ITERS:
+        raise AssertionError(f"{iters} iterations (max {ALG128_MAX_ITERS})")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"true relres {relres} > {MAX_RELRES}")
+    return {"n": n, "setup_s": setup_s, "sizes": sizes, "layouts": layouts,
+            "geo_levels": sum(lv.Tgeo is not None for lv in h.levels),
+            "vcycle_ms": vc, "dof_per_s": n / vc * 1e3, "profile": prof,
+            "solve_cold_s": cold, "solve_warm_s": warm,
+            "solve_device_s": sol_dev, "solve_profile": prof_solve, "iters": iters,
+            "certified": float(info["relres"]), "relres": relres}, h
+
+
+def clear_alg128_counts() -> None:
+    from raptor_tpu_torch.ops.cuda import dia_kernel
+
+    dia_kernel.launches.clear()
+    dia_kernel.launches_by_shape.clear()
+    clear_banded_counts()  # hybrid.cuda_calls too
+
+
+def alg128_proof() -> tuple:
+    """Phase 9b: read the counts of the alg128 path (set to 0 just before
+    it): K1 launched once for every CUDA planes_spmv call, at least once;
+    K4, K5 and K6 once for every CUDA call of their kind, however many
+    (none is expected: no level falls back to the banded layout)."""
+    from raptor_tpu_torch.core import hybrid
+    from raptor_tpu_torch.ops.cuda import banded_kernel, dia_kernel
+
+    hc = hybrid.cuda_calls
+    k1, calls = dia_kernel.launches["K1"], hc["planes_spmv"]
+    pairs = {"K4": hc["banded_spmv_ro"], "K6": hc["rect_banded_spmv"],
+             "K5": hc["banded_df64_residual"]}
+    bl = banded_kernel.launches
+    others = {k: dia_kernel.launches[k] for k in ("K1v1", "K2", "K3")}
+    print(f"[proof] alg128 path: K1 {k1} launches / {calls} CUDA planes_spmv "
+          "calls, " + ", ".join(f"{k} {bl[k]} launches / {c} CUDA calls"
+                                for k, c in pairs.items())
+          + ", " + ", ".join(f"{k} {c} launches" for k, c in others.items()))
+    if k1 != calls or k1 == 0:
+        raise AssertionError("the alg128 path did not run through K1")
+    if any(bl[k] != c for k, c in pairs.items()):
+        raise AssertionError("a banded apply of the alg128 path missed its kernel")
+    rows = (by_shape("alg128", dia_kernel.launches_by_shape, ("K1",))
+            + by_shape("alg128", banded_kernel.launches_by_shape, pairs))
+    return {"K1": k1, "planes_spmv": calls, **{k: bl[k] for k in pairs},
+            **others}, rows
+
+
+def phase_hybrid_kernels(dev, h, rec, rows) -> None:
+    """Phase 9c: K1 on the DIA planes of every level of the 128^3 plane-mode
+    hierarchy, fp32 and as the bf16 cast stores them, bit for bit against
+    dia_spmv_v2_ref on the same CUDA tensors (after the proof, so these
+    launches stay out of its counts); each timed L2-warm and L2-cold beside
+    its bound and one cuSPARSE torch.mv of the same operator; then the
+    path's sum of launches x (L2-warm - bound) from its launches by shape.
+    L2-warm is read from graphs of ALG128_GRAPH_CALLS calls (a single-call
+    replay of a level of <= 2**16 rows times the graph launch, 6-14 us on
+    the H100) and from single-call replays, as phase 3 times."""
+    from raptor_tpu_torch.ops.cuda.dia_kernel import dia_spmv_v2, dia_spmv_v2_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = rec["K1"]["shapes_alg128"] = {}
+    for i, lv in enumerate(h.levels):
+        if lv.Ahyb is None:
+            continue
+        offs = lv.Ahyb.offsets
+        for dtype in (torch.float32, torch.bfloat16):
+            planes = lv.Ahyb.planes.to(dtype).contiguous()
+            n_off, n = planes.shape
+            x = torch.randn(n, generator=gen, device=dev)
+            dt = str(dtype).removeprefix("torch.")
+            name = f"K1 alg128 L{i} n {n} {n_off} offsets {dt}"
+            rec["K1"]["err"] = max(rec["K1"]["err"], _equal(
+                name, dia_spmv_v2(planes, offs, x), dia_spmv_v2_ref(planes, offs, x)))
+            warm1 = cuda_ms(lambda: dia_spmv_v2(planes, offs, x))
+            warm = cuda_ms(lambda: [dia_spmv_v2(planes, offs, x)
+                                    for _ in range(ALG128_GRAPH_CALLS)]
+                           ) / ALG128_GRAPH_CALLS
+            cold = cuda_ms(lambda: dia_spmv_v2(planes, offs, x), flush_l2=True)
+            plain = cuda_ms(lambda: dia_spmv_v2_ref(planes, offs, x))
+            r = {}
+            yardsticks(r, dia_csr(planes, offs, n), x,
+                       planes.numel() * planes.element_size() + 8 * n,
+                       ops=2 * n_off * n)
+            shapes[(n, n_off, dt)] = (warm, cold, r["bound_ms"], plain,
+                                      r["library_ms"], warm1)
+            print(f"[kernel] {name}: {warm * 1e3:.2f} us L2-warm "
+                  f"({ALG128_GRAPH_CALLS} calls a graph; one call a graph "
+                  f"{warm1 * 1e3:.1f}), {cold * 1e3:.1f} us L2-cold, bound "
+                  f"{r['bound_ms'] * 1e3:.2f} "
+                  f"us ({r['bound_by']}), plain {plain * 1e3:.1f} us, cuSPARSE "
+                  f"CSR {r['library_ms'] * 1e3:.1f} us (device time, graph replay)")
+            del planes, x
+    total, untimed = 0.0, 0
+    for kern, n, n_off, dt, c in rows:
+        if kern != "K1":
+            continue
+        if (n, n_off, dt) not in shapes:
+            untimed += c
+            continue
+        warm, _, b = shapes[(n, n_off, dt)][:3]
+        total += c * (warm - b)
+    print(f"[kernel] alg128: K1 sum over the path's shapes of launches x "
+          f"(L2-warm - bound) {total:.4f} ms ({untimed} launches at shapes "
+          "not timed)")
+    rec["K1"]["excess_alg128_ms"] = total
+
+
+# ---------------------------------------------------------------------------
 # the plane-sharded structured engine: K3 (and K1v1)
 # ---------------------------------------------------------------------------
 
@@ -1340,10 +1579,12 @@ def caller_relres(A, x_rcm, pm, b) -> float:
     return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
 
 
-def profile_cycles(cycle, reps: int = N_PROFILED) -> dict:
+def profile_cycles(cycle, reps: int = N_PROFILED, top: int = 0) -> dict:
     """torch.profiler over ``reps`` calls of ``cycle()``: wall (host clock,
     ends in a synchronize), device busy (the union of the device events'
-    intervals), device events, busy share; per call."""
+    intervals), device events, busy share; per call.  ``top`` > 0 adds
+    the ``top`` device event names with the most time, as [name, us per
+    call, events per call]."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1365,6 +1606,15 @@ def profile_cycles(cycle, reps: int = N_PROFILED) -> dict:
     out = {"wall_ms": wall * 1e3 / reps, "busy_ms": busy * 1e-3 / reps,
            "device_events": len(spans) / reps}
     out["busy_share"] = out["busy_ms"] / out["wall_ms"]
+    if top:
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = by_name[e.name[:100]]
+                t[0] += e.time_range.end - e.time_range.start
+                t[1] += 1
+        out["top"] = [[k, us / reps, c / reps] for k, (us, c) in
+                      sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
     return out
 
 
@@ -1726,6 +1976,20 @@ def main() -> None:
     phase_banded_96(dev, h96, rec)
     alg96["excess_ms"] = banded_excess("alg96", rec, rows96, "shapes_96")
 
+    # the plane mode: its own counts, K1's hybrid shapes after the proof,
+    # and its hierarchy freed before the sharded phases
+    t_alg128 = time.perf_counter()
+    clear_alg128_counts()
+    alg128, h128 = phase_alg128(dev)
+    alg128["launches"], rows128 = alg128_proof()
+    alg128["launches_by_shape"] = rows128
+    phase_hybrid_kernels(dev, h128, rec, rows128)
+    alg128["k1_excess_ms"] = rec["K1"]["excess_alg128_ms"]
+    del h128
+    torch.cuda.empty_cache()
+    alg128["phase_s"] = time.perf_counter() - t_alg128
+    print(f"[alg128] phases 9a-9c: {alg128['phase_s']:.1f} s")
+
     rec.update(phase_halo_kernels(dev))
     sdist = phase_sdist_one_rank(dev)
     sdist4 = phase_sdist_ranks(dev, sdist["one_rank_iters_small"])
@@ -1752,7 +2016,7 @@ def main() -> None:
     adist4["sharded_kernels"] = {k: rec[k] for k in ("K4-halo", "K6-map_cols")}
 
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
-                      "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
+                      "alg128": alg128, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",

@@ -6,12 +6,17 @@ the df64-refined PCG) on that device.  The reference runs a whole solve as
 one jitted program with ``lax.while_loop``s; here the loops are Python,
 with one host read per PCG iteration and one per refinement round.
 
-With ``fine_layout='banded'`` the input is RCM-reordered once and every
-large level gets the banded layouts of ``core/hybrid.py``: its operator
-applies run through K4, its transfers through K6, and the refined solve's
-certified residual through K5.  The plane mode of that path (a
-natural-ordered grid matrix, HybridMatrix and geo-split levels) is not
-ported yet and raises ``NotImplementedError``.
+With ``fine_layout='banded'`` the setup picks the ordering and the layouts
+of ``core/hybrid.py`` from the input's structure.  A general matrix is
+RCM-reordered once and every large level gets the banded layouts: its
+operator applies run through K4, its transfers through K6, and the refined
+solve's certified residual through K5.  A matrix whose entries already sit
+on a few dense diagonals (plane mode: a grid operator in its natural
+ordering, given with no grid information) keeps its ordering; when its
+grid is detected the levels are geo-split (alternating semicoarsening,
+transfers as ``GeoTransfer`` reshapes), the operator applies of plane-
+structured levels run through K1 on DIA planes, and the certified residual
+is the DIA-plane compensated residual.
 """
 
 from __future__ import annotations
@@ -85,14 +90,58 @@ def _plane_stats_ell(E, max_rows: int = 65536) -> tuple:
     return _plane_stats((cols - rows[None, :])[slot], rows.size)
 
 
+def _detect_grid(coo, n: int, iso_ratio: float = 8.0) -> "list | None":
+    """Lexicographic grid extents [e0, e1, e2] (stride order) inferred from
+    a matrix's nonzero offsets, or None.
+
+    Accepts stencil patterns whose offsets lie in the {-1, 0, 1}-span of
+    strides {1, a, b} (7/27-point 3D; {1, a} for 2D with e2 = 1), and whose
+    mean |a_ij| over the candidate strides are within ``iso_ratio`` of each
+    other: strongly anisotropic problems keep strength-driven PMIS."""
+    deltas = coo.col.astype(np.int64) - coo.row
+    pos = np.unique(deltas[deltas > 0])
+    # a shuffled or unstructured matrix has up to n distinct offsets
+    if pos.size == 0 or pos.size > 32 or pos[0] != 1:
+        return None
+    cands = [int(d) for d in pos if d > 1 and n % int(d) == 0]
+
+    def mean_mag(s):
+        m = np.abs(deltas) == s
+        return float(np.abs(coo.data[m]).mean()) if m.any() else 0.0
+
+    def iso_ok(strides):
+        mags = [mean_mag(s) for s in strides]
+        return min(mags) > 0 and max(mags) / min(mags) <= iso_ratio
+
+    for a in cands:
+        for b in [c for c in cands if c > a and c % a == 0]:
+            span = {i + j * a + k * b
+                    for i in (-1, 0, 1) for j in (-1, 0, 1)
+                    for k in (-1, 0, 1)}
+            if all(int(d) in span for d in pos) and iso_ok((1, a, b)):
+                return [a, b // a, n // b]
+    for a in cands:  # 2D
+        span = {i + j * a for i in (-1, 0, 1) for j in (-1, 0, 1)}
+        if all(int(d) in span for d in pos) and iso_ok((1, a)):
+            return [a, n // a, 1]
+    return None
+
+
 def _setup_banded(A, config: AmgConfig, dtype) -> Hierarchy:
-    """fine_layout='banded': RCM the input once, build the hierarchy in that
-    ordering with 1024-aligned padding, and attach the banded layouts to
-    every large level.  P/R and all vectors share the ordering; only the
-    operator and transfer applies change per level."""
+    """fine_layout='banded': choose the ordering and each level's layout
+    from the input's structure, build the hierarchy in that one ordering
+    with 1024-aligned padding, and attach the layouts to every large level.
+    P/R and all vectors share the ordering; only the operator and transfer
+    applies change per level.
+
+    Plane mode (the entries sit on a few dense diagonals): keep the given
+    ordering, geo-split when the grid is detected, and lay every
+    plane-structured level as DIA planes (``HybridMatrix``).  Otherwise RCM
+    the input once and attach the banded layouts."""
     import scipy.sparse as sp
 
-    from raptor_tpu_torch.core.hybrid import banded_from_ell, rect_banded_from_ell
+    from raptor_tpu_torch.core.hybrid import (banded_from_ell, hybrid_from_ell,
+                                              rect_banded_from_ell)
 
     if isinstance(A, EllMatrix):
         raise ValueError("fine_layout='banded' takes scipy input")
@@ -100,40 +149,60 @@ def _setup_banded(A, config: AmgConfig, dtype) -> Hierarchy:
     n = a.shape[0]
     coo = a.tocoo()
     cov0, eff0 = _plane_stats(coo.col.astype(np.int64) - coo.row, n)
-    if cov0 >= 0.9 and eff0 >= 0.5:
-        raise NotImplementedError(
-            "fine_layout='banded' on a plane-structured matrix (a grid "
-            "operator in its natural ordering) takes the HybridMatrix/"
-            "geo-split path, which is not yet ported")
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    plane_mode = cov0 >= 0.9 and eff0 >= 0.5
+    if plane_mode:
+        # RCM would destroy the constant offsets
+        p = np.arange(n, dtype=np.int64)
+    else:
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    p = np.asarray(
-        reverse_cuthill_mckee(a + a.T, symmetric_mode=True)).astype(np.int64)
+        p = np.asarray(reverse_cuthill_mckee(
+            a + a.T, symmetric_mode=True)).astype(np.int64)
     ar = a[p][:, p].tocsr()
 
     pm_mult = int(np.lcm(config.pad_multiple, 1024))
     E = ell_from_csr(ar, dtype=dtype, row_pad_multiple=pm_mult)
     cfg = dataclasses.replace(config, pad_multiple=pm_mult)
+    # geo levels carry no coloring (mcgs), and aggressive coarsening keeps
+    # its own pipeline
+    geo = (_detect_grid(coo, n)
+           if (plane_mode and config.geo_split and not config.aggressive
+               and config.smoother != "mcgs") else None)
     # row_ids=p: PMIS weights key on original row ids, so the C/F sets (and
     # the Krylov iteration counts) equal those of the unpermuted build
-    hier = build_hierarchy(E, cfg, dtype=dtype, row_ids=p)
+    hier = build_hierarchy(E, cfg, dtype=dtype, row_ids=p, geo=geo)
 
     levels = []
     for lev in hier.levels:
         if lev.n >= BANDED_MIN_N and lev.A.n_rows_pad % 1024 == 0:
-            # reorder=True below level 0: coarse levels inherit the fine
-            # ordering compressed through the irregular PMIS C-set; an RCM
-            # re-banding of just that level can re-enter the plan bounds
-            B = banded_from_ell(lev.A, reorder=lev is not hier.levels[0])
-            if B is not None and B.n_pad == lev.A.n_rows_pad:
-                lev = dataclasses.replace(lev, Aband=B)
-                if lev.P is not None:
-                    # transfers follow the same grid-proportional band
-                    Pb = rect_banded_from_ell(
-                        lev.P, pad_rows(lev.P.n_cols_pad, 1024))
-                    Rb = rect_banded_from_ell(
-                        lev.R, pad_rows(lev.R.n_cols_pad, 1024))
-                    lev = dataclasses.replace(lev, Pband=Pb, Rband=Rb)
+            attached = lev.Ahyb is not None
+            if not attached and plane_mode:
+                # Galerkin products of plane-structured operators stay
+                # plane-structured (offsets at doubled spacings)
+                cov, eff = _plane_stats_ell(lev.A)
+                if cov >= 0.9 and eff >= 0.5:
+                    H = hybrid_from_ell(lev.A, reorder=False, max_offsets=32,
+                                        pad_multiple=lev.A.n_rows_pad)
+                    if H.n_pad == lev.A.n_rows_pad:
+                        lev = dataclasses.replace(lev, Ahyb=H)
+                        attached = True
+            if not attached:
+                # reorder=True below level 0: coarse levels inherit the fine
+                # ordering compressed through the irregular PMIS C-set; an
+                # RCM re-banding of just that level can re-enter the plan
+                # bounds
+                B = banded_from_ell(lev.A, reorder=lev is not hier.levels[0])
+                if B is not None and B.n_pad == lev.A.n_rows_pad:
+                    lev = dataclasses.replace(lev, Aband=B)
+                    attached = True
+            if attached and lev.P is not None and lev.Tgeo is None:
+                # transfers follow the same grid-proportional band; a geo
+                # level's GeoTransfer needs no plan
+                Pb = rect_banded_from_ell(
+                    lev.P, pad_rows(lev.P.n_cols_pad, 1024))
+                Rb = rect_banded_from_ell(
+                    lev.R, pad_rows(lev.R.n_cols_pad, 1024))
+                lev = dataclasses.replace(lev, Pband=Pb, Rband=Rb)
         levels.append(lev)
 
     n_pad = hier.levels[0].A.n_rows_pad
@@ -182,6 +251,12 @@ def solve_hier_refined(
     # entries from the certified residual); else the exact gather chain
     use_band_resid = band is not None and band.far is None and (
         lo is None or hier.a0_lo_band is not None)
+    # DIA-plane compensated residual: no gathers.  lo must be None (the
+    # fp32 remainder lives in the ELL slot layout), as it is for every
+    # fp32-exact grid stencil
+    hyb = lev0.Ahyb
+    use_hyb_resid = (not use_band_resid and hyb is not None
+                     and hyb.spill is None and lo is None)
 
     def residual(xh, xl, bh, bl):
         # A @ x_lo needs only fp32 accuracy (x_lo ~ 2^-24 x_hi): one
@@ -191,6 +266,10 @@ def solve_hier_refined(
             from raptor_tpu_torch.core.hybrid import banded_df64_residual
 
             return banded_df64_residual(band, hier.a0_lo_band, xh, bh, bl, v)
+        if use_hyb_resid:
+            from raptor_tpu_torch.core.hybrid import hybrid_df64_residual
+
+            return hybrid_df64_residual(hyb, xh, bh, bl, v)
         rh, rl = df_add(bh, bl, -v, torch.zeros_like(v))
         for k in range(A.K):
             gh = xh[A.cols[k]]

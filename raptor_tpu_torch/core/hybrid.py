@@ -1,6 +1,16 @@
-"""RCM-banded paged-gather layouts for general (unstructured) matrices.
+"""Fast layouts for general (unstructured) matrices: DIA planes, RCM-banded
+paged gathers, and the geo-split transfers.
 
-Counterpart of the banded half of ``raptor_tpu/core/hybrid.py``.  Reverse
+Counterpart of ``raptor_tpu/core/hybrid.py``.
+
+``HybridMatrix`` lays a matrix whose entries sit on a few constant
+diagonals in its given ordering (a grid operator in natural ordering) as
+dense DIA planes plus a gather-ELL spill for the rest; its plane part runs
+through K1 (``ops/cuda/dia_kernel.py::dia_spmv_v2``).  ``GeoTransfer`` is
+the P and R of one geo-split level: static reshapes and weight products,
+no gathers and no kernel.
+
+Reverse
 Cuthill-McKee gathers a general matrix's entries into a band; the plans of
 ``ops/banded_plan.py`` tile that band so each tile's x reads fall in a
 window of a few 1024-element pages, and the kernels K4/K5/K6
@@ -14,8 +24,6 @@ host and tensors after ``.to(device)``.  ``cuda_calls`` counts the layout
 applies made on CUDA tensors, so a run can show that each went through its
 kernel.
 
-``HybridMatrix`` (DIA planes + spill) and the geo-split ``GeoTransfer`` are
-not ported yet.
 """
 
 from __future__ import annotations
@@ -29,19 +37,146 @@ import torch
 
 from raptor_tpu_torch.core.ell import EllMatrix, _np, pad_rows, to_tensor
 from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+from raptor_tpu_torch.ops.cuda import dia_kernel as dk
+from raptor_tpu_torch.ops.sparse_ops import spmv
 
-__all__ = ["FarBlock", "far_spmv_add", "BandedMatrix", "banded_from_csr",
+__all__ = ["HybridMatrix", "hybrid_from_ell", "hybrid_spmv_ro",
+           "hybrid_spmv", "hybrid_df64_residual", "GeoTransfer", "geo_prolong", "geo_restrict",
+           "FarBlock", "far_spmv_add", "BandedMatrix", "banded_from_csr",
            "banded_from_ell", "banded_spmv_ro", "banded_spmv",
            "banded_df64_residual", "RectBanded", "rect_banded_from_ell",
            "rect_banded_spmv", "cuda_calls"]
 
-# applies on CUDA tensors, by function ("banded_spmv_ro" launches K4,
-# "rect_banded_spmv" K6, "banded_df64_residual" K5)
+# applies on CUDA tensors, by function ("planes_spmv" launches K1,
+# "banded_spmv_ro" K4, "rect_banded_spmv" K6, "banded_df64_residual" K5)
 cuda_calls: collections.Counter = collections.Counter()
 
 
 def _opt_to(x, device):
     return None if x is None else x.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMatrix:
+    """A matrix as DIA planes in its own ordering plus a gather-ELL spill."""
+
+    planes: Any  # (n_off, n_pad) diagonal planes
+    spill: Optional[EllMatrix]  # the entries off the planes, or None
+    perm: Any  # (n_pad,) original index of slot i
+    iperm: Any  # (n_pad,) slot of original index i
+    offsets: Tuple[int, ...]  # linear offsets of the planes
+    shape: Tuple[int, int]
+    n_pad: int
+
+    def to(self, device) -> "HybridMatrix":
+        return dataclasses.replace(
+            self, planes=to_tensor(self.planes, device),
+            spill=_opt_to(self.spill, device),
+            perm=to_tensor(self.perm, device),
+            iperm=to_tensor(self.iperm, device))
+
+
+def hybrid_from_ell(E: EllMatrix, min_fill: float = 0.02,
+                    max_offsets: int = 512, reorder: bool = True,
+                    pad_multiple: int = 128) -> HybridMatrix:
+    """Host structure pass: (optionally) RCM-reorder, then bucket the
+    entries by their diagonal offset ``col - row``.  An offset gets a dense
+    plane when at least ``min_fill`` of the rows have an entry there (the
+    most frequent ones, at most ``max_offsets``); the rest goes to the
+    spill.  Leaves are NumPy arrays (``.to(device)`` moves them).
+
+    ``reorder=False`` reads the ELL slots directly (the identity-ordered
+    attach of plane mode); ``reorder=True`` RCM-orders the matrix first."""
+    import scipy.sparse as sp
+
+    from raptor_tpu_torch.core.ell import ell_from_csr, ell_to_csr
+
+    data = _np(E.data)
+    n = E.shape[0]
+    n_pad = pad_rows(max(n, 1), pad_multiple)
+    perm = np.arange(n_pad, dtype=np.int32)
+    iperm = perm.copy()
+    if reorder:
+        a = ell_to_csr(E).tocsr()
+        p = _rcm(a)
+        perm[:n] = p
+        iperm[p] = np.arange(n)
+        ar = a[p][:, p].tocoo()
+        rows, cols, vals = ar.row.astype(np.int64), ar.col.astype(np.int64), ar.data
+    else:
+        cols_e, nnz = _np(E.cols), _np(E.row_nnz)
+        rows_b = np.broadcast_to(
+            np.arange(E.n_rows_pad, dtype=np.int64)[None, :], cols_e.shape)
+        m = ((np.arange(E.K)[:, None] < nnz[None, :]) & (rows_b < n)
+             & (cols_e < n))
+        rows, cols, vals = rows_b[m], cols_e[m].astype(np.int64), data[m]
+    deltas = cols - rows
+    uniq, counts = np.unique(deltas, return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    keep = np.sort(np.asarray(
+        [uniq[i] for i in order[:max_offsets]
+         if counts[i] >= max(1, min_fill * n)], dtype=np.int64))
+    planes = np.zeros((max(len(keep), 1), n_pad), data.dtype)
+    hit = np.zeros(deltas.shape[0], bool)
+    if len(keep):
+        kidx = np.minimum(np.searchsorted(keep, deltas), len(keep) - 1)
+        hit = keep[kidx] == deltas
+        planes[kidx[hit], rows[hit]] = vals[hit]
+    spill = None
+    if not hit.all():
+        rem = ~hit
+        s = sp.coo_matrix((vals[rem], (rows[rem], cols[rem])),
+                          shape=(n, n)).tocsr()
+        spill = ell_from_csr(s, dtype=data.dtype, row_pad_multiple=n_pad,
+                             identity_pad_rows=False)
+        if spill.n_cols_pad < n_pad:
+            spill = dataclasses.replace(spill, n_cols_pad=n_pad)
+    return HybridMatrix(
+        planes=planes, spill=spill, perm=perm, iperm=iperm,
+        offsets=tuple(int(d) for d in keep) if len(keep) else (0,),
+        shape=tuple(E.shape), n_pad=n_pad)
+
+
+def _planes_spmv(planes, offsets: Tuple[int, ...],
+                 x: torch.Tensor) -> torch.Tensor:
+    """``sum_k planes[k] * roll(x, -offsets[k])``: K1 on CUDA tensors (it
+    launches or raises), its plain version on CPU tensors.  The planes are
+    zero wherever ``i + offsets[k]`` leaves the matrix, so the rolls'
+    wrap-around adds nothing."""
+    if x.is_cuda:
+        cuda_calls["planes_spmv"] += 1
+    return dk.dia_spmv_v2(planes, offsets, x)
+
+
+def hybrid_spmv_ro(H: HybridMatrix, xr: torch.Tensor) -> torch.Tensor:
+    """y = A @ x in the layout's own ordering (the solve-loop form)."""
+    yr = _planes_spmv(H.planes, H.offsets, xr)
+    if H.spill is not None:
+        yr = yr + spmv(H.spill, xr)
+    return yr
+
+
+def hybrid_spmv(H: HybridMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x in the caller's ordering (permutation applied inside)."""
+    return hybrid_spmv_ro(H, x[H.perm])[H.iperm]
+
+
+def hybrid_df64_residual(H: HybridMatrix, xh, bh, bl, v):
+    """(rh, rl) = df64[(bh, bl) - v - A @ xh] over the planes (no spill):
+    each plane's product with the shifted xh split exactly by ``two_prod``
+    and accumulated by ``df_add``, every product and sum rounded apart (the
+    structured engine's compensated residual).  Plain tensor operations on
+    any device."""
+    from raptor_tpu_torch.utils.df64 import df_add, two_prod
+
+    if H.spill is not None:
+        raise ValueError("the DIA-plane residual needs a layout without spill")
+    rh, rl = df_add(bh, bl, -v, torch.zeros_like(v))
+    for k, o in enumerate(H.offsets):
+        sh = xh if o == 0 else torch.roll(xh, -o)
+        ph, pe = two_prod(H.planes[k], sh)
+        rh, rl = df_add(rh, rl, -ph, -pe)
+    return rh, rl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,3 +480,68 @@ def rect_banded_spmv(B: RectBanded, x: torch.Tensor) -> torch.Tensor:
         cuda_calls["rect_banded_spmv"] += 1
     y = bk.banded_spmv_rect(B.plan(), x)
     return far_spmv_add(y, B.far, x)
+
+
+# ---------------------------------------------------------------------------
+# Geo-split transfers: alternating semicoarsening of a lexicographic grid
+# makes P and R static reshapes and elementwise weight products.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoTransfer:
+    """P (and its exact transpose R) of one geo-split level.
+
+    Fine index i = hi*(m*s) + j*s + lo (j the coordinate along the
+    coarsened dimension, extent m, stride s); coarse point t sits at fine
+    j = 2t.  F rows (odd j) interpolate ``wm[i] * xc(t) + wp[i] * xc(t+1)``,
+    with wp = 0 at the right boundary; C rows copy.  ``wm`` and ``wp`` are
+    (n_pad_f,) in fine ordering (only odd-j entries are read)."""
+
+    wm: Any
+    wp: Any
+    meta: tuple  # (H, m, mc, s, n_f, n_pad_f, nc_pad)
+
+    def to(self, device) -> "GeoTransfer":
+        return dataclasses.replace(self, wm=to_tensor(self.wm, device),
+                                   wp=to_tensor(self.wp, device))
+
+
+def _geo_weights(T: GeoTransfer, dt):
+    H, m, _, s, n_f = T.meta[:5]
+    return (T.wm[:n_f].reshape(H, m, s)[:, 1::2, :].to(dt),
+            T.wp[:n_f].reshape(H, m, s)[:, 1::2, :].to(dt))
+
+
+def geo_prolong(T: GeoTransfer, xc: torch.Tensor) -> torch.Tensor:
+    """P @ xc: C rows copy their coarse point, F rows weigh their two."""
+    import torch.nn.functional as F
+
+    H, m, mc, s, n_f, n_pad_f, _ = T.meta
+    mo = m // 2
+    Xc = xc[: H * mc * s].reshape(H, mc, s)
+    Wm, Wp = _geo_weights(T, xc.dtype)
+    L = Xc[:, :mo, :]
+    R_ = F.pad(Xc, (0, 0, 0, 1))[:, 1:mo + 1, :]
+    O = Wm * L + Wp * R_
+    if mo < mc:  # odd extent: pad the odd plane stack to mc, trim after
+        O = F.pad(O, (0, 0, 0, mc - mo))
+    Y = torch.stack([Xc, O], dim=2).reshape(H, 2 * mc, s)[:, :m, :]
+    return torch.cat([Y.reshape(-1), xc.new_zeros(n_pad_f - n_f)])
+
+
+def geo_restrict(T: GeoTransfer, xf: torch.Tensor) -> torch.Tensor:
+    """R @ xf = P^T @ xf."""
+    import torch.nn.functional as F
+
+    H, m, mc, s, n_f, _, nc_pad = T.meta
+    mo = m // 2
+    Xf = xf[:n_f].reshape(H, m, s)
+    Od = Xf[:, 1::2, :]  # (H, mo, s)
+    Wm, Wp = _geo_weights(T, xf.dtype)
+    yc = Xf[:, 0::2, :] + F.pad(Wm * Od, (0, 0, 0, mc - mo))
+    # odd j = 2t-1 gives wp to coarse t >= 1; the last odd plane's wp is 0
+    # for even m (right grid boundary), so trimming to mc-1 planes before
+    # the top pad is exact for both parities
+    yc = yc + F.pad((Wp * Od)[:, : mc - 1, :], (0, 0, 1, 0))
+    return torch.cat([yc.reshape(-1), xf.new_zeros(nc_pad - H * mc * s)])

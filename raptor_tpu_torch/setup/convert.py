@@ -9,7 +9,8 @@ layout of ``tree``:
     {"levels": [{"A": ell, "P": ell | None, "R": ell | None,
                  "dinv": array, "cheb_lmax": array | None, "n": int,
                  "Aband": band | None, "Pband": band | None,
-                 "Rband": band | None}, ...],
+                 "Rband": band | None, "Ahyb": hyb | None,
+                 "Tgeo": geo | None}, ...],
      "coarse_inv": array, "perm": array | None, "iperm": array | None,
      "tail_op": array | None, "tail_start": int, "a0_lo": array | None,
      "a0_lo_band": array | None, "config": {AmgConfig field: value}}
@@ -18,7 +19,9 @@ with each ``ell`` a dict ``{"data", "cols", "row_nnz", "shape",
 "n_rows_pad", "n_cols_pad"}`` and each ``band`` a dict ``{"vals", "pidx",
 "perm", "iperm", "meta", "shape", "reordered", "slot_ranges", "far"}``
 (``perm``, ``iperm`` and ``reordered`` absent for a transfer operator;
-``far`` None or ``{"rows", "cols", "vals", "meta"}``).  Arrays may be
+``far`` None or ``{"rows", "cols", "vals", "meta"}``), each ``hyb`` a dict
+``{"planes", "spill": ell | None, "perm", "iperm", "offsets", "shape",
+"n_pad"}`` and each ``geo`` a dict ``{"wm", "wp", "meta"}``.  Arrays may be
 ``ml_dtypes`` bfloat16.
 """
 
@@ -26,7 +29,8 @@ from __future__ import annotations
 
 from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.core.ell import EllMatrix
-from raptor_tpu_torch.core.hybrid import BandedMatrix, FarBlock, RectBanded
+from raptor_tpu_torch.core.hybrid import (BandedMatrix, FarBlock, GeoTransfer,
+                                          HybridMatrix, RectBanded)
 from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
 
 __all__ = ["algebraic_hierarchy_from_numpy"]
@@ -67,12 +71,28 @@ def _band(d):
                         reordered=bool(d["reordered"]), **common)
 
 
+def _hyb(d):
+    if d is None:
+        return None
+    return HybridMatrix(planes=d["planes"], spill=_ell(d["spill"]),
+                        perm=d["perm"], iperm=d["iperm"],
+                        offsets=_ints(d["offsets"]), shape=_ints(d["shape"]),
+                        n_pad=int(d["n_pad"]))
+
+
+def _geo(d):
+    if d is None:
+        return None
+    return GeoTransfer(wm=d["wm"], wp=d["wp"], meta=_ints(d["meta"]))
+
+
 def algebraic_hierarchy_from_numpy(tree: dict, device) -> Hierarchy:
     levels = tuple(
         Level(A=_ell(lv["A"]), dinv=lv["dinv"], P=_ell(lv["P"]),
               R=_ell(lv["R"]), color=None, cheb_lmax=lv["cheb_lmax"],
               n=int(lv["n"]), ncolors=1, Aband=_band(lv.get("Aband")),
-              Pband=_band(lv.get("Pband")), Rband=_band(lv.get("Rband")))
+              Pband=_band(lv.get("Pband")), Rband=_band(lv.get("Rband")),
+              Ahyb=_hyb(lv.get("Ahyb")), Tgeo=_geo(lv.get("Tgeo")))
         for lv in tree["levels"]
     )
     hier = Hierarchy(levels=levels, coarse_inv=tree["coarse_inv"],

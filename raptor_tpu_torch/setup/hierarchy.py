@@ -4,13 +4,16 @@ Counterpart of ``raptor_tpu/setup/hierarchy.py``.  ``build_hierarchy``
 runs the classical level loop (RS or PMIS splitting, direct, classical or
 extended interpolation, Galerkin RAP) on the host for levels with
 ``n <= AmgConfig.host_setup_threshold`` (``setup/host_setup.py``): the
-reference's own host route, with bit-identical splittings.  The leaves stay
-NumPy while the hierarchy is built; ``Hierarchy.to(device)`` moves it to a
-device in one pass.
+reference's own host route, with bit-identical splittings.  Given grid
+extents (``geo``), the host route builds geo-split levels (alternating
+semicoarsening, ``_geo_cf``) until the grid is exhausted or a level's
+coarsened dimension is weakly coupled.  The leaves stay NumPy while the
+hierarchy is built; ``Hierarchy.to(device)`` moves it to a device in one
+pass.
 
 Not ported yet (they raise ``NotImplementedError``): levels built on the
-device (n above ``host_setup_threshold``), CLJP, aggressive coarsening,
-smoothed aggregation and geo-split.
+device (n above ``host_setup_threshold``, the reference's device geo chain
+included), CLJP, aggressive coarsening and smoothed aggregation.
 """
 
 from __future__ import annotations
@@ -55,8 +58,12 @@ class Level:
     Aband: Optional[Any] = None  # BandedMatrix
     Pband: Optional[Any] = None  # RectBanded
     Rband: Optional[Any] = None
-    Ahyb: Optional[Any] = None
-    Tgeo: Optional[Any] = None
+    # DIA planes of A (fine_layout='banded' on a plane-structured matrix):
+    # the operator applies run through K1 (core/hybrid.py)
+    Ahyb: Optional[Any] = None  # HybridMatrix
+    # P and R of a geo-split level as reshapes and weight products; the
+    # cycle takes it before Pband/Rband and the ELL P/R
+    Tgeo: Optional[Any] = None  # GeoTransfer
 
     def to(self, device) -> "Level":
         return dataclasses.replace(
@@ -104,6 +111,19 @@ def _bucket8(w: int) -> int:
     """Round a data-dependent width up to a multiple of 8 (the reference's
     static-width buckets; level shapes match it)."""
     return max(8, ((int(w) + 7) // 8) * 8)
+
+
+def _geo_cf(n: int, n_pad: int, exts: list, d: int) -> tuple:
+    """(C/F split, stride) for semicoarsening dimension ``d``: C where that
+    coordinate is even.  Rows are lexicographic with stride(d) =
+    prod(exts[:d])."""
+    from raptor_tpu_torch.setup.splitting import C_PT, F_PT
+
+    stride = int(np.prod(exts[:d])) if d > 0 else 1
+    idx = np.arange(n_pad)
+    coord = (idx // stride) % exts[d]
+    return np.where((coord % 2 == 0) & (idx < n), C_PT, F_PT).astype(
+        np.int32), stride
 
 
 def check_ported(config: AmgConfig) -> None:
@@ -177,11 +197,16 @@ def cast_hierarchy_algebraic(hier: Hierarchy, dtype) -> Hierarchy:
                dataclasses.replace(B.far, vals=B.far.vals.to(dtype)))
         return dataclasses.replace(B, vals=B.vals.to(dtype), far=far)
 
+    def cast_hyb(H):
+        return None if H is None else dataclasses.replace(
+            H, planes=H.planes.to(dtype), spill=cast_ell(H.spill))
+
+    # Tgeo's weights are O(n) vectors, as dinv: they keep their precision
     levels = tuple(
         dataclasses.replace(
             lev, A=cast_ell(lev.A), P=cast_ell(lev.P), R=cast_ell(lev.R),
             Aband=cast_band(lev.Aband), Pband=cast_band(lev.Pband),
-            Rband=cast_band(lev.Rband))
+            Rband=cast_band(lev.Rband), Ahyb=cast_hyb(lev.Ahyb))
         for lev in hier.levels)
     return dataclasses.replace(
         hier, levels=levels, coarse_inv=hier.coarse_inv.to(dtype),
@@ -189,7 +214,8 @@ def cast_hierarchy_algebraic(hier: Hierarchy, dtype) -> Hierarchy:
 
 
 def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
-                    row_ids: "np.ndarray | None" = None) -> Hierarchy:
+                    row_ids: "np.ndarray | None" = None,
+                    geo: "list | None" = None) -> Hierarchy:
     """Build an AMG hierarchy with NumPy leaves from a scipy.sparse matrix
     or an EllMatrix.
 
@@ -200,7 +226,10 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
     ``row_ids`` (optional (n,) array): PMIS tie-break weights key on these
     original identities instead of row positions, so the C/F sets do not
     depend on the ordering the hierarchy is built in (the banded path
-    passes its RCM permutation here)."""
+    passes its RCM permutation here).
+
+    ``geo`` (optional grid extents [e0, e1, e2] in stride order, from
+    ``api._detect_grid``): build geo-split levels while the grid lasts."""
     from raptor_tpu_torch.setup.host_setup import host_build_tail
 
     check_ported(config)
@@ -218,7 +247,8 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
             "device-level setup is not yet ported (raise the threshold to "
             "build every level on the host)")
     hier = host_build_tail(A, [], config, dtype,
-                           row_ids=None if row_ids is None else np.asarray(row_ids))
+                           row_ids=None if row_ids is None else np.asarray(row_ids),
+                           geo=geo)
     if A_in is not None:
         hier = attach_residual_lo(hier, A_in)
     return hier

@@ -5,10 +5,10 @@ the reference's device levels (strength, PMIS, interpolation, Galerkin RAP),
 in vectorized NumPy over the identical entry-major ELL layout, with the same
 integer PMIS weights, so C/F splittings are bit-identical and interpolation
 and RAP values agree to fp32 rounding.  ``build_hierarchy`` hands every
-level with ``n <= AmgConfig.host_setup_threshold`` to ``host_build_tail``.
+level with ``n <= AmgConfig.host_setup_threshold`` to ``host_build_tail``,
+geo-split levels included.
 
-Not ported yet (they raise ``NotImplementedError``): geo-split levels and
-aggressive coarsening.
+Not ported yet (it raises ``NotImplementedError``): aggressive coarsening.
 """
 
 from __future__ import annotations
@@ -379,18 +379,54 @@ def _host_level_aux(A: EllMatrix, data, cols, nnz, config: AmgConfig):
     return dinv, None, 1, lmax
 
 
+def _geo_level(data, colsA, nnz, smask, geo: list, n: int, n_pad: int):
+    """One geo-split level: C/F from semicoarsening the longest grid
+    dimension, direct interpolation restricted to that dimension's
+    couplings, and the GeoTransfer weights.  Returns (Pd, Pc, Pn, nc, cf,
+    wm, wp, meta, n_weak): ``n_weak`` counts the F rows with no strong
+    coupling along that dimension (the caller bails to PMIS when they are
+    many); ``meta`` lacks the coarse padding."""
+    from raptor_tpu_torch.setup.hierarchy import _geo_cf
+
+    d = int(np.argmax(geo))
+    cf, stride = _geo_cf(n, n_pad, geo, d)
+    rows_b = np.broadcast_to(np.arange(n_pad)[None, :], colsA.shape)
+    k_b = np.arange(data.shape[0])[:, None]
+    m1d = ((k_b < nnz[None, :]) & (colsA != rows_b)
+           & (np.abs(colsA - rows_b) == stride))
+    Pd, Pc, Pn, nc = np_direct_interpolation(data, colsA, nnz, m1d, cf)
+    n_weak = int(((cf[:n] == F_PT) & ~(m1d & smask)[:, :n].any(axis=0)).sum())
+    # the two interpolation weights of each F row: toward the coarse point
+    # one stride below (wm) and one above (wp)
+    cmap = np.cumsum(cf == C_PT) - 1
+    is_f = cf == F_PT
+    idx = np.arange(n_pad)
+    tgt_m = cmap[np.maximum(idx - stride, 0)]
+    tgt_p = cmap[np.minimum(idx + stride, n_pad - 1)]
+    slot = np.arange(Pd.shape[0])[:, None] < Pn[None, :]
+    wm = np.where((Pc == tgt_m[None, :]) & slot & is_f[None, :], Pd, 0).sum(axis=0)
+    wp = np.where((Pc == tgt_p[None, :]) & slot & is_f[None, :], Pd, 0).sum(axis=0)
+    meta = (n // (geo[d] * stride), geo[d], (geo[d] + 1) // 2, stride, n, n_pad)
+    return Pd, Pc, Pn, nc, cf, wm, wp, meta, n_weak
+
+
 def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
-                    row_ids=None):
+                    row_ids=None, geo: list | None = None):
     """Finish a hierarchy on the host: called by ``build_hierarchy`` once
     the level size drops to ``config.host_setup_threshold``.  ``levels``
     holds the already-built levels; returns the complete Hierarchy with
     NumPy leaves.  ``row_ids``: original row identities for permutation-
-    invariant PMIS weights (see ``build_hierarchy``)."""
+    invariant PMIS weights (see ``build_hierarchy``).  ``geo``: grid
+    extents for geo-split levels; once they are exhausted, or a level among
+    the first three has more than n/10 weakly coupled F rows along the
+    coarsened dimension, the remaining levels take the PMIS route."""
+    from raptor_tpu_torch.core.hybrid import GeoTransfer
     from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level, _bucket8
 
     if config.aggressive:
         raise NotImplementedError("aggressive coarsening is not yet ported")
     ids = None if row_ids is None else np.asarray(row_ids)
+    geo = None if geo is None else list(geo)  # the live extents, per level
 
     out = []  # host-level tuples
     n = A.shape[0]
@@ -403,26 +439,37 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
         n_pad = A.n_rows_pad
         smask = np_strength_mask(data, colsA, nnz, config.theta, config.strength)
         P_pad_csr = None
-        if config.splitting == "rs":
-            import scipy.sparse as sp
+        geo_w = None  # (wm, wp, meta) of a geo-split level
+        if geo is not None and n == int(np.prod(geo)) and max(geo) > 2:
+            Pd, Pc, Pn, nc, cf, wm, wp, meta, n_weak = _geo_level(
+                data, colsA, nnz, smask, geo, n, n_pad)
+            if n_weak > n // 10 and len(levels) + len(out) < 3:
+                geo = None  # weak-dimension bail: PMIS from this level on
+            else:
+                geo_w = (wm, wp, meta)
+                d = int(np.argmax(geo))
+                geo[d] = (geo[d] + 1) // 2
+        if geo_w is None:  # the classical route: splitting, then P
+            if config.splitting == "rs":
+                import scipy.sparse as sp
 
-            rows = np.broadcast_to(np.arange(n_pad)[None, :], smask.shape)
-            S = sp.coo_matrix(
-                (np.ones(int(smask.sum())), (rows[smask], colsA[smask])),
-                shape=(n_pad, n_pad)).tocsr()
-            cf = rs_splitting_host(S).astype(np.int32)
-        else:  # pmis (guarded by build_hierarchy)
-            seed = config.seed + len(levels) + len(out)
-            perm = (make_perm_ids_np(ids, n_pad, seed) if ids is not None
-                    else make_perm_np(n, n_pad, seed))
-            cf = np_pmis_splitting(colsA, smask, perm, n_pad)
-        if config.interp in ("classical", "extended"):
-            P_pad_csr, nc = np_distance_two_interpolation(
-                data, colsA, nnz, smask, cf, variant=config.interp,
-                p_max=config.p_max_elements)
-        else:
-            Pd, Pc, Pn, nc = np_direct_interpolation(
-                data, colsA, nnz, smask, cf)
+                rows = np.broadcast_to(np.arange(n_pad)[None, :], smask.shape)
+                S = sp.coo_matrix(
+                    (np.ones(int(smask.sum())), (rows[smask], colsA[smask])),
+                    shape=(n_pad, n_pad)).tocsr()
+                cf = rs_splitting_host(S).astype(np.int32)
+            else:  # pmis (guarded by build_hierarchy)
+                seed = config.seed + len(levels) + len(out)
+                perm = (make_perm_ids_np(ids, n_pad, seed) if ids is not None
+                        else make_perm_np(n, n_pad, seed))
+                cf = np_pmis_splitting(colsA, smask, perm, n_pad)
+            if config.interp in ("classical", "extended"):
+                P_pad_csr, nc = np_distance_two_interpolation(
+                    data, colsA, nnz, smask, cf, variant=config.interp,
+                    p_max=config.p_max_elements)
+            else:
+                Pd, Pc, Pn, nc = np_direct_interpolation(
+                    data, colsA, nnz, smask, cf)
         if nc == 0 or nc >= n:
             break
         if ids is not None:
@@ -465,7 +512,10 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
                                 row_pad_multiple=config.pad_multiple,
                                 n_cols_pad=n_pad, identity_pad_rows=False),
                    _bucket8(int(np.diff(R_csr.indptr).max(initial=1))))
-        out.append((A, dinv, P, R, color, lmax, n, ncolors))
+        tg = None if geo_w is None else GeoTransfer(
+            wm=geo_w[0].astype(dtype), wp=geo_w[1].astype(dtype),
+            meta=(*geo_w[2], nc_pad))
+        out.append((A, dinv, P, R, color, lmax, n, ncolors, tg))
         A = _pad_K(ell_from_csr(Ac_csr, dtype=dtype,
                                 row_pad_multiple=config.pad_multiple),
                    _bucket8(int(np.diff(Ac_csr.indptr).max(initial=1))))
@@ -484,9 +534,10 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
     mtrue = min(pad_rows(n, 8), A.n_rows_pad)
     inv = np.eye(A.n_rows_pad, dtype=data.dtype)
     inv[:mtrue, :mtrue] = np.linalg.inv(dense[:mtrue, :mtrue])
-    out.append((A, dinv, None, None, color, lmax, n, ncolors))
+    out.append((A, dinv, None, None, color, lmax, n, ncolors, None))
 
-    for (Ah, dinv_h, Ph, Rh, color_h, lmax_h, n_h, ncol_h) in out:
+    for (Ah, dinv_h, Ph, Rh, color_h, lmax_h, n_h, ncol_h, tg_h) in out:
         levels.append(Level(A=Ah, dinv=dinv_h, P=Ph, R=Rh, color=color_h,
-                            cheb_lmax=lmax_h, n=n_h, ncolors=ncol_h))
+                            cheb_lmax=lmax_h, n=n_h, ncolors=ncol_h,
+                            Tgeo=tg_h))
     return Hierarchy(levels=tuple(levels), coarse_inv=inv, config=config)

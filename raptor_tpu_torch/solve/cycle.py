@@ -3,13 +3,14 @@
 Counterpart of ``raptor_tpu/solve/cycle.py``.  The V-/W-cycle recursion is
 plain Python over the levels; the coarsest level is a dense inverse (one
 matvec) and the coarse tail below ``tail_start`` can be folded into one
-dense operator (``materialize_tail``).  On banded levels the operator runs
-through K4 and the transfers through K6 (``core/hybrid.py``); the others
-use the gather ELL SpMV.
+dense operator (``materialize_tail``).  A level's operator runs through
+K1 on its DIA planes (``Ahyb``) or K4 on its banded layout, and its
+transfers through the geo-split reshapes (``Tgeo``) or K6
+(``core/hybrid.py``); the others use the gather ELL SpMV.
 
 The reference folds the tail by ``vmap`` over identity columns; here the
 columns are a batch dimension (B, n) on the ELL path.  As in the
-reference, the banded layouts are stripped for that, so the kernels only
+reference, the fast layouts are stripped for that, so the kernels only
 ever see 1-D vectors.
 """
 
@@ -32,8 +33,13 @@ __all__ = ["apply_op", "apply_transfer", "cycle", "make_preconditioner",
            "materialize_tail"]
 
 def apply_op(lev: "Level", x):
-    """A @ x through the level's banded layout when present (K4), else the
-    gather ELL SpMV.  Both share the level's vector ordering."""
+    """A @ x through the level's DIA planes (K1) or banded layout (K4) when
+    present, else the gather ELL SpMV.  All share the level's vector
+    ordering."""
+    if lev.Ahyb is not None:
+        from raptor_tpu_torch.core.hybrid import hybrid_spmv_ro
+
+        return hybrid_spmv_ro(lev.Ahyb, x)
     if lev.Aband is not None:
         from raptor_tpu_torch.core.hybrid import banded_spmv, banded_spmv_ro
 
@@ -115,7 +121,7 @@ def _smooth(lev: "Level", cfg: AmgConfig, b, x, backward: bool,
     sweeps = cfg.nu2 if backward else cfg.nu1
     if sweeps == 0:
         return x
-    if lev.Aband is not None:
+    if lev.Aband is not None or lev.Ahyb is not None:
         return _smooth_sp(lev, cfg, b, x, backward,
                           sp=lambda v: apply_op(lev, v), x0_zero=x0_zero)
     if cfg.smoother == "jacobi":
@@ -144,13 +150,23 @@ def _level(hier: "Hierarchy", cfg: AmgConfig, k: int, b):
         return hier.coarse_inv.to(b.dtype) @ b
     x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False, x0_zero=True)
     r = b - apply_op(lev, x) if cfg.nu1 else b
-    rc = apply_transfer(lev.Rband, lev.R, r)
+    if lev.Tgeo is not None:
+        from raptor_tpu_torch.core.hybrid import geo_restrict
+
+        rc = geo_restrict(lev.Tgeo, r)
+    else:
+        rc = apply_transfer(lev.Rband, lev.R, r)
     ec = _level(hier, cfg, k + 1, rc)
     if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
         # second coarse visit on the updated coarse residual (gamma = 2)
         rc2 = rc - apply_op(hier.levels[k + 1], ec)
         ec = ec + _level(hier, cfg, k + 1, rc2)
-    x = x + apply_transfer(lev.Pband, lev.P, ec)
+    if lev.Tgeo is not None:
+        from raptor_tpu_torch.core.hybrid import geo_prolong
+
+        x = x + geo_prolong(lev.Tgeo, ec)
+    else:
+        x = x + apply_transfer(lev.Pband, lev.P, ec)
     return _smooth(lev, cfg, b, x, backward=True)
 
 
@@ -173,7 +189,7 @@ def make_preconditioner(hier: "Hierarchy"):
 def _level_dense(lev: "Level", cfg: AmgConfig, Meff: torch.Tensor) -> torch.Tensor:
     """Dense matrix of one level's cycle body with the recursion replaced by
     the (already dense) coarse map ``Meff``: the body runs on all identity
-    columns at once as a (n, n) batch.  The caller strips the banded
+    columns at once as a (n, n) batch.  The caller strips the fast
     layouts first (the ELL path applies the same matrix to a batch)."""
     c = torch.eye(lev.A.n_rows_pad, dtype=lev.dinv.dtype, device=lev.dinv.device)
     x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)

@@ -202,6 +202,20 @@ def _band_tree(B):
     return d
 
 
+def _hyb_tree(H):
+    if H is None:
+        return None
+    return {"planes": np.asarray(H.planes), "spill": _ell_tree(H.spill),
+            "perm": np.asarray(H.perm), "iperm": np.asarray(H.iperm),
+            "offsets": H.offsets, "shape": H.shape, "n_pad": H.n_pad}
+
+
+def _geo_tree(T):
+    if T is None:
+        return None
+    return {"wm": np.asarray(T.wm), "wp": np.asarray(T.wp), "meta": T.meta}
+
+
 def algebraic_tree_from_jax(hier) -> dict:
     """The plain-numpy tree of a JAX algebraic ``Hierarchy`` for
     ``raptor_tpu_torch.setup.convert.algebraic_hierarchy_from_numpy``."""
@@ -210,7 +224,8 @@ def algebraic_tree_from_jax(hier) -> dict:
             {"A": _ell_tree(lv.A), "P": _ell_tree(lv.P), "R": _ell_tree(lv.R),
              "dinv": np.asarray(lv.dinv), "cheb_lmax": _opt(lv.cheb_lmax),
              "n": lv.n, "Aband": _band_tree(lv.Aband),
-             "Pband": _band_tree(lv.Pband), "Rband": _band_tree(lv.Rband)}
+             "Pband": _band_tree(lv.Pband), "Rband": _band_tree(lv.Rband),
+             "Ahyb": _hyb_tree(lv.Ahyb), "Tgeo": _geo_tree(lv.Tgeo)}
             for lv in hier.levels
         ],
         "coarse_inv": np.asarray(hier.coarse_inv),

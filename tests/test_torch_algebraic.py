@@ -334,14 +334,11 @@ def test_stationary_iteration_converges(thiers):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", [
-    "plane_mode", "device_levels", "cljp", "aggregation", "mcgs",
-    "aggressive"])
+    "device_levels", "cljp", "aggregation", "mcgs", "aggressive"])
 def test_not_yet_ported_raises(case):
     A = shuffled_poisson(8)
     cfg = dict(splitting="pmis", smoother="cheb4")
-    if case == "plane_mode":
-        A, cfg = sp.csr_matrix(poisson_3d(8)), dict(cfg, fine_layout="banded")
-    elif case == "device_levels":
+    if case == "device_levels":
         cfg = dict(cfg, host_setup_threshold=100)
     elif case == "cljp":
         cfg = dict(cfg, splitting="cljp")

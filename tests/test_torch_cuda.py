@@ -791,3 +791,81 @@ def test_sharded_applies_on_card_launch_the_new_forms(alg16):
             assert torch.equal(y.cpu(), fn(band.to("cpu"), x.cpu(), ring))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# plane mode: K1 on the DIA planes of a geo-split hierarchy
+# ---------------------------------------------------------------------------
+
+GEO = dict(splitting="pmis", interp="extended", fine_layout="banded",
+           smoother="cheb4", cheb_degree=3)
+
+
+@pytest.fixture(scope="module")
+def geo32():
+    """Natural-ordered 32^3 Poisson in plane mode, no folded tail: DIA
+    planes on levels 0-4 (32768 rows and 7 offsets, 16384 and 15, then 27
+    down to 2048 rows), built on the host and moved to the card."""
+    from raptor_tpu_torch.api import setup
+
+    dev = cuda_device()
+    A = sp.csr_matrix(poisson_3d(32))
+    return A, setup(A, AmgConfig(**GEO, tail_max_n=0), device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level,n_off,n", [(0, 7, 32768), (2, 27, 8192),
+                                           (4, 27, 2048)])
+def test_k1_on_geo_planes_bit_for_bit(geo32, level, n_off, n, dtype):
+    """A 7-offset fine level, a 27-offset coarse level and the smallest
+    level with planes, fp32 and bf16: through ``_planes_spmv``, which
+    counts the CUDA call and launches K1."""
+    from raptor_tpu_torch.core import hybrid
+
+    H = geo32[1].levels[level].Ahyb
+    assert (len(H.offsets), H.n_pad, H.spill) == (n_off, n, None)
+    planes = H.planes.to(dtype).contiguous()
+    x = _x(n, planes.device, seed=level)
+    calls, k1 = hybrid.cuda_calls["planes_spmv"], tk.launches["K1"]
+    y = hybrid._planes_spmv(planes, H.offsets, x)
+    assert hybrid.cuda_calls["planes_spmv"] == calls + 1
+    assert tk.launches["K1"] == k1 + 1
+    assert torch.equal(y, tk.dia_spmv_v2_ref(planes, H.offsets, x))
+
+
+def test_planes_spmv_raises_where_k1_refuses(geo32):
+    """No fallback: 33 planes (K1 takes at most 32), a bf16 x and a CPU x
+    with card planes all raise."""
+    from raptor_tpu_torch.core import hybrid
+
+    H = geo32[1].levels[2].Ahyb
+    dev = H.planes.device
+    x = _x(H.n_pad, dev)
+    planes33 = torch.cat([H.planes, H.planes[:6]])
+    offsets33 = H.offsets + H.offsets[:6]
+    with pytest.raises(ValueError, match="planes"):
+        hybrid._planes_spmv(planes33, offsets33, x)
+    with pytest.raises(ValueError, match="float32"):
+        hybrid._planes_spmv(H.planes, H.offsets, x.bfloat16())
+    with pytest.raises(ValueError):
+        hybrid._planes_spmv(H.planes, H.offsets, x.cpu())
+
+
+def test_geo_cycle_and_solve_on_card_match_cpu(geo32):
+    """A bf16 V-cycle on the card against the same cycle on the CPU, and
+    the refined solve's iterations (the CPU's) and true relres."""
+    from raptor_tpu_torch.api import solve
+    from raptor_tpu_torch.setup.hierarchy import cast_hierarchy_algebraic
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    A, h = geo32
+    hm = cast_hierarchy_algebraic(h, torch.bfloat16)
+    b = torch.from_numpy(default_rhs(h.levels[0].A.n_rows_pad, dtype=np.float32))
+    assert rel_err(cycle(hm, b.to(h.device)).cpu(), cycle(hm.to("cpu"), b)) <= 1e-5
+    rhs = np.ones(A.shape[0])
+    cfg = AmgConfig(**GEO, tail_max_n=0, operator_store_dtype="bfloat16")
+    sc = SolveConfig(tol=1e-8, refine=True)
+    x, info = solve(A, rhs, cfg, sc, hier=h)
+    _, info_c = solve(A, rhs, cfg, sc, hier=h.to("cpu"))
+    assert info["iterations"] == info_c["iterations"]
+    assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8
