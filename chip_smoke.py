@@ -29,16 +29,19 @@ Phases, each of which raises on failure (there is no CPU path):
 8. proof: every CUDA banded apply of phase 7 launched K4, K5 or K6, each
    kernel at least once (counts set to 0 just before phase 7, read just
    after it);
-9. the same path at shuffled 96^3 with every level built on the host, and
-   the same proof on its own counts; then K4 on every banded level and K6
-   on level 0 of the 96^3 hierarchy against their plain versions, K4 timed
-   at each;
+9. the same path at shuffled 96^3, levels 0-1 (above host_setup_threshold)
+   built on the card by the device route (PMIS, direct interpolation,
+   SpGEMM Galerkin products), checked to hold CUDA tensors just before the
+   hierarchy is moved, peak device memory printed; the same proof on its
+   own counts; then K4 on every banded level and K6 on level 0 of the 96^3
+   hierarchy against their plain versions, K4 timed at each; then the host
+   route's build and refined-solve iterations beside the device route's;
 9a. the algebraic engine's plane mode (the reference bench's alg128 row):
     natural-ordered 128^3 Poisson as scipy CSR with no grid information ->
     api.setup (PMIS, extended interpolation, fine_layout 'banded', cheb4
-    degree 3, bf16 preconditioner; cut: host_setup_threshold 2**22, every
-    level built on the host), timed, each level's size, layout (hyb, band
-    or ell) and geo transfer printed -> 10 bf16 V-cycles, timed, and
+    degree 3, bf16 preconditioner; levels 0-2 from the device geo chain,
+    checked to hold CUDA tensors), timed, each level's size, layout (hyb,
+    band or ell) and geo transfer printed -> 10 bf16 V-cycles, timed, and
     torch.profiler over 10 more -> api.solve with the df64-refined PCG
     (certified through the DIA-plane compensated residual), cold then warm
     -> a host fp64 residual with the caller's matrix; checked: the
@@ -51,7 +54,16 @@ Phases, each of which raises on failure (there is no CPU path):
 9c. K1 on the DIA planes of every level of that hierarchy, fp32 and bf16,
     bit for bit against its plain version on the same CUDA tensors, each
     timed L2-warm and L2-cold beside its bound and cuSPARSE; the path's sum
-    of launches x (L2-warm - bound); the hierarchy is then freed;
+    of launches x (L2-warm - bound);
+9d. the host route of alg128: its refined-solve iterations beside the
+    device route's, and the two hierarchies level by level (sizes and geo
+    metas equal, A within 1e-5, P within 1e-6); the hierarchy is then
+    freed;
+9e. the device-setup row (bench.py:322-360): shuffled 96^3, PMIS +
+    extended on the ELL layout, levels 0-1 on the card; built cold and
+    warm, the two builds bit-equal in every A, P and R; seconds, rows/s,
+    levels built on the card (2), peak device memory; the level count and
+    refined-solve iterations equal to the host route's;
 10. halo kernel equality: K3 against its plain version at the shapes the
     sharded path gives it (the 256^3 fine level with 65536-row halos, a
     15- and a 27-offset coarse level, the 4-rank 128^3 block, bf16
@@ -107,6 +119,9 @@ launches of its own path); the last line is
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import importlib
 import itertools
 import json
 import subprocess
@@ -149,14 +164,25 @@ ADIST_TOL, ADIST_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
 TAPS_GRID = (2, 2)  # (nodes, chips) of the four ranks
 N_PROFILED = 10
 # the algebraic engine's plane mode (bench.py:228-320, the alg128 row):
-# natural-ordered 128^3 Poisson in, no grid information; one cut, every
-# level built on the host (host_setup_threshold 2**22)
+# natural-ordered 128^3 Poisson in, no grid information; levels 0-2 (above
+# the default host_setup_threshold) from the device geo chain
 ALG128_N = 128
 ALG128_CFG = dict(splitting="pmis", interp="extended", fine_layout="banded",
                   smoother="cheb4", cheb_degree=3,
-                  operator_store_dtype="bfloat16", host_setup_threshold=2**22)
+                  operator_store_dtype="bfloat16")
 ALG128_SIZES = [2**k for k in range(21, 5, -1)]  # the reference's 16 levels
 ALG128_MAX_ITERS = 10  # the reference takes 9
+# a threshold above every level's size: the host route, which the device
+# route is compared with (phases 9, 9d and 9e)
+HOST_ROUTE_THRESHOLD = 2**22
+# the device-built geo hierarchy against the host-built one, as the CPU
+# test (tests/test_torch_geo_device.py::test_geo_device_matches_host)
+GEO_A_TOL, GEO_P_TOL = 1e-5, 1e-6
+# the device-setup row (bench.py:322-360): shuffled 96^3, PMIS + extended
+# on the ELL layout; levels 0-1 (884736 and 442368 rows) on the device
+DEVSETUP_N = 96
+DEVSETUP_CFG = dict(splitting="pmis", interp="extended")
+DEVSETUP_DEVICE_LEVELS = 2
 N_ALG128_CYCLES = 10
 ALG128_GRAPH_CALLS = 20
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, fp32 outside the
@@ -732,11 +758,128 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
     return rec
 
 
-def phase_algebraic(dev, nx: int, cold_and_warm: bool, **cfg_extra) -> tuple:
+@contextlib.contextmanager
+def device_route(tag: str, threshold: int, out: dict):
+    """Around one api.setup: just before Hierarchy.to moves the built
+    hierarchy to the card, check that every level above ``threshold``
+    holds CUDA tensors (a device route that built on the CPU would be moved
+    there without a trace), and record in ``out`` the number of such
+    levels, the peak device memory of the setup and where its seconds
+    went: ``before_tail_s`` (ordering, ELL conversion and the device
+    levels, up to the host tail), ``host_tail_s``, ``layouts_s`` (the
+    layout plans after the tail) and ``upload_s`` (Hierarchy.to, the
+    folded tail and the rest of api.setup)."""
+    from raptor_tpu_torch.setup.hierarchy import Hierarchy
+
+    # the package's setup function shadows its setup subpackage
+    hs = importlib.import_module("raptor_tpu_torch.setup.host_setup")
+
+    to, tail = Hierarchy.to, hs.host_build_tail
+    marks = {}
+
+    def timed_tail(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["tail_in"] = time.perf_counter()
+        try:
+            return tail(*args, **kwargs)
+        finally:
+            marks["tail_out"] = time.perf_counter()
+
+    def checked(self, device):
+        torch.cuda.synchronize()
+        marks["to"] = time.perf_counter()
+        n_dev = 0
+        for i, lv in enumerate(self.levels):
+            if lv.n <= threshold:
+                continue
+            leaves = [lv.A.data, lv.A.cols, lv.A.row_nnz, lv.dinv]
+            for E in (lv.P, lv.R):
+                if E is not None:
+                    leaves += [E.data, E.cols, E.row_nnz]
+            if lv.Ahyb is not None:
+                leaves.append(lv.Ahyb.planes)
+            if lv.Tgeo is not None:
+                leaves += [lv.Tgeo.wm, lv.Tgeo.wp]
+            if not all(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in leaves):
+                raise AssertionError(f"[{tag}] level {i} (n={lv.n}) is above "
+                                     "the host threshold but was not built "
+                                     "on the card")
+            n_dev += 1
+        out["device_levels"] = n_dev
+        return to(self, device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Hierarchy.to, hs.host_build_tail = checked, timed_tail
+    t0 = time.perf_counter()
+    try:
+        yield
+        torch.cuda.synchronize()
+    finally:
+        Hierarchy.to, hs.host_build_tail = to, tail
+    end = time.perf_counter()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    tail_in = marks.get("tail_in", marks["to"])
+    tail_out = marks.get("tail_out", marks["to"])
+    out.update(before_tail_s=tail_in - t0, host_tail_s=tail_out - tail_in,
+               layouts_s=marks["to"] - tail_out, upload_s=end - marks["to"])
+
+
+SETUP_PARTS = ("before_tail_s", "host_tail_s", "layouts_s", "upload_s")
+
+
+def timed_setup(tag: str, A, cfg, dev) -> tuple:
+    """api.setup on the card under ``device_route``: (hierarchy, record
+    with seconds, levels built on the device and peak memory)."""
+    from raptor_tpu_torch import setup
+
+    rec = {}
+    t0 = time.perf_counter()
+    with device_route(tag, cfg.host_setup_threshold, rec):
+        h = setup(A, cfg, device=dev)
+    rec["s"] = time.perf_counter() - t0
+    print(f"[{tag}] setup {rec['s']:.3f} s: {rec['before_tail_s']:.3f} s "
+          f"ordering, ELL conversion and the {rec['device_levels']} levels "
+          f"built on the card; {rec['host_tail_s']:.3f} s host tail; "
+          f"{rec['layouts_s']:.3f} s layout plans; {rec['upload_s']:.3f} s "
+          f"upload, folded tail and the rest; peak device memory "
+          f"{rec['peak_mem_gib']:.3f} GiB")
+    return h, rec
+
+
+def host_route(tag: str, A, cfg, dev, sizes: list, iters: int) -> tuple:
+    """The same input and configuration with every level built on the
+    host (HOST_ROUTE_THRESHOLD): (record of setup seconds, sizes and
+    refined-solve iterations, printed beside the device route's; the
+    host-built hierarchy)."""
+    from raptor_tpu_torch import SolveConfig, solve
+
+    hcfg = dataclasses.replace(cfg, host_setup_threshold=HOST_ROUTE_THRESHOLD)
+    hh, rec = timed_setup(f"{tag} host route", A, hcfg, dev)
+    host_s = rec["s"]
+    b = np.ones(A.shape[0])
+    x, info = solve(A, b, hcfg, SolveConfig(tol=MAX_RELRES, refine=True),
+                    hier=hh)
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    out = {"setup_s": host_s, "setup_parts": {k: rec[k] for k in SETUP_PARTS},
+           "sizes": [lv.n for lv in hh.levels],
+           "iters": int(info["iterations"]), "relres": relres}
+    print(f"[{tag}] host route (every level on the host): setup {host_s:.3f} "
+          f"s, sizes {out['sizes']}, {out['iters']} PCG iterations, true "
+          f"relres {relres:.3e}; device route: sizes {sizes}, {iters} "
+          "iterations")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"host route: true relres {relres} > {MAX_RELRES}")
+    return out, hh
+
+
+def phase_algebraic(dev, nx: int, cold_and_warm: bool) -> tuple:
     """The algebraic engine's banded path on shuffled nx^3 Poisson, through
     raptor_tpu_torch.api.setup and api.solve as the reference bench calls
-    them, checked against a host fp64 residual."""
-    from raptor_tpu_torch import AmgConfig, SolveConfig, setup, solve
+    them, checked against a host fp64 residual; the levels above the host
+    threshold are built on the card."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, solve
     from raptor_tpu_torch.api import solve_hier_refined
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.solve.cycle import cycle
@@ -744,23 +887,22 @@ def phase_algebraic(dev, nx: int, cold_and_warm: bool, **cfg_extra) -> tuple:
     tag = f"alg{nx}"
     A = shuffled_poisson(nx)
     n = A.shape[0]
-    cfg = AmgConfig(**ALG_CFG, **cfg_extra)
+    cfg = AmgConfig(**ALG_CFG)
 
-    def build():
-        t0 = time.perf_counter()
-        h = setup(A, cfg, device=dev)
-        torch.cuda.synchronize()
-        return h, time.perf_counter() - t0
-
-    h, cold = build()
-    out = {"n": n, "setup_cold_s": cold}
-    msg = f"[{tag}] setup {cold:.3f} s cold"
+    h, rec = timed_setup(tag, A, cfg, dev)
+    out = {"n": n, "setup_cold_s": rec["s"], "device_levels": rec["device_levels"],
+           "setup_peak_mem_gib": rec["peak_mem_gib"]}
+    msg = f"[{tag}] setup {rec['s']:.3f} s cold"
     if cold_and_warm:
-        h, warm = build()
-        out["setup_warm_s"] = warm
-        msg += f", {warm:.3f} s warm"
+        h, rec = timed_setup(tag, A, cfg, dev)
+        out["setup_warm_s"] = rec["s"]
+        msg += f", {rec['s']:.3f} s warm"
+    out["setup_parts"] = {k: rec[k] for k in SETUP_PARTS}
     sizes = [lv.n for lv in h.levels]
-    print(f"{msg}, {len(sizes)} levels, sizes {sizes}")
+    print(f"{msg}, {len(sizes)} levels, sizes {sizes}; {rec['device_levels']} "
+          f"levels built on the card (host_setup_threshold "
+          f"{cfg.host_setup_threshold}), peak device memory "
+          f"{rec['peak_mem_gib']:.3f} GiB")
     _print_levels(tag, h)
     if sizes != ALG_SIZES[nx]:
         raise AssertionError(f"level sizes {sizes}, the reference's {ALG_SIZES[nx]}")
@@ -817,7 +959,8 @@ def phase_algebraic(dev, nx: int, cold_and_warm: bool, **cfg_extra) -> tuple:
     if limit is not None and not iters <= limit:
         raise AssertionError(f"{iters} iterations (max {limit})")
     out.update(vcycle_ms=vc, solve_s=sol, solve_device_s=sol_dev,
-               iters=iters, certified=float(info["relres"]), relres=relres)
+               iters=iters, certified=float(info["relres"]), relres=relres,
+               sizes=sizes)
     return out, h
 
 
@@ -937,8 +1080,9 @@ def _layout(lv) -> str:
 def phase_alg128(dev) -> tuple:
     """Phase 9a: natural-ordered 128^3 Poisson as scipy CSR with no grid
     information through api.setup and api.solve in plane mode (the
-    reference bench's alg128 row), every level built on the host."""
-    from raptor_tpu_torch import AmgConfig, SolveConfig, setup, solve
+    reference bench's alg128 row); levels 0-2 from the geo chain on the
+    card, the rest on the host."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, solve
     from raptor_tpu_torch.api import solve_hier_refined
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.gallery import poisson_3d
@@ -948,14 +1092,14 @@ def phase_alg128(dev) -> tuple:
     A = sp.csr_matrix(poisson_3d(ALG128_N))
     n = A.shape[0]
     cfg = AmgConfig(**ALG128_CFG)
-    t0 = time.perf_counter()
-    h = setup(A, cfg, device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    h, rec = timed_setup("alg128", A, cfg, dev)
+    setup_s = rec["s"]
     sizes = [lv.n for lv in h.levels]
     layouts = [_layout(lv) for lv in h.levels]
-    print(f"[alg128] setup {setup_s:.3f} s (every level on the host: "
-          f"host_setup_threshold {cfg.host_setup_threshold}), {len(sizes)} levels")
+    print(f"[alg128] setup {setup_s:.3f} s, {len(sizes)} levels, "
+          f"{rec['device_levels']} built on the card by the geo chain "
+          f"(host_setup_threshold {cfg.host_setup_threshold}), peak device "
+          f"memory {rec['peak_mem_gib']:.3f} GiB")
     for i, lv in enumerate(h.levels):
         hy = lv.Ahyb
         lay = layouts[i] + ("" if hy is None else
@@ -1030,12 +1174,107 @@ def phase_alg128(dev) -> tuple:
         raise AssertionError(f"{iters} iterations (max {ALG128_MAX_ITERS})")
     if not relres <= MAX_RELRES:
         raise AssertionError(f"true relres {relres} > {MAX_RELRES}")
-    return {"n": n, "setup_s": setup_s, "sizes": sizes, "layouts": layouts,
+    return {"n": n, "setup_s": setup_s, "device_levels": rec["device_levels"],
+            "setup_parts": {k: rec[k] for k in SETUP_PARTS},
+            "setup_peak_mem_gib": rec["peak_mem_gib"], "sizes": sizes,
+            "layouts": layouts,
             "geo_levels": sum(lv.Tgeo is not None for lv in h.levels),
             "vcycle_ms": vc, "dof_per_s": n / vc * 1e3, "profile": prof,
             "solve_cold_s": cold, "solve_warm_s": warm,
             "solve_device_s": sol_dev, "solve_profile": prof_solve, "iters": iters,
             "certified": float(info["relres"]), "relres": relres}, h
+
+
+def phase_alg128_host(dev, h, iters: int) -> dict:
+    """Phase 9d: the host route of alg128 (its refined-solve iterations
+    printed beside the device route's), and the device-built hierarchy
+    (phase 9a) against the host-built one, level by level: sizes and geo
+    metas equal, A within GEO_A_TOL and P within GEO_P_TOL (max abs), as
+    the CPU test holds them."""
+    from raptor_tpu_torch import AmgConfig
+    from raptor_tpu_torch.core.ell import ell_to_csr
+    from raptor_tpu_torch.gallery import poisson_3d
+
+    A = sp.csr_matrix(poisson_3d(ALG128_N))
+    out, hh = host_route("alg128", A, AmgConfig(**ALG128_CFG), dev,
+                         [lv.n for lv in h.levels], iters)
+    if [lv.n for lv in hh.levels] != [lv.n for lv in h.levels]:
+        raise AssertionError("alg128: the host and device routes' level sizes differ")
+    a_err = p_err = 0.0
+    for i, (d, o) in enumerate(zip(h.levels, hh.levels)):
+        if (d.Tgeo is None) != (o.Tgeo is None) or (
+                d.Tgeo is not None and d.Tgeo.meta != o.Tgeo.meta):
+            raise AssertionError(f"alg128 L{i}: the geo transfers differ")
+        a_err = max(a_err, abs(ell_to_csr(d.A) - ell_to_csr(o.A)).max())
+        if d.P is not None:
+            p_err = max(p_err, abs(ell_to_csr(d.P) - ell_to_csr(o.P)).max())
+    print(f"[alg128] device route against host route: max |A_dev - "
+          f"A_host| {a_err:.3e} (limit "
+          f"{GEO_A_TOL:g}), max |P_dev - P_host| {p_err:.3e} (limit "
+          f"{GEO_P_TOL:g}) over {len(h.levels)} levels")
+    if not (a_err <= GEO_A_TOL and p_err <= GEO_P_TOL):
+        raise AssertionError("alg128: the device-built hierarchy differs from "
+                             "the host-built one")
+    out.update(a_err=float(a_err), p_err=float(p_err))
+    return out
+
+
+def phase_devsetup(dev) -> dict:
+    """Phase 9e, the reference bench's device-setup row (bench.py:322-360):
+    shuffled 96^3 with PMIS + extended on the ELL layout; levels 0-1 are
+    built on the card.  Built cold and warm, the two builds bit-equal in
+    every A, P and R; seconds, rows/s, levels built on the card and peak
+    memory; its level count and refined-solve iterations equal to the
+    host route's on the same input."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, solve
+
+    A = shuffled_poisson(DEVSETUP_N)
+    n = A.shape[0]
+    cfg = AmgConfig(**DEVSETUP_CFG)
+    h0, cold = timed_setup("devsetup", A, cfg, dev)
+    h, warm = timed_setup("devsetup", A, cfg, dev)
+    for i, (a, b) in enumerate(zip(h0.levels, h.levels)):
+        for f in ("A", "P", "R"):
+            ea, eb = getattr(a, f), getattr(b, f)
+            same = (ea is None) == (eb is None) and (ea is None or all(
+                torch.equal(getattr(ea, k), getattr(eb, k))
+                for k in ("data", "cols", "row_nnz")))
+            if not same:
+                raise AssertionError(f"devsetup: two device builds differ in L{i} {f}")
+    if len(h0.levels) != len(h.levels):
+        raise AssertionError("devsetup: two device builds differ in depth")
+    del h0
+    sizes = [lv.n for lv in h.levels]
+    b = np.ones(n)
+    x, info = solve(A, b, cfg, SolveConfig(tol=MAX_RELRES, refine=True), hier=h)
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    iters = int(info["iterations"])
+    print(f"[devsetup] n={n}: setup {cold['s']:.3f} s cold, {warm['s']:.3f} s "
+          f"warm ({n / warm['s']:.4g} rows/s warm), {warm['device_levels']} of "
+          f"{len(sizes)} levels built on the card, peak device memory "
+          f"{cold['peak_mem_gib']:.3f} GiB cold, {warm['peak_mem_gib']:.3f} warm; "
+          f"the two device builds bit-equal; sizes {sizes}; {iters} PCG "
+          f"iterations, true relres {relres:.3e}")
+    del h
+    torch.cuda.empty_cache()
+    host, hh = host_route("devsetup", A, cfg, dev, sizes, iters)
+    del hh
+    if warm["device_levels"] != DEVSETUP_DEVICE_LEVELS:
+        raise AssertionError(f"devsetup: {warm['device_levels']} levels built "
+                             f"on the card, expected {DEVSETUP_DEVICE_LEVELS}")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"devsetup: true relres {relres} > {MAX_RELRES}")
+    if len(host["sizes"]) != len(sizes) or host["iters"] != iters:
+        raise AssertionError(f"devsetup: {len(sizes)} levels and {iters} "
+                             f"iterations, the host route {len(host['sizes'])} "
+                             f"and {host['iters']}")
+    return {"n": n, "setup_cold_s": cold["s"], "setup_warm_s": warm["s"],
+            "setup_rows_per_s": n / warm["s"],
+            "device_levels": warm["device_levels"], "levels": len(sizes),
+            "setup_parts": {k: warm[k] for k in SETUP_PARTS},
+            "sizes": sizes, "peak_mem_gib": max(cold["peak_mem_gib"],
+                                                warm["peak_mem_gib"]),
+            "iters": iters, "relres": relres, "host_route": host}
 
 
 def clear_alg128_counts() -> None:
@@ -1908,7 +2147,10 @@ def sharded_excess(rec: dict, shapes: list) -> None:
 
 def setup_four_rank_hierarchy(dev):
     """The shuffled 96^3 hierarchy padded for ADIST_RANKS ranks, with its
-    unpadded level sizes checked against the reference's."""
+    unpadded level sizes checked against the reference's.  Every level is
+    built on the host (threshold 2**20): the reference builds a sharded
+    hierarchy's device levels with parallel/dist_setup.py, which is not
+    ported yet."""
     from raptor_tpu_torch import AmgConfig, setup
 
     t0 = time.perf_counter()
@@ -1970,11 +2212,15 @@ def main() -> None:
     launch_counts = {"K1": k1, "K2": k2, **counts48}
     alg48["excess_ms"] = banded_excess("alg48", rec, rows48, "shapes_48")
     clear_banded_counts()
-    alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False,
-                                 host_setup_threshold=2**20)
+    alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False)
     alg96["launches"], rows96 = banded_proof("alg96")
     phase_banded_96(dev, h96, rec)
     alg96["excess_ms"] = banded_excess("alg96", rec, rows96, "shapes_96")
+    # after the proof and the kernel checks: the host route's launches stay
+    # out of the path's counts
+    alg96["host_route"] = host_route("alg96", shuffled_poisson(96),
+                                     AmgConfig(**ALG_CFG), dev,
+                                     alg96["sizes"], alg96["iters"])[0]
 
     # the plane mode: its own counts, K1's hybrid shapes after the proof,
     # and its hierarchy freed before the sharded phases
@@ -1985,10 +2231,12 @@ def main() -> None:
     alg128["launches_by_shape"] = rows128
     phase_hybrid_kernels(dev, h128, rec, rows128)
     alg128["k1_excess_ms"] = rec["K1"]["excess_alg128_ms"]
+    alg128["host_route"] = phase_alg128_host(dev, h128, alg128["iters"])
     del h128
     torch.cuda.empty_cache()
     alg128["phase_s"] = time.perf_counter() - t_alg128
-    print(f"[alg128] phases 9a-9c: {alg128['phase_s']:.1f} s")
+    print(f"[alg128] phases 9a-9d: {alg128['phase_s']:.1f} s")
+    devsetup = phase_devsetup(dev)
 
     rec.update(phase_halo_kernels(dev))
     sdist = phase_sdist_one_rank(dev)
@@ -2016,7 +2264,7 @@ def main() -> None:
     adist4["sharded_kernels"] = {k: rec[k] for k in ("K4-halo", "K6-map_cols")}
 
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
-                      "alg128": alg128, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
+                      "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",

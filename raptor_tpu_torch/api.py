@@ -1,8 +1,10 @@
 """User-facing API of the algebraic engine: ``setup`` + ``solve``.
 
 Counterpart of ``raptor_tpu/api.py``.  ``setup`` builds the hierarchy on
-the host (NumPy) and moves it to ``device`` once; ``solve`` runs PCG (or
-the df64-refined PCG) on that device.  The reference runs a whole solve as
+``device``: the levels above ``AmgConfig.host_setup_threshold`` with
+tensors there, the smaller ones on the host in NumPy, the whole moved to
+``device`` once at the end; ``solve`` runs PCG (or the df64-refined PCG)
+on that device.  The reference runs a whole solve as
 one jitted program with ``lax.while_loop``s; here the loops are Python,
 with one host read per PCG iteration and one per refinement round.
 
@@ -53,12 +55,14 @@ BANDED_MIN_N = 2048
 
 def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, *,
           device) -> Hierarchy:
-    """Build the AMG hierarchy on the host and move it to ``device``."""
+    """Build the AMG hierarchy on ``device``: levels with n above
+    ``config.host_setup_threshold`` on the device, the rest on the host,
+    then the whole hierarchy moved to ``device``."""
     check_ported(config)
     if config.fine_layout == "banded":
-        hier = _setup_banded(A, config, dtype)
+        hier = _setup_banded(A, config, dtype, device)
     else:
-        hier = build_hierarchy(A, config, dtype=dtype)
+        hier = build_hierarchy(A, config, dtype=dtype, device=device)
     hier = hier.to(device)
     if config.tail_max_n > 0:
         hier = materialize_tail(hier, config.tail_max_n)
@@ -127,7 +131,7 @@ def _detect_grid(coo, n: int, iso_ratio: float = 8.0) -> "list | None":
     return None
 
 
-def _setup_banded(A, config: AmgConfig, dtype) -> Hierarchy:
+def _setup_banded(A, config: AmgConfig, dtype, device) -> Hierarchy:
     """fine_layout='banded': choose the ordering and each level's layout
     from the input's structure, build the hierarchy in that one ordering
     with 1024-aligned padding, and attach the layouts to every large level.
@@ -137,7 +141,10 @@ def _setup_banded(A, config: AmgConfig, dtype) -> Hierarchy:
     Plane mode (the entries sit on a few dense diagonals): keep the given
     ordering, geo-split when the grid is detected, and lay every
     plane-structured level as DIA planes (``HybridMatrix``).  Otherwise RCM
-    the input once and attach the banded layouts."""
+    the input once and attach the banded layouts.  Levels above the host
+    threshold are built on ``device``; the layouts are planned on the
+    host from every level's arrays (``_np``), and a device geo level
+    arrives with its planes and ``GeoTransfer`` from the chain."""
     import scipy.sparse as sp
 
     from raptor_tpu_torch.core.hybrid import (banded_from_ell, hybrid_from_ell,
@@ -170,7 +177,8 @@ def _setup_banded(A, config: AmgConfig, dtype) -> Hierarchy:
                and config.smoother != "mcgs") else None)
     # row_ids=p: PMIS weights key on original row ids, so the C/F sets (and
     # the Krylov iteration counts) equal those of the unpermuted build
-    hier = build_hierarchy(E, cfg, dtype=dtype, row_ids=p, geo=geo)
+    hier = build_hierarchy(E, cfg, dtype=dtype, row_ids=p, geo=geo,
+                           device=device)
 
     levels = []
     for lev in hier.levels:

@@ -6,7 +6,8 @@ in vectorized NumPy over the identical entry-major ELL layout, with the same
 integer PMIS weights, so C/F splittings are bit-identical and interpolation
 and RAP values agree to fp32 rounding.  ``build_hierarchy`` hands every
 level with ``n <= AmgConfig.host_setup_threshold`` to ``host_build_tail``,
-geo-split levels included.
+geo-split levels included; the levels above it come from the device
+route.
 
 Not ported yet (it raises ``NotImplementedError``): aggressive coarsening.
 """
@@ -411,7 +412,7 @@ def _geo_level(data, colsA, nnz, smask, geo: list, n: int, n_pad: int):
 
 
 def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
-                    row_ids=None, geo: list | None = None):
+                    row_ids=None, geo: list | None = None, ahyb0=None):
     """Finish a hierarchy on the host: called by ``build_hierarchy`` once
     the level size drops to ``config.host_setup_threshold``.  ``levels``
     holds the already-built levels; returns the complete Hierarchy with
@@ -419,7 +420,9 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
     invariant PMIS weights (see ``build_hierarchy``).  ``geo``: grid
     extents for geo-split levels; once they are exhausted, or a level among
     the first three has more than n/10 weakly coupled F rows along the
-    coarsened dimension, the remaining levels take the PMIS route."""
+    coarsened dimension, the remaining levels take the PMIS route.
+    ``ahyb0``: the DIA planes (``HybridMatrix``) of ``A`` from the device
+    geo chain; the first level built here takes them as its ``Ahyb``."""
     from raptor_tpu_torch.core.hybrid import GeoTransfer
     from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level, _bucket8
 
@@ -515,7 +518,8 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
         tg = None if geo_w is None else GeoTransfer(
             wm=geo_w[0].astype(dtype), wp=geo_w[1].astype(dtype),
             meta=(*geo_w[2], nc_pad))
-        out.append((A, dinv, P, R, color, lmax, n, ncolors, tg))
+        hyb, ahyb0 = ahyb0, None  # the chain's planes go to the first level
+        out.append((A, dinv, P, R, color, lmax, n, ncolors, tg, hyb))
         A = _pad_K(ell_from_csr(Ac_csr, dtype=dtype,
                                 row_pad_multiple=config.pad_multiple),
                    _bucket8(int(np.diff(Ac_csr.indptr).max(initial=1))))
@@ -534,10 +538,10 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
     mtrue = min(pad_rows(n, 8), A.n_rows_pad)
     inv = np.eye(A.n_rows_pad, dtype=data.dtype)
     inv[:mtrue, :mtrue] = np.linalg.inv(dense[:mtrue, :mtrue])
-    out.append((A, dinv, None, None, color, lmax, n, ncolors, None))
+    out.append((A, dinv, None, None, color, lmax, n, ncolors, None, ahyb0))
 
-    for (Ah, dinv_h, Ph, Rh, color_h, lmax_h, n_h, ncol_h, tg_h) in out:
+    for (Ah, dinv_h, Ph, Rh, color_h, lmax_h, n_h, ncol_h, tg_h, hyb_h) in out:
         levels.append(Level(A=Ah, dinv=dinv_h, P=Ph, R=Rh, color=color_h,
                             cheb_lmax=lmax_h, n=n_h, ncolors=ncol_h,
-                            Tgeo=tg_h))
+                            Tgeo=tg_h, Ahyb=hyb_h))
     return Hierarchy(levels=tuple(levels), coarse_inv=inv, config=config)

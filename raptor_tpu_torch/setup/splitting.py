@@ -1,21 +1,32 @@
-"""C/F splitting helpers on the host: PMIS tie-break permutations and the
-serial Ruge-Stüben splitting.
+"""C/F splittings: PMIS on the device and the serial Ruge-Stüben
+splitting on the host.
 
-Counterpart of the NumPy part of ``raptor_tpu/setup/splitting.py``.  PMIS
-weights are exact integers, ``w_i = min(lambda_i, 63) * n_pad + perm_i``,
-with ``perm`` drawn from NumPy's ``default_rng``, so the C/F sets are the
-reference's bit for bit.  The jitted device PMIS waits for the device-level
-setup.
+Counterpart of ``raptor_tpu/setup/splitting.py``.  PMIS weights are exact
+integers, ``w_i = min(lambda_i, 63) * n_pad + perm_i``, with ``perm`` drawn
+from NumPy's ``default_rng`` (never torch's generator), so the C/F sets are
+the reference's bit for bit.  ``pmis_splitting`` runs its Luby rounds as
+tensor ops on the matrix's device, one host read per round.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from raptor_tpu_torch.core.ell import EllMatrix
 
 __all__ = ["UNDECIDED", "C_PT", "F_PT", "make_perm_np", "make_perm_ids_np",
-           "rs_splitting_host"]
+           "make_perm", "make_perm_ids", "splitting_weights",
+           "pmis_splitting", "rs_splitting_host"]
 
 UNDECIDED, C_PT, F_PT = 0, 1, 2
+
+# w = min(lam, 63) * n_pad + perm stays exact in int32 only while
+# 64 * n_pad < 2^31; int64 beyond
+_MAX_INT32_ROWS = (2**31) // 64
+
+# the reference's cap on PMIS rounds
+_MAX_PMIS_ROUNDS = 1000
 
 
 def make_perm_np(n: int, n_pad: int, seed: int = 0) -> np.ndarray:
@@ -38,6 +49,62 @@ def make_perm_ids_np(ids: np.ndarray, n_pad: int, seed: int = 0) -> np.ndarray:
     perm[:n] = base[rank]
     perm[n:] = np.arange(n, n_pad)
     return perm
+
+
+def make_perm(n: int, n_pad: int, seed: int = 0, *, device) -> torch.Tensor:
+    """``make_perm_np`` as an int32 tensor on ``device``."""
+    return torch.from_numpy(make_perm_np(n, n_pad, seed)).to(device)
+
+
+def make_perm_ids(ids: np.ndarray, n_pad: int, seed: int = 0, *,
+                  device) -> torch.Tensor:
+    """``make_perm_ids_np`` as an int32 tensor on ``device``."""
+    return torch.from_numpy(make_perm_ids_np(ids, n_pad, seed)).to(device)
+
+
+def splitting_weights(lam: torch.Tensor, perm: torch.Tensor,
+                      n_pad: int) -> torch.Tensor:
+    """Exact total-order MIS weights ``min(lam, 63) * n_pad + perm``: int32
+    up to ``_MAX_INT32_ROWS`` rows, int64 beyond."""
+    dt = torch.int32 if n_pad <= _MAX_INT32_ROWS else torch.int64
+    return lam.clamp(max=63).to(dt) * n_pad + perm.to(dt)
+
+
+def pmis_splitting(A: EllMatrix, smask: torch.Tensor,
+                   perm: torch.Tensor) -> torch.Tensor:
+    """PMIS C/F splitting on A's device.  Returns (n_pad,) int32 in {C_PT,
+    F_PT} (UNDECIDED only if the round cap is hit).  Each round: an
+    undecided point whose weight beats every undecided strong neighbour
+    (both directions) becomes C, then the undecided strong neighbours of C
+    become F."""
+    from raptor_tpu_torch.setup.strength import strong_transpose_counts
+
+    n = A.n_rows_pad
+    dev = A.data.device
+    lam = strong_transpose_counts(A, smask)
+    w = splitting_weights(lam, perm, n)
+    cols = A.cols.long()
+    tgt = torch.where(smask, cols, n).reshape(-1)  # n = the dump slot
+    iso = ~smask.any(0) & (lam == 0)
+    cf = torch.where(iso, F_PT, UNDECIDED).to(torch.int32)
+    it = 0
+    while it < _MAX_PMIS_ROUNDS and bool((cf == UNDECIDED).any()):
+        und = cf == UNDECIDED
+        w_und = torch.where(und, w, -1)
+        # max undecided-neighbour weight over S_i (deps) and S^T_i (dependents)
+        row_part = torch.where(smask, w_und[cols], -1).amax(0)
+        edge_w = torch.where(smask, w_und[None, :], -1).reshape(-1)
+        col_part = torch.full((n + 1,), -1, dtype=w.dtype, device=dev)
+        col_part = col_part.scatter_reduce_(0, tgt, edge_w, "amax")[:n]
+        cf = torch.where(und & (w > torch.maximum(row_part, col_part)), C_PT, cf)
+        c = cf == C_PT
+        c_row = (smask & c[cols]).any(0)
+        edge_c = (smask & c[None, :]).to(torch.int32).reshape(-1)
+        c_col = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        c_col = c_col.scatter_reduce_(0, tgt, edge_c, "amax")[:n] > 0
+        cf = torch.where((cf == UNDECIDED) & (c_row | c_col), F_PT, cf)
+        it += 1
+    return cf
 
 
 def rs_splitting_host(S_csr) -> np.ndarray:

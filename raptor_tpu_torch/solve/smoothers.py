@@ -5,6 +5,8 @@ Counterpart of ``raptor_tpu/solve/smoothers.py``.  Vectors may carry a
 leading batch dimension (B, n): ``solve/cycle.materialize_tail`` smooths
 every identity column at once.  ``x0_zero`` asserts x == 0 on entry, so the
 first residual is exactly ``b`` and one operator apply is saved.
+``estimate_lmax`` gives the Chebyshev smoothers their eigenvalue bound on
+levels built on the device.
 
 Multicolor and two-stage Gauss-Seidel and the block smoothers are not
 ported yet (``NOT_PORTED``).
@@ -17,7 +19,7 @@ import torch
 from raptor_tpu_torch.core.ell import EllMatrix
 from raptor_tpu_torch.ops.sparse_ops import spmv
 
-__all__ = ["jacobi", "chebyshev", "chebyshev4", "NOT_PORTED"]
+__all__ = ["jacobi", "chebyshev", "chebyshev4", "estimate_lmax", "NOT_PORTED"]
 
 # the reference's other smoothers; setup and the cycle raise for them
 NOT_PORTED = ("mcgs", "tsgs", "block_jacobi", "block_cheb")
@@ -72,3 +74,18 @@ def chebyshev4(A: EllMatrix, dinv, b, x, lmax, degree: int = 3,
         ) * (dinv * r)
         x = x + d
     return x
+
+
+def estimate_lmax(A: EllMatrix, dinv, iters: int = 40,
+                  safety: float = 1.1) -> torch.Tensor:
+    """Largest eigenvalue of D^{-1}A by ``iters`` rounds of power iteration
+    from the deterministic start ``sin(0.7511 i) + 0.01``, times
+    ``safety`` (0-d tensor on A's device, no host read)."""
+    i = torch.arange(A.n_rows_pad, dtype=A.dtype, device=A.data.device)
+    v = torch.sin(i * 0.7511) + 0.01
+    v = v / torch.linalg.norm(v)
+    for _ in range(iters):
+        w = dinv * spmv(A, v)
+        v = w / torch.linalg.norm(w)
+    w = dinv * spmv(A, v)
+    return safety * torch.dot(v, w) / torch.dot(v, v)

@@ -339,7 +339,10 @@ def test_not_yet_ported_raises(case):
     A = shuffled_poisson(8)
     cfg = dict(splitting="pmis", smoother="cheb4")
     if case == "device_levels":
-        cfg = dict(cfg, host_setup_threshold=100)
+        # fat-level Jacobi refinement on a device level (its level 1 is
+        # wider than EXT_DEVICE_MAX_K)
+        cfg = dict(cfg, host_setup_threshold=100, interp="extended",
+                   fat_interp_refine=1)
     elif case == "cljp":
         cfg = dict(cfg, splitting="cljp")
     elif case == "aggregation":
