@@ -33,9 +33,11 @@ Phases, each of which raises on failure (there is no CPU path):
    built on the card by the device route (PMIS, direct interpolation,
    SpGEMM Galerkin products), checked to hold CUDA tensors just before the
    hierarchy is moved, peak device memory printed; the same proof on its
-   own counts; then K4 on every banded level and K6 on level 0 of the 96^3
-   hierarchy against their plain versions, K4 timed at each; then the host
-   route's build and refined-solve iterations beside the device route's;
+   own counts; then K4 on every banded level, K6 on every banded P and R
+   and K5 on level 0 of the 96^3 hierarchy against their plain versions,
+   each timed, every launch shape of the path among those compared; then
+   the host route's build and refined-solve iterations beside the device
+   route's;
 9a. the algebraic engine's plane mode (the reference bench's alg128 row):
     natural-ordered 128^3 Poisson as scipy CSR with no grid information ->
     api.setup (PMIS, extended interpolation, fine_layout 'banded', cheb4
@@ -101,7 +103,56 @@ Phases, each of which raises on failure (there is no CPU path):
     gathered x passes the host fp64 check, its iterations are one rank's
     +- 1, and TAPS equals the flat solve on the ELL route exactly (its
     extended vectors are the flat ones'); comm_report's halo bytes and the
-    messages per V-cycle of each exchange, from the host plans.
+    messages per V-cycle of each exchange, from the host plans;
+18. the acceptance rows at the reference bench's sizes and settings
+    (bench.py:394-470): config1 poisson_2d(64), config2 poisson_3d(32),
+    config3 anisotropic_2d(96), config4 elasticity_3d(48) (324,864 rows,
+    host_setup_threshold 400000, its rigid body modes), config5
+    poisson_3d(64), nonsym_gmres convection_diffusion_2d(128) with PMIS +
+    Jacobi and refined GMRES; api.setup + api.solve (refined, tol 1e-8)
+    with b = ones; n, level sizes, iterations, true fp64 relres, setup and
+    solve seconds; checked: true relres <= 1e-8 and iterations <= the
+    reference's count + 1 (CONFIG_ITERS, BENCH_r05.json "cfg"; config3
+    against its fence, 32).  The rows use the ELL layout, as the
+    reference's do, and launch no hand-written kernel;
+19. config 4's preset, unchanged, at 324,864 rows: the default threshold
+    sends it through the device SA route, every level checked to hold CUDA
+    tensors before Hierarchy.to, peak device memory printed; checked: every
+    level size equal to the host route's built with the device route's
+    lambda_max estimate (host_build_sa_hierarchy with gershgorin_rows
+    math.inf: the host route takes the Gershgorin bound at >= 65536 rows, as
+    the reference's does, its device route the power iteration; tests/
+    test_torch_sa_routes.py shows the reference's two routes split so),
+    levels 0-1 equal to phase 18's, the sizes equal to the regression pin
+    CONFIG4_DEVICE_SIZES_PIN, iterations within 3 of phase 18's (the
+    reference's fence, tests/unit/test_aggregation.py:124-151);
+20. config 3's preset at full width, anisotropic_2d(768) (589,824 rows):
+    level 0 aggressive on the card, the rest on the host; beside it the
+    host route; checked: equal level sizes, iterations within 1 of each
+    other, true relres <= 1e-8 on both;
+21. the mcgs path at full width: shuffled 96^3 with config 5's preset and
+    fine_layout 'banded', levels 0-1 built on the card and coloured on the
+    host; colours per level, V-cycle ms and its profile; the refined solve
+    (true <= 1e-8) on counts set to 0 just before it: K4, K5 and K6 each
+    launched, once for each CUDA call of their kind; the host route's
+    iterations beside it; then dist_solve on one rank over NCCL with mcgs
+    (+-1 of solve_hier on the same hierarchy) and with tsgs (printed beside
+    the single-device tsgs count: its inner series is processor-local),
+    tol 1e-6, true <= 1e-5, every sharded A apply launching K4's halo form;
+    after the proofs, K4 (fp32, and bf16 on level 0), K6 and K5 on every
+    banded operator of the hierarchy and K4's halo form on every tile shape
+    of the one-rank solves, each against its plain version bit for bit,
+    and every launch shape of the paths among those compared;
+22. four ranks sharing the card over gloo at shuffled 48^3 with config 5's
+    preset, fine_layout 'banded' and pad_multiple 4096 (host-built until
+    parallel/dist_setup.py is ported): each rank runs dist_solve with mcgs
+    and must launch K4's halo form, and K6's map_cols form where a transfer
+    shards; rank 0's gathered x passes the host fp64 check, its iterations
+    are the single-device solve_hier's on the same hierarchy +- 1; then
+    K4's halo form and K6's map_cols form on rank 0's and the last rank's
+    tiles of every operator the ranks shard, bit for bit, every launch
+    shape of the four ranks among those compared.
+    Phases 18-22 print their wall seconds.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -112,7 +163,10 @@ TFLOP/s (H100 SXM, NVIDIA's data sheet).
 
 The line before the last is the kernels' JSON record (K1, K1v1, K2, K3, K4,
 K5, K6, and the sharded forms K4-halo and K6-map_cols, each with the
-launches of its own path); the last line is
+launches of its own paths: K4, K5 and K6 those of the 48^3 row and of
+phase 21's refined solve, K4-halo those of rank 0 of phase 17, of phase
+21's two one-rank solves and of rank 0 of phase 22, K6-map_cols those of
+rank 0 of phases 17 and 22); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -124,6 +178,7 @@ import dataclasses
 import importlib
 import itertools
 import json
+import math
 import subprocess
 import time
 import warnings
@@ -192,6 +247,20 @@ FP32_OPS_PER_S = 67e12
 # fp32 operations per stored entry in banded_df64_kernel: two_prod 11 and
 # df_add 14, and with vals_lo its term, 2 more (csrc/banded_kernel.cu)
 K5_OPS_PER_ENTRY = {False: 25, True: 27}
+# the acceptance rows (bench.py:394-470): the reference's refined-solve
+# iterations at these sizes, BENCH_r05.json's "cfg" (config3's fence is
+# its own, 32); config 3 at full width is anisotropic_2d(CONFIG3_FULL_N)
+CONFIG_ITERS = {"config1": 10, "config2": 11, "config3": 30, "config4": 23,
+                "config5": 14, "nonsym_gmres": 45}
+CONFIG3_FENCE = 32
+# a regression pin, not a reference: the level sizes config 4's device SA
+# route gave on an H100 80GB HBM3.  Phase 19's check that matters is
+# against the host route built with the device route's lambda_max
+# estimate, in the same run
+CONFIG4_DEVICE_SIZES_PIN = [324864, 17646, 960, 66, 6]
+CONFIG3_FULL_N = 768
+# phase 22: the four-rank mcgs solve's shuffled grid
+MCGS4_N = 48
 
 
 def stencil_7pt() -> np.ndarray:
@@ -800,6 +869,10 @@ def device_route(tag: str, threshold: int, out: dict):
                 leaves.append(lv.Ahyb.planes)
             if lv.Tgeo is not None:
                 leaves += [lv.Tgeo.wm, lv.Tgeo.wp]
+            if lv.Abell is not None:
+                leaves += [lv.Abell.data, lv.Abell.cols, lv.binv]
+            if lv.color is not None:
+                leaves.append(lv.color)
             if not all(isinstance(t, torch.Tensor) and t.is_cuda
                        for t in leaves):
                 raise AssertionError(f"[{tag}] level {i} (n={lv.n}) is above "
@@ -829,15 +902,19 @@ def device_route(tag: str, threshold: int, out: dict):
 SETUP_PARTS = ("before_tail_s", "host_tail_s", "layouts_s", "upload_s")
 
 
-def timed_setup(tag: str, A, cfg, dev) -> tuple:
+def timed_setup(tag: str, A, cfg, dev, B=None, every_level: bool = False) -> tuple:
     """api.setup on the card under ``device_route``: (hierarchy, record
-    with seconds, levels built on the device and peak memory)."""
+    with seconds, levels built on the device and peak memory).  ``B``: the
+    near-nullspace candidates of a smoothed-aggregation setup;
+    ``every_level``: check every level, not only those above the host
+    threshold (the device SA route builds them all)."""
     from raptor_tpu_torch import setup
 
     rec = {}
     t0 = time.perf_counter()
-    with device_route(tag, cfg.host_setup_threshold, rec):
-        h = setup(A, cfg, device=dev)
+    with device_route(tag, -1 if every_level else cfg.host_setup_threshold,
+                      rec):
+        h = setup(A, cfg, B=B, device=dev)
     rec["s"] = time.perf_counter() - t0
     print(f"[{tag}] setup {rec['s']:.3f} s: {rec['before_tail_s']:.3f} s "
           f"ordering, ELL conversion and the {rec['device_levels']} levels "
@@ -1015,20 +1092,23 @@ def clear_banded_counts() -> None:
     hybrid.cuda_calls.clear()
 
 
-def phase_banded_96(dev, h, rec) -> None:
+def phase_banded_shapes(dev, tag: str, h, A, rec, rows: list, key: str) -> None:
     """K4 on every banded level, K6 on every P and R and K5 on level 0 of
-    the 96^3 hierarchy against their plain versions, bit for bit (after the
-    proof, so these launches stay out of its counts); each shape timed
-    (``shapes_96``), K4's level 0 also with bf16 values."""
+    ``h`` (the hierarchy of ``A``) against their plain versions, bit for
+    bit (after the path's proof, so these launches stay out of its
+    counts); each shape timed (rec[kernel][key]), K4's level 0 also with
+    bf16 values.  Every (kernel, n, K, dtype) the path launched (``rows``
+    of banded_proof) must be among the compared shapes."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     rng = np.random.default_rng(4)
+    compared = set()
 
     def vec(n):
         return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
 
     for k in ("K4", "K5", "K6"):
-        rec[k]["shapes_96"] = {}
+        rec[k][key] = {}
     for i, lv in enumerate(h.levels):
         if lv.Aband is None:
             continue
@@ -1038,14 +1118,15 @@ def phase_banded_96(dev, h, rec) -> None:
             plans.append((dict(a, vals=a["vals"].bfloat16()), "torch.bfloat16"))
         for plan, dtype in plans:
             x = vec(plan["n"])
-            name = (f"K4 96^3 L{i} A K {plan['K']} kh {plan['kh']} npage "
+            name = (f"K4 {tag} L{i} A K {plan['K']} kh {plan['kh']} npage "
                     f"{plan['npage']} {dtype}")
             rec["K4"]["err"] = max(rec["K4"]["err"], _equal(
                 name, bk.banded_spmv(plan, x), bk.banded_spmv_ref(plan, x)))
+            compared.add(("K4", plan["n"], plan["K"], dtype.removeprefix("torch.")))
             line = _banded_line(dev, name, plan, lambda: bk.banded_spmv(plan, x))
             if dtype == "torch.float32":
-                rec["K4"]["shapes_96"][(plan["n"], plan["K"])] = line
-            if i == 0 and dtype == "torch.float32":
+                rec["K4"][key][(plan["n"], plan["K"])] = line
+            if i == 0 and dtype == "torch.float32" and key == "shapes_96":
                 plain = cuda_ms(lambda: bk.banded_spmv_ref(plan, x))
                 print(f"[banded] K4 96^3 L0 A: {line[0] * 1e3:.1f} us kernel "
                       f"({_banded_bytes(plan, 4) / line[0] / 1e9:.3f} TB/s), "
@@ -1057,15 +1138,27 @@ def phase_banded_96(dev, h, rec) -> None:
                 continue
             r = band.plan()
             xr = vec(r["n_cols"])
-            name = f"K6 96^3 L{i} {nm} K {r['K']} npage {r['npage']}"
+            name = f"K6 {tag} L{i} {nm} K {r['K']} npage {r['npage']}"
             rec["K6"]["err"] = max(rec["K6"]["err"], _equal(
                 name, bk.banded_spmv_rect(r, xr), bk.banded_spmv_rect_ref(r, xr)))
-            rec["K6"]["shapes_96"][(r["n"], r["K"])] = _banded_line(
+            compared.add(("K6", r["n"], r["K"], "float32"))
+            rec["K6"][key][(r["n"], r["K"])] = _banded_line(
                 dev, name, r, lambda: bk.banded_spmv_rect(r, xr))
-    err, k5 = _k5_case(dev, h, shuffled_poisson(96), rng)
+    err, k5 = _k5_case(dev, h, A, rng)
     rec["K5"]["err"] = max(rec["K5"]["err"], err)
-    rec["K5"]["shapes_96"][k5["shape"]] = (k5["ms"], k5["cold_ms"],
-                                           k5["bound_ms"])
+    rec["K5"][key][k5["shape"]] = (k5["ms"], k5["cold_ms"], k5["bound_ms"])
+    compared.add(("K5", *k5["shape"], "float32"))
+    covered(tag, rows, compared)
+
+
+def covered(tag: str, rows: list, compared: set) -> None:
+    """Raise unless every (kernel, n, K, dtype) of a path's launches by
+    shape (``rows``) was held against its plain version."""
+    missed = [r[:4] for r in rows if tuple(r[:4]) not in compared]
+    print(f"[kernel] {tag}: {len(rows) - len(missed)} of the path's {len(rows)} "
+          f"launch shapes compared bit for bit")
+    if missed:
+        raise AssertionError(f"{tag}: launch shapes never compared: {missed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1684,24 +1777,28 @@ def ell_block_csr(E, r0: int, r1: int, shift: int, n_cols: int, dev):
     return host_csr(a, a.shape, dev)
 
 
-def sharded_cases(h, ndev: int) -> list:
+def sharded_cases(h, ndev: int, every: bool = True) -> list:
     """(kernel, label, rank, local plan, buffer length, map_cols, ELL
     operator, first row, column shift) for rank 0's and the last rank's
     tiles of every operator the sharded path runs through K4's halo form
     or K6's map_cols form: as dist_banded_spmv and dist_rect_banded_spmv
-    call them."""
+    call them.  With ``every``, raises if an operator of a sharded level
+    does not shard that way; else skips it (the path takes ELL there)."""
     from raptor_tpu_torch.parallel.dist import _shardable_band, _shardable_rect
 
     t = n_sharded(h)
+    ranks = sorted({0, ndev - 1})
     out = []
     for k in range(t):
         lev = h.levels[k]
         B = _shardable_band(lev.Aband, ndev)
+        if B is None and not every:
+            continue
         if B is None:
             raise AssertionError(f"L{k}'s banded A does not shard over {ndev}")
         K, n, tile, kh, npage, Wp = B.meta
         nl, hw = n // ndev, kh * tile
-        for rank in (0, ndev - 1):
+        for rank in ranks:
             tiles = slice(rank * nl // tile, (rank + 1) * nl // tile)
             plan = dict(B.plan(), n=nl, vals=B.vals[tiles].contiguous(),
                         pidx=B.pidx[tiles].contiguous())
@@ -1713,11 +1810,13 @@ def sharded_cases(h, ndev: int) -> list:
         for name, band, E, rows, cols in (("R", lev.Rband, lev.R, nc, nf),
                                           ("P", lev.Pband, lev.P, nf, nc)):
             B = _shardable_rect(band, ndev, rows, cols)
+            if B is None and not every:
+                continue
             if B is None:
                 raise AssertionError(f"L{k}'s banded {name} does not shard")
             K, n, n_cols, tile, WpP, npage = B.meta
             nl, cl = n // ndev, n_cols // ndev
-            for rank in (0, ndev - 1):
+            for rank in ranks:
                 tiles = slice(rank * nl // tile, (rank + 1) * nl // tile)
                 length = cl + npage * 1024
                 plan = dict(B.plan(), n=nl, n_cols=length, WpP=0,
@@ -1749,10 +1848,7 @@ def phase_sharded_kernels(dev, h4) -> dict:
             fn = lambda: bk.banded_spmv_rect(plan, x, map_cols=map_cols)  # noqa: E731
             ref = lambda: bk.banded_spmv_rect_ref(plan, x, map_cols=map_cols)  # noqa: E731
         name = f"{kern} {ADIST_N}^3 {label} rank {rank} n={plan['n']} K {plan['K']}"
-        y, y_ref = fn(), ref()
-        err = _check(name, y, y_ref)
-        if not torch.equal(y, y_ref):
-            raise AssertionError(f"{name}: not bit-equal to its plain version")
+        err = _equal(name, fn(), ref())
         r = rec[kern]
         r["err"] = max(r["err"], err)
         live = len(bk.live_slots(plan))
@@ -1783,6 +1879,32 @@ def phase_sharded_kernels(dev, h4) -> dict:
               f"{r['cold_plain_ms'] * 1e3:.1f} us plain; bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
     return rec
+
+
+def sharded_equal(dev, tag: str, h, ndev: int, rec, shapes: list) -> None:
+    """K4's halo form and K6's map_cols form against their plain versions,
+    bit for bit, on rank 0's and the last rank's tiles of every operator
+    the sharded path of ``h`` over ``ndev`` ranks runs through them
+    (random buffers); every (kernel, n, K, dtype) the path launched
+    (``shapes``, launches by shape) must be among them."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    compared = set()
+    for kern, label, rank, plan, length, map_cols, *_ in sharded_cases(
+            h, ndev, every=False):
+        x = torch.randn(length, generator=gen, device=dev)
+        name = f"{kern} {tag} {label} rank {rank} n={plan['n']} K {plan['K']}"
+        if kern == "K4-halo":
+            y, y_ref = bk.banded_spmv_halo(plan, x), bk.banded_spmv_halo_ref(plan, x)
+        else:
+            y = bk.banded_spmv_rect(plan, x, map_cols=map_cols)
+            y_ref = bk.banded_spmv_rect_ref(plan, x, map_cols=map_cols)
+        rec[kern]["err"] = max(rec[kern]["err"], _equal(name, y, y_ref))
+        compared.add((kern, plan["n"], plan["K"],
+                      str(plan["vals"].dtype).removeprefix("torch.")))
+    covered(tag, shapes, compared)
 
 
 def clear_adist_counts() -> None:
@@ -2168,6 +2290,445 @@ def setup_four_rank_hierarchy(dev):
     return h
 
 
+# ---------------------------------------------------------------------------
+# the acceptance configurations (phases 18-22)
+# ---------------------------------------------------------------------------
+
+def _config_problem(name: str):
+    """(A, B) of an acceptance row at the reference bench's size
+    (bench.py:409-419)."""
+    from raptor_tpu_torch.gallery import (anisotropic_2d, convection_diffusion_2d,
+                                          elasticity_3d, poisson_2d, poisson_3d)
+
+    gens = {"config1": lambda: (poisson_2d(64), None),
+            "config2": lambda: (poisson_3d(32), None),
+            "config3": lambda: (anisotropic_2d(96), None),
+            "config4": lambda: elasticity_3d(48)[:2],
+            "config5": lambda: (poisson_3d(64), None),
+            "nonsym_gmres": lambda: (convection_diffusion_2d(128), None)}
+    return gens[name]()
+
+
+def _config_settings(name: str):
+    """(AmgConfig, SolveConfig) of an acceptance row (bench.py:420-432)."""
+    from raptor_tpu_torch import PRESETS, AmgConfig, SolveConfig
+
+    cfgs = {"config4": dataclasses.replace(PRESETS["config4"],
+                                           host_setup_threshold=400000),
+            "nonsym_gmres": AmgConfig(splitting="pmis", smoother="jacobi")}
+    krylov = "gmres" if name == "nonsym_gmres" else "cg"
+    return (cfgs.get(name) or PRESETS[name],
+            SolveConfig(tol=MAX_RELRES, refine=True, krylov=krylov))
+
+
+def _true_relres(A, x, b) -> float:
+    a64 = sp.csr_matrix(A).astype(np.float64)
+    return float(np.linalg.norm(b - a64 @ x) / np.linalg.norm(b))
+
+
+def _config_row(tag: str, A, B, cfg, sc, dev, every_level=False) -> tuple:
+    """api.setup (timed under device_route) and api.solve of one row with
+    b = ones, as the reference bench: (record, hierarchy)."""
+    from raptor_tpu_torch import solve
+
+    h, rec = timed_setup(tag, A, cfg, dev, B=B, every_level=every_level)
+    b = np.ones(A.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = solve(A, b, cfg, sc, hier=h)
+    solve_s = time.perf_counter() - t0
+    relres = _true_relres(A, x, b)
+    if x.shape != (A.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError(f"[{tag}] solution not finite or misshapen")
+    out = {"n": int(A.shape[0]), "sizes": [lv.n for lv in h.levels],
+           "iters": int(info["iterations"]), "relres": relres,
+           "certified": float(info["relres"]), "setup_s": rec["s"],
+           "solve_s": solve_s, "device_levels": rec["device_levels"],
+           "peak_mem_gib": rec["peak_mem_gib"],
+           "operator_complexity": info["stats"]["operator_complexity"]}
+    print(f"[{tag}] n {out['n']}, levels {out['sizes']}, {out['iters']} "
+          f"{sc.krylov} iterations, true fp64 relres {relres:.3e} (certified "
+          f"{out['certified']:.3e}), operator complexity "
+          f"{out['operator_complexity']:.3f}; setup {rec['s']:.3f} s "
+          f"({rec['device_levels']} levels on the card), solve {solve_s:.3f} s")
+    return out, h
+
+
+def phase_configs(dev) -> dict:
+    """Phase 18: the acceptance rows at the reference bench's sizes and
+    settings (bench.py:394-470): config1 poisson_2d(64), config2
+    poisson_3d(32), config3 anisotropic_2d(96), config4 elasticity_3d(48)
+    with host_setup_threshold 400000 and its rigid body modes, config5
+    poisson_3d(64), nonsym_gmres convection_diffusion_2d(128) with PMIS +
+    Jacobi and refined GMRES; each api.setup + api.solve (refined, tol
+    1e-8), true fp64 relres <= 1e-8 and iterations <= the reference's
+    BENCH_r05 count + 1 (config3: its fence, 32).  These rows use the ELL
+    layout, as the reference's do: they launch no hand-written kernel
+    (their operators, smoothers and transfers are plain torch)."""
+    out = {}
+    t_all = time.perf_counter()
+    for name, ref in CONFIG_ITERS.items():
+        t0 = time.perf_counter()
+        A, B = _config_problem(name)
+        cfg, sc = _config_settings(name)
+        row, _ = _config_row(name, A, B, cfg, sc, dev)
+        row["wall_s"] = time.perf_counter() - t0
+        limit = CONFIG3_FENCE if name == "config3" else ref + 1
+        print(f"[{name}] reference (BENCH_r05 cfg): {ref} iterations; "
+              f"limit {limit}; {row['wall_s']:.1f} s with the problem's build")
+        if not row["relres"] <= MAX_RELRES:
+            raise AssertionError(f"[{name}] true relres {row['relres']} > "
+                                 f"{MAX_RELRES}")
+        if not row["iters"] <= limit:
+            raise AssertionError(f"[{name}] {row['iters']} iterations "
+                                 f"(max {limit})")
+        out[name] = row
+    out["phase_s"] = time.perf_counter() - t_all
+    print(f"[configs] phase 18: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_config4_device(dev, host_row: dict) -> dict:
+    """Phase 19: config 4's preset, unchanged, at 324,864 rows: the
+    default threshold sends it through the device SA route, every level
+    built on the card (checked before Hierarchy.to).  The host route (phase
+    18) bounds lambda_max(D^-1 A), which sets the prolongator smoothing's
+    omega, by Gershgorin on levels of >= 65536 padded rows, as the
+    reference's host route does; the device route power-iterates, as the
+    reference's does.  So the check is against the host route built again
+    with the power iteration on every level: equal level sizes.  Also:
+    levels 0-1 equal phase 18's (they depend on A and B alone), the sizes
+    equal CONFIG4_DEVICE_SIZES_PIN, and the iterations are within 3 of
+    phase 18's (the reference's own fence, tests/unit/
+    test_aggregation.py:124-151)."""
+    from raptor_tpu_torch import PRESETS
+    from raptor_tpu_torch.setup.host_aggregation import host_build_sa_hierarchy
+
+    t0 = time.perf_counter()
+    A, B = _config_problem("config4")
+    _, sc = _config_settings("config4")
+    cfg = PRESETS["config4"]
+    row, h = _config_row("config4 device", A, B, cfg, sc, dev, every_level=True)
+    blocks = [lv.Abell is not None for lv in h.levels]
+    row["block_levels"] = sum(blocks)
+    del h
+    t1 = time.perf_counter()
+    power = host_build_sa_hierarchy(A, cfg, B=B, gershgorin_rows=math.inf)
+    row["host_power_sizes"] = [lv.n for lv in power.levels]
+    row["host_power_s"] = time.perf_counter() - t1
+    del power
+    row["wall_s"] = time.perf_counter() - t0
+    print(f"[config4 device] {row['device_levels']} levels built on the card, "
+          f"{row['block_levels']} with a BlockELL layout, peak device memory "
+          f"{row['peak_mem_gib']:.3f} GiB; host route with the power iteration "
+          f"on every level: sizes {row['host_power_sizes']} "
+          f"({row['host_power_s']:.1f} s); host route (phase 18): sizes "
+          f"{host_row['sizes']}, {host_row['iters']} iterations; phase 19: "
+          f"{row['wall_s']:.1f} s")
+    if row["device_levels"] != len(row["sizes"]):
+        raise AssertionError("config 4's levels were not all built on the card")
+    if (row["sizes"] != row["host_power_sizes"]
+            or row["sizes"][:2] != host_row["sizes"][:2]):
+        raise AssertionError(f"device SA sizes {row['sizes']}, host SA with "
+                             f"the power iteration {row['host_power_sizes']}, "
+                             f"host SA {host_row['sizes']}")
+    if row["sizes"] != CONFIG4_DEVICE_SIZES_PIN:
+        raise AssertionError(f"device SA sizes {row['sizes']}, pinned "
+                             f"{CONFIG4_DEVICE_SIZES_PIN}")
+    if abs(row["iters"] - host_row["iters"]) > 3:
+        raise AssertionError(f"device SA {row['iters']} iterations, host SA "
+                             f"{host_row['iters']}")
+    if not row["relres"] <= MAX_RELRES:
+        raise AssertionError(f"true relres {row['relres']} > {MAX_RELRES}")
+    return row
+
+
+def phase_config3_full(dev) -> dict:
+    """Phase 20: config 3's preset at full width, anisotropic_2d(768)
+    (n = 589,824): level 0 aggressive on the card (distance-2 PMIS,
+    multipass, Jacobi refinement, SpGEMM Galerkin product, filter), the
+    rest on the host; beside it the host route.  Level sizes equal on both
+    routes, refined-solve iterations within +-1, true relres <= 1e-8."""
+    from raptor_tpu_torch import PRESETS
+    from raptor_tpu_torch.gallery import anisotropic_2d
+
+    t0 = time.perf_counter()
+    A = anisotropic_2d(CONFIG3_FULL_N)
+    _, sc = _config_settings("config3")
+    cfg = PRESETS["config3"]
+    dev_row, _ = _config_row("config3 768 device", A, None, cfg, sc, dev)
+    host_row, _ = _config_row(
+        "config3 768 host", A, None,
+        dataclasses.replace(cfg, host_setup_threshold=HOST_ROUTE_THRESHOLD),
+        sc, dev)
+    wall = time.perf_counter() - t0
+    print(f"[config3 768] device route {dev_row['device_levels']} levels on "
+          f"the card: sizes {dev_row['sizes']}, {dev_row['iters']} iterations; "
+          f"host route: sizes {host_row['sizes']}, {host_row['iters']} "
+          f"iterations; phase 20: {wall:.1f} s")
+    if dev_row["device_levels"] < 1:
+        raise AssertionError("no level of config 3 was built on the card")
+    if dev_row["sizes"] != host_row["sizes"]:
+        raise AssertionError(f"device route sizes {dev_row['sizes']}, host "
+                             f"route {host_row['sizes']}")
+    if abs(dev_row["iters"] - host_row["iters"]) > 1:
+        raise AssertionError(f"device route {dev_row['iters']} iterations, "
+                             f"host route {host_row['iters']}")
+    for row in (dev_row, host_row):
+        if not row["relres"] <= MAX_RELRES:
+            raise AssertionError(f"true relres {row['relres']} > {MAX_RELRES}")
+    return {"device": dev_row, "host": host_row, "wall_s": wall}
+
+
+def _one_rank_gs(dev, h, A, smoother: str) -> dict:
+    """dist_solve on one rank over NCCL on ``h`` with ``smoother``, on the
+    counts set to 0 just before it: every CUDA sharded operator apply must
+    launch K4's halo form; its iterations, the single-device solve_hier's
+    on the same hierarchy and the true fp64 relres in the caller's
+    ordering."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.api import solve_hier
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.parallel import Ring, dist_solve, distribute_hierarchy
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    h = dataclasses.replace(h, config=dataclasses.replace(h.config,
+                                                          smoother=smoother))
+    n = A.shape[0]
+    pm = h.perm[:n].cpu().numpy()
+    b = default_rhs(n)
+    bd = pad_vector(b[pm].astype(np.float32), h.levels[0].A.n_rows_pad, device=dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        dh = distribute_hierarchy(h, ring, ADIST_TAIL)
+        clear_adist_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = dist_solve(dh, bd, ring, tol=ADIST_TOL, maxiter=200)
+        torch.cuda.synchronize()
+        sol = time.perf_counter() - t0
+        k4h, calls = bk.launches["K4-halo"], pdist.cuda_calls["dist_banded_spmv"]
+        shapes = by_shape(f"mcgs96 1 rank {smoother}", bk.launches_by_shape,
+                          ("K4-halo", "K6-map_cols", "K4", "K6"))
+        print(f"[proof] mcgs96 sharded {smoother}, 1 rank: {calls} CUDA sharded "
+              f"banded operator applies, {k4h} K4-halo launches")
+        if k4h != calls or calls == 0:
+            raise AssertionError(f"the one-rank sharded {smoother} path did not "
+                                 "run through K4's halo form")
+        routes = adist_routes(f"mcgs96 {smoother}", dh)
+    finally:
+        dist.destroy_process_group()
+    iters, certified = int(info.iterations), float(info.relres)
+    relres = caller_relres(A, x.double().cpu().numpy(), pm, b)
+    x1, info1 = solve_hier(h, bd, tol=ADIST_TOL, maxiter=200)
+    it1 = int(info1.iterations)
+    print(f"[mcgs96] dist_solve {smoother} on 1 rank (NCCL): {iters} PCG "
+          f"iterations in {sol:.3f} s, certified {certified:.3e}, true fp64 "
+          f"relres {relres:.3e}; single-device solve_hier {smoother}: {it1} "
+          f"iterations")
+    if not (certified <= ADIST_TOL and relres <= ADIST_MAX_TRUE):
+        raise AssertionError(f"certified {certified} (max {ADIST_TOL}), "
+                             f"true {relres} (max {ADIST_MAX_TRUE})")
+    return {"iters": iters, "single_device_iters": it1, "certified": certified,
+            "relres": relres, "solve_s": sol, "k4_halo_launches": k4h,
+            "routes": routes, "launches_by_shape": shapes}
+
+
+def phase_mcgs96(dev, krec) -> dict:
+    """Phase 21: the mcgs path at full width, shuffled 96^3 with config 5's
+    preset and fine_layout 'banded' (levels 0-1 built on the card by the
+    device route and coloured on the host, in each level's RCM ordering):
+    colours per level, V-cycle ms and a profile, the refined solve (true
+    <= 1e-8) on counts set to 0 just before it (K4, K5, K6 each launched,
+    once for each CUDA call of their kind), the host route's iterations
+    beside it; then dist_solve on one rank over NCCL with mcgs (+-1 of
+    solve_hier on the same hierarchy) and with tsgs (its inner series is
+    processor-local: printed beside the single-device tsgs count), each
+    launching K4's halo form for every sharded A apply; after the proofs,
+    every launch shape of these paths against its plain version (errors
+    folded into the kernels' records ``krec``)."""
+    from raptor_tpu_torch import PRESETS, SolveConfig, solve
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    t_phase = time.perf_counter()
+    tag = "mcgs96"
+    A = shuffled_poisson(ADIST_N)
+    n = A.shape[0]
+    cfg = dataclasses.replace(PRESETS["config5"], fine_layout="banded")
+    h, rec = timed_setup(tag, A, cfg, dev)
+    sizes = [lv.n for lv in h.levels]
+    colours = [lv.ncolors for lv in h.levels]
+    print(f"[{tag}] sizes {sizes}; colours per level {colours}; "
+          f"{rec['device_levels']} levels built on the card")
+    _print_levels(tag, h)
+    if rec["device_levels"] < 2 or h.levels[0].Aband is None:
+        raise AssertionError("mcgs96: levels 0-1 not built on the card, or "
+                             "no banded layout")
+
+    b = np.ones(n)
+    bd = pad_vector(b.astype(np.float32), h.levels[0].A.n_rows_pad, device=dev)
+    y = cycle(h, bd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CYCLES):
+        y = cycle(h, bd)
+    torch.cuda.synchronize()
+    vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+    if not torch.isfinite(y).all():
+        raise AssertionError("mcgs V-cycle output not finite")
+    prof = profile_cycles(lambda: cycle(h, bd), top=6)
+    print(f"[{tag}] V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} DOF/s, {N_CYCLES} "
+          f"cycles between syncs); profiled: wall {prof['wall_ms']:.3f} ms, "
+          f"device busy {prof['busy_ms']:.3f} ms ({prof['busy_share'] * 100:.1f}%), "
+          f"{prof['device_events']:g} device events a cycle; top "
+          + "; ".join(f"{k} {us:.1f} us x{c:g}" for k, us, c in prof["top"]))
+
+    sc = SolveConfig(tol=MAX_RELRES, refine=True)
+    clear_banded_counts()
+    t0 = time.perf_counter()
+    x, info = solve(A, b, cfg, sc, hier=h)
+    sol = time.perf_counter() - t0
+    launches, rows = banded_proof(tag)
+    iters = int(info["iterations"])
+    relres = _true_relres(A, x, b)
+    print(f"[{tag}] api.solve {sol:.3f} s, {iters} PCG iterations, certified "
+          f"{info['relres']:.3e}, true fp64 relres {relres:.3e}")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"true relres {relres} > {MAX_RELRES}")
+    phase_banded_shapes(dev, "mcgs 96^3", h, A, krec, rows, "shapes_mcgs96")
+    excess = banded_excess(tag, krec, rows, "shapes_mcgs96")
+    host, _ = host_route(tag, A, cfg, dev, sizes, iters)
+    gs = {sm: _one_rank_gs(dev, h, A, sm) for sm in ("mcgs", "tsgs")}
+    if abs(gs["mcgs"]["iters"] - gs["mcgs"]["single_device_iters"]) > 1:
+        raise AssertionError(f"sharded mcgs {gs['mcgs']['iters']} iterations, "
+                             f"solve_hier {gs['mcgs']['single_device_iters']}")
+    sharded_equal(dev, "mcgs 96^3 1 rank", h, 1, krec,
+                  [s for g in gs.values() for s in g["launches_by_shape"]])
+    wall = time.perf_counter() - t_phase
+    print(f"[{tag}] phase 21: {wall:.1f} s")
+    return {"n": n, "sizes": sizes, "colours": colours, "setup_s": rec["s"],
+            "setup_parts": {k: rec[k] for k in SETUP_PARTS},
+            "device_levels": rec["device_levels"],
+            "peak_mem_gib": rec["peak_mem_gib"], "vcycle_ms": vc,
+            "profile": prof, "solve_s": sol, "iters": iters,
+            "certified": float(info["relres"]), "relres": relres,
+            "launches": launches, "launches_by_shape": rows,
+            "excess_ms": excess, "host_route": host, "one_rank": gs,
+            "wall_s": wall}
+
+
+def rank_mcgs(ring, device, path: str, b_rcm) -> dict:
+    """One rank of phase 22 (runs in a spawned process): the hierarchy
+    saved by the parent, sharded; dist_solve with mcgs on counts set to 0
+    just before it; rank 0 returns the gathered x."""
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.parallel import dist_solve, distribute_hierarchy
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    h = torch.load(path, weights_only=False, map_location=device)
+    b = torch.from_numpy(b_rcm).to(device)
+    dh = distribute_hierarchy(h, ring, ADIST_TAIL)
+    clear_adist_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = dist_solve(dh, b, ring, tol=ADIST_TOL, maxiter=200)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    xg = ring.all_gather(x)
+    return {"iters": int(info.iterations), "certified": float(info.relres),
+            "solve_s": solve_s,
+            "counts": {k: bk.launches[k] for k in ("K4-halo", "K6-map_cols")},
+            "calls": dict(pdist.cuda_calls),
+            "shapes": sorted([*key, c] for key, c in bk.launches_by_shape.items()),
+            "txf_sharded": any(lv.Pband is not None or lv.Rband is not None
+                               for lv in dh.levels),
+            "x": xg.cpu().numpy() if ring.axis_index == 0 else None}
+
+
+def phase_mcgs_ranks(dev, krec) -> dict:
+    """Phase 22: ADIST_RANKS ranks sharing the card over gloo at shuffled
+    MCGS4_N^3 with config 5's preset, fine_layout 'banded' and pad_multiple
+    ADIST_PAD (host-built: the sharded setup is not ported); each rank runs
+    dist_solve with mcgs and must launch K4's halo form, and K6's map_cols
+    form where a transfer shards; rank 0's gathered x passes the host fp64
+    check, its iterations are the single-device solve_hier's on the same
+    hierarchy +- 1; then every rank's launch shapes against their plain
+    versions on the parent's hierarchy (errors folded into ``krec``)."""
+    import tempfile
+
+    from raptor_tpu_torch import PRESETS, setup
+    from raptor_tpu_torch.api import solve_hier
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    A = shuffled_poisson(MCGS4_N)
+    n = A.shape[0]
+    cfg = dataclasses.replace(PRESETS["config5"], fine_layout="banded",
+                              pad_multiple=ADIST_PAD)
+    h = setup(A, cfg, device=dev)
+    pm = h.perm[:n].cpu().numpy()
+    b = default_rhs(n)
+    b_rcm = np.zeros(h.levels[0].A.n_rows_pad, np.float32)
+    b_rcm[:n] = b[pm]
+    _, info1 = solve_hier(h, torch.from_numpy(b_rcm).to(dev), tol=ADIST_TOL,
+                          maxiter=200)
+    it1 = int(info1.iterations)
+    h_cpu = h.to("cpu")
+    with tempfile.TemporaryDirectory(prefix="raptor_mcgs_") as tmp:
+        path = f"{tmp}/hier.pt"
+        torch.save(h_cpu, path)
+        t0 = time.perf_counter()
+        outs = spawn(rank_mcgs, ADIST_RANKS, "gloo", dev, path, b_rcm,
+                     timeout=900.0)
+        wall_ranks = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        c = o["counts"]
+        print(f"[mcgs{ADIST_RANKS}] rank {r}: {o['iters']} iterations, solve "
+              f"{o['solve_s']:.3f} s; {o['calls']} CUDA sharded banded applies, "
+              f"launches {c}; a transfer shards: {o['txf_sharded']}")
+        if c["K4-halo"] == 0 or c["K4-halo"] != o["calls"].get("dist_banded_spmv"):
+            raise AssertionError(f"rank {r} did not run through K4's halo form")
+        if c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv", 0) or (
+                o["txf_sharded"] and c["K6-map_cols"] == 0):
+            raise AssertionError(f"rank {r}: its sharded transfers did not run "
+                                 "through K6's map_cols form")
+    iters = outs[0]["iters"]
+    if any(o["iters"] != iters for o in outs):
+        raise AssertionError("the ranks disagree on the iteration count")
+    x = outs[0]["x"].astype(np.float64)
+    relres = caller_relres(A, x, pm, b)
+    wall = time.perf_counter() - t_phase
+    print(f"[mcgs{ADIST_RANKS}] {MCGS4_N}^3 mcgs on {ADIST_RANKS} ranks sharing "
+          f"the card (gloo): {iters} iterations (single-device solve_hier "
+          f"{it1}), certified {outs[0]['certified']:.3e}, true fp64 relres "
+          f"{relres:.3e}; ranks {wall_ranks:.1f} s with their start; phase 22: "
+          f"{wall:.1f} s")
+    by_shape(f"mcgs {ADIST_RANKS} ranks, rank 0",
+             {tuple(s[:-1]): s[-1] for s in outs[0]["shapes"]},
+             ("K4-halo", "K6-map_cols", "K4", "K6"))
+    # the ranks' shapes, on the parent's copy of the hierarchy
+    sharded_equal(dev, f"mcgs {MCGS4_N}^3 {ADIST_RANKS} ranks", h, ADIST_RANKS,
+                  krec, [s for o in outs for s in o["shapes"]])
+    del h
+    if x.shape != (h_cpu.levels[0].A.n_rows_pad,) or not np.isfinite(x).all():
+        raise AssertionError("gathered solution not finite or misshapen")
+    if not relres <= ADIST_MAX_TRUE:
+        raise AssertionError(f"true relres {relres} > {ADIST_MAX_TRUE}")
+    if abs(iters - it1) > 1:
+        raise AssertionError(f"{iters} iterations, single-device {it1}")
+    return {"n": n, "ranks": ADIST_RANKS, "iters": iters,
+            "single_device_iters": it1, "relres": relres,
+            "launches": [o["counts"] for o in outs],
+            "launches_by_shape": outs[0]["shapes"], "wall_s": wall}
+
+
 def main() -> None:
     # the CSR yardsticks are built from checked indices; PyTorch warns on
     # every sparse CSR tensor that its support is in beta
@@ -2214,7 +2775,8 @@ def main() -> None:
     clear_banded_counts()
     alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False)
     alg96["launches"], rows96 = banded_proof("alg96")
-    phase_banded_96(dev, h96, rec)
+    phase_banded_shapes(dev, "96^3", h96, shuffled_poisson(96), rec, rows96,
+                        "shapes_96")
     alg96["excess_ms"] = banded_excess("alg96", rec, rows96, "shapes_96")
     # after the proof and the kernel checks: the host route's launches stay
     # out of the path's counts
@@ -2263,9 +2825,25 @@ def main() -> None:
     sharded_excess(rec, adist4["launches_by_shape"])
     adist4["sharded_kernels"] = {k: rec[k] for k in ("K4-halo", "K6-map_cols")}
 
+    # the acceptance configurations; the mcgs paths' launches are added to
+    # the kernels line, each read on its own counts
+    configs = phase_configs(dev)
+    configs["config4_device"] = phase_config4_device(dev, configs["config4"])
+    configs["config3_full"] = phase_config3_full(dev)
+    torch.cuda.empty_cache()
+    mcgs96 = phase_mcgs96(dev, rec)
+    mcgs4 = phase_mcgs_ranks(dev, rec)
+    for k in ("K4", "K5", "K6"):
+        launch_counts[k] += mcgs96["launches"][k]
+    launch_counts["K4-halo"] += (sum(g["k4_halo_launches"]
+                                     for g in mcgs96["one_rank"].values())
+                                 + mcgs4["launches"][0]["K4-halo"])
+    launch_counts["K6-map_cols"] += mcgs4["launches"][0]["K6-map_cols"]
+
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
                       "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
-                      "adist_ranks": adist4}))
+                      "adist_ranks": adist4, "configs": configs,
+                      "mcgs96": mcgs96, "mcgs_ranks": mcgs4}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",

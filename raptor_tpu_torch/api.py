@@ -53,13 +53,21 @@ _DTYPES = {"float32": np.float32, "float64": np.float64}
 BANDED_MIN_N = 2048
 
 
-def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, *,
+def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, B=None, *,
           device) -> Hierarchy:
     """Build the AMG hierarchy on ``device``: levels with n above
     ``config.host_setup_threshold`` on the device, the rest on the host,
-    then the whole hierarchy moved to ``device``."""
+    then the whole hierarchy moved to ``device``.
+
+    ``B``: optional (n, nc) near-nullspace candidates for smoothed
+    aggregation (rigid body modes for elasticity); the classical paths
+    ignore it."""
     check_ported(config)
-    if config.fine_layout == "banded":
+    if config.splitting == "aggregation" or config.interp == "smoothed":
+        from raptor_tpu_torch.setup.aggregation import build_sa_hierarchy
+
+        hier = build_sa_hierarchy(A, config, dtype=dtype, B=B, device=device)
+    elif config.fine_layout == "banded":
         hier = _setup_banded(A, config, dtype, device)
     else:
         hier = build_hierarchy(A, config, dtype=dtype, device=device)

@@ -32,8 +32,8 @@ import torch
 from raptor_tpu_torch.core.ell import EllMatrix
 
 __all__ = ["spmv", "spmv_t", "spgemm", "spgemm_fixed", "rap",
-           "ell_transpose", "ell_transpose_fixed", "ell_filter",
-           "ell_filter_fixed"]
+           "ell_transpose", "ell_transpose_fixed", "ell_add", "ell_add_fixed",
+           "ell_filter", "ell_filter_fixed"]
 
 
 def _slot_sum(x: torch.Tensor) -> torch.Tensor:
@@ -78,25 +78,78 @@ def spmv_t(A: EllMatrix, y: torch.Tensor) -> torch.Tensor:
 # Row-wise merge machinery
 # ---------------------------------------------------------------------------
 
-def _merge_sorted_rows(cols, vals, sentinel: int, k_out: int):
+# What one launch costs in the merge's two forms, in elements moved:
+# scripts/bench_merge.py's fit on an H100 80GB HBM3 (700 W), 11.55 us a
+# launch over 2.79 ps an element (see _merge_by_passes)
+_MERGE_LAUNCH_ELEMS = 4_140_000
+
+
+def _merge_costs(W: int, n: int, k_out: int, max_run: int) -> dict:
+    """(launches, elements moved) of the run sum's two forms, counted from
+    their code: by slot, W scatters of a row each; by pass, 8 launches
+    over (W, n) set-up arrays, then 6 over (k_out + 1, n) a pass."""
+    return {"slots": (W, W * n),
+            "passes": (8 + 6 * max_run, (5 * W + 6 * max_run * (k_out + 1)) * n)}
+
+
+def _merge_by_passes(W: int, n: int, k_out: int, max_run: int) -> bool:
+    """Whether the per-term-position form of the run sum is expected to
+    take less time than the per-slot form: launches times
+    _MERGE_LAUNCH_ELEMS plus elements moved."""
+    (ls, es), (lp, ep) = _merge_costs(W, n, k_out, max_run).values()
+    return lp * _MERGE_LAUNCH_ELEMS + ep < ls * _MERGE_LAUNCH_ELEMS + es
+
+
+def _sum_runs_by_slots(vals, pos, k_out: int):
+    """(k_out + 1, n) run sums: one scatter a slot, in slot order."""
+    W, n = vals.shape
+    out = torch.zeros(k_out + 1, n, dtype=vals.dtype, device=vals.device)
+    for w in range(W):
+        out.scatter_add_(0, pos[w:w + 1], vals[w:w + 1])
+    return out
+
+
+def _sum_runs_by_passes(vals, pos, first, keep, k_out: int, max_run: int):
+    """(k_out + 1, n) run sums: pass r adds each run's r-th term, so the
+    adds are _sum_runs_by_slots' in the same order.  A run shorter than r
+    adds 0.0, which leaves a sum that started at +0.0 unchanged."""
+    W, n = vals.shape
+    dev = vals.device
+    slot = torch.arange(W, device=dev)[:, None].expand(W, n)
+    start = torch.zeros(k_out + 1, n, dtype=torch.long, device=dev).scatter_(
+        0, torch.where(first & keep, pos, k_out), slot)
+    length = torch.zeros(k_out + 1, n, dtype=torch.int32, device=dev).scatter_add_(
+        0, pos, keep.to(torch.int32))
+    out = torch.zeros(k_out + 1, n, dtype=vals.dtype, device=dev)
+    for r in range(max_run):
+        term = vals.gather(0, (start + r).clamp(max=W - 1))
+        out += torch.where(length > r, term, 0)
+    return out
+
+
+def _merge_sorted_rows(cols, vals, sentinel: int, k_out: int, max_run: int):
     """Merge duplicate columns in per-row sorted (W, n) col/val arrays.
 
     ``cols`` ascends along axis 0 within each row (a column of the array),
-    with ``sentinel`` marking invalid slots (sorted to the end).  Returns
-    (out_cols, out_vals, row_nnz) at static width ``k_out``; runs beyond
-    ``k_out`` are dropped.  A run's values are summed in slot order, one
-    slot at a time (each scatter writes one position per row), so the sum
-    does not depend on float atomics."""
+    with ``sentinel`` marking invalid slots (sorted to the end); no run of
+    equal columns is longer than ``max_run`` (each caller bounds it from
+    its operands).  Returns (out_cols, out_vals, row_nnz) at static width
+    ``k_out``; runs beyond ``k_out`` are dropped.  A run's values are
+    summed in slot order, one term at a time, so the sum does not depend
+    on float atomics: by slot or by term position, whichever
+    _merge_by_passes expects to be faster (the same bits)."""
     W, n = cols.shape
     first = torch.ones_like(cols, dtype=torch.bool)
     first[1:] = cols[1:] != cols[:-1]
     is_real = cols < sentinel
     newrun = first & is_real
     run = torch.cumsum(newrun, 0, dtype=torch.int32) - 1
-    pos = torch.where(is_real & (run < k_out), run, k_out).long()
-    out_vals = torch.zeros(k_out + 1, n, dtype=vals.dtype, device=vals.device)
-    for w in range(W):
-        out_vals.scatter_add_(0, pos[w:w + 1], vals[w:w + 1])
+    keep = is_real & (run < k_out)
+    pos = torch.where(keep, run, k_out).long()
+    if _merge_by_passes(W, n, k_out, max_run):
+        out_vals = _sum_runs_by_passes(vals, pos, newrun, keep, k_out, max_run)
+    else:
+        out_vals = _sum_runs_by_slots(vals, pos, k_out)
     # every slot of a run carries the run's column
     out_cols = torch.zeros(k_out + 1, n, dtype=cols.dtype,
                            device=cols.device).scatter_(0, pos, cols)
@@ -144,7 +197,7 @@ def _expand_candidates(A: EllMatrix, B: EllMatrix, with_vals: bool = True):
     return cols.reshape(Ka * Kb, n), vals.reshape(Ka * Kb, n), sent
 
 
-def _sort_merge(cols, vals, sent: int, k_out: int):
+def _sort_merge(cols, vals, sent: int, k_out: int, max_run: int):
     """Merge duplicate candidate columns into rows of width ``k_out``: a
     stable sort of each row's candidates, then ``_merge_sorted_rows``, so
     duplicates are summed in candidate order.  The reference merges by
@@ -154,7 +207,8 @@ def _sort_merge(cols, vals, sent: int, k_out: int):
     row_nnz, leftover), ``leftover`` (0-d) the most distinct columns of a
     row that did not fit in k_out (0 = exact)."""
     cols, order = torch.sort(cols, dim=0, stable=True)
-    oc, ov, runs = _merge_sorted_rows(cols, vals.gather(0, order), sent, k_out)
+    oc, ov, runs = _merge_sorted_rows(cols, vals.gather(0, order), sent, k_out,
+                                      max_run)
     return oc, ov, runs.clamp(max=k_out), (runs - k_out).clamp(min=0).max()
 
 
@@ -192,9 +246,13 @@ def _chunked_rows(A: EllMatrix, B: EllMatrix, n_chunks: int,
 
 def _spgemm_core(A: EllMatrix, B: EllMatrix, k_out: int):
     """Expand + merge under the memory fence (shared by the wrappers and
-    the level programs of setup/hierarchy.py)."""
+    the level programs of setup/hierarchy.py).  B's rows hold distinct
+    columns, as every operand the setup builds does (merged products,
+    interpolation and strength patterns)."""
     plan = _row_chunk_plan(A.K * B.K, A.n_rows_pad)
-    parts = [_sort_merge(*_expand_candidates(Ac, B), k_out)
+    # a column appears at most once a slot of A (B's rows hold distinct
+    # columns): no run is longer than A.K
+    parts = [_sort_merge(*_expand_candidates(Ac, B), k_out, max_run=A.K)
              for Ac in ([A] if plan is None else _chunked_rows(A, B, *plan))]
     if len(parts) == 1:
         return parts[0]
@@ -304,6 +362,36 @@ def ell_transpose(A: EllMatrix, k_out: int | None = None) -> EllMatrix:
 
 
 # ---------------------------------------------------------------------------
+# Addition (pattern union)
+# ---------------------------------------------------------------------------
+
+def ell_add_fixed(A: EllMatrix, B: EllMatrix, k_out: int, alpha: float = 1.0,
+                  beta: float = 1.0) -> EllMatrix:
+    """alpha*A + beta*B at static output width ``k_out`` (same padded
+    shapes).  A column present in both sums A's term and then B's."""
+    assert A.n_rows_pad == B.n_rows_pad and A.n_cols_pad == B.n_cols_pad
+    sent = A.n_cols_pad
+    am, bm = A.slot_mask(), B.slot_mask()
+    cols = torch.cat([torch.where(am, A.cols, sent),
+                      torch.where(bm, B.cols, sent)])
+    vals = torch.cat([torch.where(am, alpha * A.data, 0),
+                      torch.where(bm, beta * B.data.to(A.dtype), 0)])
+    cols, order = torch.sort(cols, dim=0, stable=True)
+    # a row of A and a row of B each hold a column once
+    oc, ov, nnz = _merge_sorted_rows(cols, vals.gather(0, order), sent, k_out,
+                                     max_run=2)
+    return EllMatrix(data=ov, cols=_fix_padding_cols(oc, nnz), row_nnz=nnz,
+                     shape=A.shape, n_rows_pad=A.n_rows_pad,
+                     n_cols_pad=A.n_cols_pad)
+
+
+def ell_add(A: EllMatrix, B: EllMatrix, alpha: float = 1.0,
+            beta: float = 1.0) -> EllMatrix:
+    """alpha*A + beta*B at width A.K + B.K (no host read)."""
+    return ell_add_fixed(A, B, k_out=A.K + B.K, alpha=alpha, beta=beta)
+
+
+# ---------------------------------------------------------------------------
 # Sparsification
 # ---------------------------------------------------------------------------
 
@@ -326,7 +414,9 @@ def ell_filter_fixed(A: EllMatrix, tol: float, k_out: int) -> EllMatrix:
     is_diag = keep & (A.cols == row)
     vals = torch.where(keep, A.data + torch.where(is_diag, lump[None, :], 0), 0)
     cols, order = torch.sort(cols, dim=0, stable=True)
-    oc, ov, nnz = _merge_sorted_rows(cols, vals.gather(0, order), sent, k_out)
+    # a compaction: the kept entries' columns are distinct
+    oc, ov, nnz = _merge_sorted_rows(cols, vals.gather(0, order), sent, k_out,
+                                     max_run=1)
     return EllMatrix(data=ov, cols=_fix_padding_cols(oc, nnz), row_nnz=nnz,
                      shape=A.shape, n_rows_pad=A.n_rows_pad,
                      n_cols_pad=A.n_cols_pad)

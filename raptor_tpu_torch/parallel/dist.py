@@ -26,9 +26,14 @@ lives in another ordering than the level's vectors, which the reference's
 sharded apply does not undo; here such a level stays on the ELL route.
 
 ``distribute_hierarchy`` takes the whole hierarchy on every rank and keeps
-the rank's blocks on the hierarchy's device.  The multicolor and two-stage
-Gauss-Seidel smoothers and the block smoothers are not ported
-(``solve/smoothers.NOT_PORTED``): the sharded cycle raises for them.
+the rank's blocks on the hierarchy's device; a level's multicolor colours
+and block-diagonal inverses shard with its rows.  The sharded smoothers
+are the single-device ones on the rank's block, with two differences of
+the reference's design: the two-stage Gauss-Seidel's inner triangular
+series is processor-local (halo columns are masked out of the triangle
+and couple only through the outer residual), and the block smoothers
+apply A through the level's sharded SpMV (the block layout does not
+shard).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from raptor_tpu_torch.setup.hierarchy import Hierarchy
 from raptor_tpu_torch.solve.cycle import _level as _tail_cycle
 from raptor_tpu_torch.solve.cycle import materialize_tail
 from raptor_tpu_torch.solve.krylov import krylov_dispatch
-from raptor_tpu_torch.solve.smoothers import NOT_PORTED
+from raptor_tpu_torch.solve.smoothers import triangular_apply
 
 __all__ = [
     "DistLevel",
@@ -87,6 +92,12 @@ class DistLevel:
     Aband: Optional[Any] = None
     Pband: Optional[Any] = None
     Rband: Optional[Any] = None
+    # multicolor GS colours of the rank's rows, and the number of colours
+    color: Optional[Any] = None
+    ncolors: int = 1
+    # the inverses of the rank's diagonal blocks (n_local // b, b, b), where
+    # the block rows shard with the dof rows
+    binv: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,11 +175,19 @@ def distribute_hierarchy(hier: Hierarchy, ring: Ring,
             Pb = _shardable_rect(lev.Pband, ndev, nf_pad, nc_pad)
         else:
             R_d = P_d = None
+        binv = None
+        if (lev.binv is not None and lev.binv.shape[0] % ndev == 0
+                and nl % lev.binv.shape[-1] == 0):
+            nb = lev.binv.shape[0] // ndev  # block rows shard with the rows
+            me = ring.axis_index
+            binv = lev.binv[me * nb:(me + 1) * nb].contiguous()
         dlevels.append(DistLevel(
             A=A_d, dinv=_rows(lev.dinv, ring, nl), Pmat=P_d, Rmat=R_d,
             cheb_lmax=lev.cheb_lmax, n_local=nl, n=lev.n,
             Aband=_tile_block(_shardable_band(lev.Aband, ndev), ring),
-            Pband=_tile_block(Pb, ring), Rband=_tile_block(Rb, ring)))
+            Pband=_tile_block(Pb, ring), Rband=_tile_block(Rb, ring),
+            color=None if lev.color is None else _rows(lev.color, ring, nl),
+            ncolors=lev.ncolors, binv=binv))
     bridge = hier.levels[t - 1]
     tail = Hierarchy(levels=hier.levels[t:], coarse_inv=hier.coarse_inv,
                      config=hier.config)
@@ -336,6 +355,33 @@ def _dist_smooth(lev: DistLevel, cfg: AmgConfig, b, x, backward: bool, sp,
         for _ in range(sweeps):
             x = x + cfg.omega * lev.dinv * res(x)
         return x
+    if smoother == "mcgs":
+        order = list(range(lev.ncolors))
+        if backward:
+            order.reverse()
+        for _ in range(sweeps):
+            for c in order:
+                x = x + torch.where(lev.color == c, lev.dinv * res(x), 0)
+        return x
+    if smoother == "tsgs":
+        # hybrid two-stage GS: the inner Jacobi series runs on the
+        # processor-local strict triangle (halo columns masked out), so the
+        # inner iterations exchange nothing
+        Aloc = lev.A.local_ell()
+        nloc = Aloc.n_rows_pad
+
+        def tri(z):
+            z_ext = torch.cat([z, z.new_zeros(Aloc.n_cols_pad - nloc)])
+            return triangular_apply(Aloc, z_ext, upper=backward,
+                                    col_bound=nloc)
+
+        for _ in range(sweeps):
+            r = res(x)
+            z = lev.dinv * r
+            for _j in range(cfg.gs_inner):
+                z = lev.dinv * (r - tri(z))
+            x = x + z
+        return x
     if smoother == "chebyshev":
         lmax = lev.cheb_lmax
         lmin = lmax / 30.0
@@ -353,20 +399,35 @@ def _dist_smooth(lev: DistLevel, cfg: AmgConfig, b, x, backward: bool, sp,
                 p = z + beta * p
             x = x + alpha * p
         return x
-    if smoother == "cheb4":
-        # 4th-kind Chebyshev on the diagonally normalized spectrum
+    if smoother in ("cheb4", "block_cheb", "block_jacobi"):
+        # the block-diagonal preconditioner is row-local (binv shards with
+        # the rows); a level without a block layout takes the scalar
+        # diagonal, as solve/cycle._smooth does
+        if lev.binv is not None:
+            bs = lev.binv.shape[-1]
+
+            def prec(r):
+                rb = r.reshape(-1, bs)
+                return torch.einsum("nij,nj->ni", lev.binv, rb).reshape(-1)
+        else:
+            def prec(r):
+                return lev.dinv * r
+
+        if smoother == "block_jacobi":
+            for _ in range(sweeps):
+                x = x + cfg.omega * prec(res(x))
+            return x
+        # 4th-kind Chebyshev on the (block-)normalized spectrum
         r = res(x)
-        d = (4.0 / 3.0) / lev.cheb_lmax * (lev.dinv * r)
+        d = (4.0 / 3.0) / lev.cheb_lmax * prec(r)
         x = x + d
         for k in range(2, cfg.cheb_degree + 1):
             r = r - sp(d)
             d = ((2 * k - 3) / (2 * k + 1)) * d + (
                 (8 * k - 4) / (2 * k + 1) / lev.cheb_lmax
-            ) * (lev.dinv * r)
+            ) * prec(r)
             x = x + d
         return x
-    if smoother in NOT_PORTED:
-        raise NotImplementedError(f"smoother {smoother!r} is not yet ported")
     raise ValueError(f"unknown smoother: {smoother}")
 
 

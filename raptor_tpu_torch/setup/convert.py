@@ -10,7 +10,9 @@ layout of ``tree``:
                  "dinv": array, "cheb_lmax": array | None, "n": int,
                  "Aband": band | None, "Pband": band | None,
                  "Rband": band | None, "Ahyb": hyb | None,
-                 "Tgeo": geo | None}, ...],
+                 "Tgeo": geo | None, "color": array | None,
+                 "ncolors": int, "Abell": bell | None,
+                 "binv": array | None}, ...],
      "coarse_inv": array, "perm": array | None, "iperm": array | None,
      "tail_op": array | None, "tail_start": int, "a0_lo": array | None,
      "a0_lo_band": array | None, "config": {AmgConfig field: value}}
@@ -21,13 +23,16 @@ with each ``ell`` a dict ``{"data", "cols", "row_nnz", "shape",
 (``perm``, ``iperm`` and ``reordered`` absent for a transfer operator;
 ``far`` None or ``{"rows", "cols", "vals", "meta"}``), each ``hyb`` a dict
 ``{"planes", "spill": ell | None, "perm", "iperm", "offsets", "shape",
-"n_pad"}`` and each ``geo`` a dict ``{"wm", "wp", "meta"}``.  Arrays may be
-``ml_dtypes`` bfloat16.
+"n_pad"}``, each ``geo`` a dict ``{"wm", "wp", "meta"}`` and each ``bell`` a
+dict ``{"data", "cols", "row_nnz", "shape", "bs", "nb_pad"}``; the keys
+``color`` to ``binv`` may be absent (None, 1).  Arrays may be ``ml_dtypes``
+bfloat16.
 """
 
 from __future__ import annotations
 
 from raptor_tpu_torch.config import AmgConfig
+from raptor_tpu_torch.core.bell import BlockEllMatrix
 from raptor_tpu_torch.core.ell import EllMatrix
 from raptor_tpu_torch.core.hybrid import (BandedMatrix, FarBlock, GeoTransfer,
                                           HybridMatrix, RectBanded)
@@ -86,13 +91,23 @@ def _geo(d):
     return GeoTransfer(wm=d["wm"], wp=d["wp"], meta=_ints(d["meta"]))
 
 
+def _bell(d):
+    if d is None:
+        return None
+    return BlockEllMatrix(data=d["data"], cols=d["cols"], row_nnz=d["row_nnz"],
+                          shape=_ints(d["shape"]), bs=int(d["bs"]),
+                          nb_pad=int(d["nb_pad"]))
+
+
 def algebraic_hierarchy_from_numpy(tree: dict, device) -> Hierarchy:
     levels = tuple(
         Level(A=_ell(lv["A"]), dinv=lv["dinv"], P=_ell(lv["P"]),
-              R=_ell(lv["R"]), color=None, cheb_lmax=lv["cheb_lmax"],
-              n=int(lv["n"]), ncolors=1, Aband=_band(lv.get("Aband")),
+              R=_ell(lv["R"]), color=lv.get("color"),
+              cheb_lmax=lv["cheb_lmax"], n=int(lv["n"]),
+              ncolors=int(lv.get("ncolors", 1)), Aband=_band(lv.get("Aband")),
               Pband=_band(lv.get("Pband")), Rband=_band(lv.get("Rband")),
-              Ahyb=_hyb(lv.get("Ahyb")), Tgeo=_geo(lv.get("Tgeo")))
+              Ahyb=_hyb(lv.get("Ahyb")), Tgeo=_geo(lv.get("Tgeo")),
+              Abell=_bell(lv.get("Abell")), binv=lv.get("binv"))
         for lv in tree["levels"]
     )
     hier = Hierarchy(levels=levels, coarse_inv=tree["coarse_inv"],

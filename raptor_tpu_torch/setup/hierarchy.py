@@ -1,8 +1,10 @@
 """AMG hierarchy of the algebraic engine.
 
 Counterpart of ``raptor_tpu/setup/hierarchy.py``.  ``build_hierarchy``
-runs the classical level loop (RS or PMIS splitting, direct, classical or
-extended interpolation, Galerkin RAP).  Levels with ``n >
+runs the classical level loop (RS or PMIS splitting, or the aggressive
+distance-2 splitting with multipass interpolation; direct, classical or
+extended interpolation; Galerkin RAP).  Smoothed aggregation has its own
+loop (``setup/aggregation.py``).  Levels with ``n >
 AmgConfig.host_setup_threshold`` are built with tensors on the caller's
 device (the device route: ``_fused_level`` for PMIS, ``_unfused_level``
 for RS, ``_geo_chain`` for geo-split levels); smaller ones on the host in
@@ -17,8 +19,12 @@ chain's RAP width overflow (``leftover``) is read with the chain's one host
 read and raises, and the chain's last planes go to the coarsest level when
 the loop ends right after a chain.
 
-Not ported yet (they raise ``NotImplementedError``): CLJP, aggressive
-coarsening (with ``fat_interp_refine``) and smoothed aggregation.
+Not ported yet (it raises ``NotImplementedError``): CLJP.
+
+One difference from the reference's device route, a repair: the
+aggressive device level filters the row identities (``row_ids``) by its
+C points as the other levels do, where the reference leaves them stale
+and its host tail then fails to index them.
 """
 
 from __future__ import annotations
@@ -31,7 +37,6 @@ import torch
 
 from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.core.ell import EllMatrix, _np, ell_from_csr, pad_rows, to_tensor
-from raptor_tpu_torch.solve.smoothers import NOT_PORTED
 
 __all__ = ["Level", "Hierarchy", "build_hierarchy", "hierarchy_stats",
            "cast_hierarchy_algebraic", "attach_residual_lo", "check_ported"]
@@ -52,12 +57,13 @@ class Level:
     dinv: Any
     P: Optional[EllMatrix]  # None on the coarsest level
     R: Optional[EllMatrix]
-    color: Any  # multicolor GS colors (not ported: always None)
+    color: Any  # (n_pad,) int32 multicolor GS colours, or None
     cheb_lmax: Any  # scalar for the Chebyshev smoothers
     n: int  # logical (unpadded) dof count
     ncolors: int
-    # layouts of the reference that are not ported yet: always None here
-    Abell: Optional[Any] = None
+    # block layout (SA with a block smoother): A as b x b BlockELL and the
+    # inverses of its diagonal blocks, (nb_pad, b, b)
+    Abell: Optional[Any] = None  # core/bell.py BlockEllMatrix
     binv: Optional[Any] = None
     # banded layouts (fine_layout='banded'; core/hybrid.py)
     Aband: Optional[Any] = None  # BandedMatrix
@@ -132,16 +138,9 @@ def _geo_cf(n: int, n_pad: int, exts: list, d: int) -> tuple:
 
 
 def check_ported(config: AmgConfig) -> None:
-    """Raise for the configurations whose setup or cycle is not ported."""
-    if config.splitting == "aggregation" or config.interp == "smoothed":
-        raise NotImplementedError("smoothed aggregation is not yet ported")
+    """Raise for the configurations whose setup is not ported (CLJP)."""
     if config.splitting == "cljp":
         raise NotImplementedError("CLJP splitting is not yet ported")
-    if config.aggressive:
-        raise NotImplementedError("aggressive coarsening is not yet ported")
-    if config.smoother in NOT_PORTED:
-        raise NotImplementedError(
-            f"smoother {config.smoother!r} is not yet ported")
 
 
 def attach_residual_lo(hier: Hierarchy, A_sp) -> Hierarchy:
@@ -206,10 +205,12 @@ def cast_hierarchy_algebraic(hier: Hierarchy, dtype) -> Hierarchy:
         return None if H is None else dataclasses.replace(
             H, planes=H.planes.to(dtype), spill=cast_ell(H.spill))
 
-    # Tgeo's weights are O(n) vectors, as dinv: they keep their precision
+    # Tgeo's weights are O(n) vectors, as dinv: they keep their precision,
+    # and so do the block inverses binv
     levels = tuple(
         dataclasses.replace(
             lev, A=cast_ell(lev.A), P=cast_ell(lev.P), R=cast_ell(lev.R),
+            Abell=None if lev.Abell is None else lev.Abell.cast(dtype),
             Aband=cast_band(lev.Aband), Pband=cast_band(lev.Pband),
             Rband=cast_band(lev.Rband), Ahyb=cast_hyb(lev.Ahyb))
         for lev in hier.levels)
@@ -251,16 +252,33 @@ def _dinv(A: EllMatrix) -> torch.Tensor:
     return 1.0 / torch.where(d != 0, d, 1.0)
 
 
+def _mcgs_color(A: EllMatrix, cfg: AmgConfig):
+    """Multicolor GS colours of A on the host (the graph of
+    (a + a.T) != 0), as an int32 tensor on A's device with padding rows
+    colour 0; (None, 1) for the other smoothers."""
+    if cfg.smoother != "mcgs":
+        return None, 1
+    from raptor_tpu_torch.core.ell import ell_to_csr
+    from raptor_tpu_torch.solve.smoothers import greedy_coloring_host
+
+    a = ell_to_csr(A)
+    g = ((a + a.T) != 0).tocsr()
+    col_np, ncolors = greedy_coloring_host(g.indptr, g.indices, a.shape[0])
+    pad = np.zeros(A.n_rows_pad, dtype=np.int32)
+    pad[: a.shape[0]] = col_np
+    return torch.from_numpy(pad).to(A.data.device), ncolors
+
+
 def _smoother_data(A: EllMatrix, cfg: AmgConfig, smask):
     """Per-level smoother data on the device: (dinv, color, ncolors,
-    lmax); lmax by power iteration for the Chebyshev smoothers."""
+    lmax); lmax by power iteration for the Chebyshev smoothers (a
+    block_cheb level with a block layout overrides it)."""
     from raptor_tpu_torch.solve.smoothers import estimate_lmax
 
-    if cfg.smoother == "mcgs":
-        raise NotImplementedError("smoother 'mcgs' is not yet ported")
     dinv = _dinv(A)
+    color, ncolors = _mcgs_color(A, cfg)
     lmax = estimate_lmax(A, dinv) if cfg.smoother in _CHEB_SMOOTHERS else None
-    return dinv, None, 1, lmax
+    return dinv, color, ncolors, lmax
 
 
 def _interpolate(A: EllMatrix, smask, cf, interp: str, p_max: int):
@@ -329,16 +347,11 @@ def _fused_level(A: EllMatrix, n: int, config: AmgConfig, seed: int,
     and Ac's width and leftover.  Returns (P, R, Ac, nc, dinv,
     lmax_or_None, cf as host int32) with Ac compacted to its (bucketed)
     true width; P, R and Ac are None when the level does not coarsen."""
-    from raptor_tpu_torch.ops.sparse_ops import _spgemm_width
+    from raptor_tpu_torch.ops.sparse_ops import _spgemm_width, _transpose_col_counts
     from raptor_tpu_torch.setup.interp import (EXT_DEVICE_MAX_K,
                                                tighten_coarse_space)
     from raptor_tpu_torch.setup.splitting import make_perm
 
-    if (config.interp == "extended" and config.fat_interp_refine > 0
-            and A.K > EXT_DEVICE_MAX_K):
-        raise NotImplementedError(
-            "fat_interp_refine > 0 (aggressive.jacobi_refine_p) is not yet "
-            "ported")
     if perm is None:
         perm = make_perm(n, A.n_rows_pad, seed, device=A.data.device)
     want_lmax = config.smoother in _CHEB_SMOOTHERS
@@ -357,6 +370,15 @@ def _fused_level(A: EllMatrix, n: int, config: AmgConfig, seed: int,
     k_P = min(_bucket8(w_P), P.K)
     if k_P < P.K:
         P = dataclasses.replace(P, data=P.data[:k_P], cols=P.cols[:k_P])
+    if (config.interp == "extended" and config.fat_interp_refine > 0
+            and A.K > EXT_DEVICE_MAX_K):
+        # optional Jacobi sweeps on a fat level's strength-compacted ext+i
+        from raptor_tpu_torch.setup.aggressive import jacobi_refine_p
+
+        P = jacobi_refine_p(A, P, torch.from_numpy(cf).to(A.data.device),
+                            config.interp_refine_omega,
+                            config.fat_interp_refine, config.p_max_elements)
+        w_T = int(_transpose_col_counts(P).max())  # the pattern changed
     w_AP = max(int(_spgemm_width(A, P)), 1)  # host read 2
     k_T, k_AP = _bucket8(w_T), _bucket8(w_AP)
     k_Ac = _bucket8(3 * A.K + 8)
@@ -641,6 +663,39 @@ def _unfused_level(A: EllMatrix, config: AmgConfig):
     return lev, Ac, nc
 
 
+def _aggressive_level(A: EllMatrix, config: AmgConfig, seed: int):
+    """One aggressive level on the device: distance-2 PMIS, multipass
+    interpolation, optional Jacobi refinement, exact-width Galerkin
+    SpGEMMs and, with ``filter_tol``, the coarse operator's filter.
+    Returns (the level, Ac, nc, cf), or None when the level does not
+    coarsen."""
+    from raptor_tpu_torch.ops.sparse_ops import ell_filter, ell_transpose, spgemm
+    from raptor_tpu_torch.setup.aggressive import (aggressive_splitting,
+                                                   jacobi_refine_p,
+                                                   multipass_interpolation)
+    from raptor_tpu_torch.setup.interp import add_identity_padding
+    from raptor_tpu_torch.setup.strength import strength_mask
+
+    n = A.shape[0]
+    smask = strength_mask(A, config.theta, config.strength)
+    cf = aggressive_splitting(A, smask, seed)
+    P, nc = multipass_interpolation(A, smask, cf)
+    if nc == 0 or nc >= n:
+        return None
+    if config.interp_refine > 0:
+        P = jacobi_refine_p(A, P, cf, config.interp_refine_omega,
+                            config.interp_refine, config.p_max_elements)
+    R = ell_transpose(P)
+    Ac = add_identity_padding(spgemm(R, spgemm(A, P)), nc)
+    if config.filter_tol > 0:
+        # sparsifies the long-range multipass Galerkin products (config 3)
+        Ac = ell_filter(Ac, config.filter_tol)
+    dinv, color, ncolors, lmax = _smoother_data(A, config, smask)
+    lev = Level(A=A, dinv=dinv, P=P, R=R, color=color, cheb_lmax=lmax, n=n,
+                ncolors=ncolors)
+    return lev, Ac, nc, cf
+
+
 def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
                     row_ids: "np.ndarray | None" = None,
                     geo: "list | None" = None, *, device) -> Hierarchy:
@@ -648,8 +703,8 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
 
     Levels with ``n > config.host_setup_threshold`` are built with tensors
     on ``device`` (the device route): the geo chain while the grid lasts,
-    PMIS levels through ``_fused_level``, RS levels through
-    ``_unfused_level``, and the coarsest level with ``_dense_inverse`` when
+    PMIS levels through ``_fused_level``, aggressive levels through
+    ``_aggressive_level``, RS levels through ``_unfused_level``, and the coarsest level with ``_dense_inverse`` when
     the loop ends above the threshold.  Smaller levels go to the host route
     (``host_setup.host_build_tail``, NumPy), with the same integer PMIS
     weights.  The result mixes tensor and NumPy leaves; ``Hierarchy.to``
@@ -689,7 +744,7 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
             levels.extend(new_levels)
             continue
         A = A.to(device)
-        if config.splitting == "pmis":
+        if config.splitting == "pmis" and not config.aggressive:
             seed = config.seed + len(levels)
             perm = (None if ids is None else
                     make_perm_ids(ids, A.n_rows_pad, seed, device=device))
@@ -699,11 +754,21 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
                 break
             if ids is not None:
                 ids = ids[cf[:n] == C_PT]
-            levels.append(Level(A=A, dinv=dinv, P=P, R=R, color=None,
-                                cheb_lmax=lmax, n=n, ncolors=1,
+            color, ncolors = _mcgs_color(A, config)
+            levels.append(Level(A=A, dinv=dinv, P=P, R=R, color=color,
+                                cheb_lmax=lmax, n=n, ncolors=ncolors,
                                 Ahyb=pending_hyb))
             pending_hyb = None
             A, n = Ac, nc
+            continue
+        if config.aggressive:
+            out = _aggressive_level(A, config, config.seed + len(levels))
+            if out is None:
+                break
+            lev, A, n, cf = out
+            if ids is not None:
+                ids = ids[_np(cf)[:lev.n] == C_PT]
+            levels.append(lev)
             continue
         out = _unfused_level(A, config)
         if out is None:

@@ -6,10 +6,8 @@ in vectorized NumPy over the identical entry-major ELL layout, with the same
 integer PMIS weights, so C/F splittings are bit-identical and interpolation
 and RAP values agree to fp32 rounding.  ``build_hierarchy`` hands every
 level with ``n <= AmgConfig.host_setup_threshold`` to ``host_build_tail``,
-geo-split levels included; the levels above it come from the device
-route.
-
-Not ported yet (it raises ``NotImplementedError``): aggressive coarsening.
+geo-split and aggressive levels included; the levels above it come from
+the device route.
 """
 
 from __future__ import annotations
@@ -208,6 +206,94 @@ def np_direct_interpolation(data, cols, nnz, smask, cf):
     return P_data, P_cols, P_nnz, nc
 
 
+def _np_aggressive_cf(colsA, smask, n: int, n_pad: int, seed: int):
+    """NumPy mirror of setup.aggressive.aggressive_splitting: distance-2
+    PMIS — the MIS runs on offdiag(G @ G), G = strength + I, with the same
+    exact integer weights (host_aggregation._np_pmis_edges), so the C/F
+    sets are bit-identical to the device path."""
+    import scipy.sparse as sp
+
+    from raptor_tpu_torch.setup.host_aggregation import _np_pmis_edges
+
+    rows = np.broadcast_to(np.arange(n_pad)[None, :], colsA.shape)
+    G = sp.csr_matrix(
+        (np.ones(int(smask.sum()) + n_pad, np.float32),
+         (np.r_[rows[smask], np.arange(n_pad)],
+          np.r_[colsA[smask], np.arange(n_pad)])),
+        shape=(n_pad, n_pad))
+    G2 = (G @ G).tocoo()
+    off = G2.row != G2.col
+    perm = make_perm_np(n, n_pad, seed)
+    return _np_pmis_edges(G2.row[off], G2.col[off], n_pad, perm)
+
+
+def _np_multipass(data, colsA, nnz, smask, cf, n: int, max_passes: int = 4):
+    """NumPy mirror of setup.aggressive.multipass_interpolation: pass 0 is
+    direct interpolation on rows with a strong C neighbor; each later pass
+    interpolates still-empty F rows through already-interpolated strong
+    neighbors.  Returns (P csr over the PADDED rows, nc)."""
+    import scipy.sparse as sp
+
+    K, n_pad = data.shape
+    Pd, Pc, Pn, nc = np_direct_interpolation(data, colsA, nnz, smask, cf)
+    if nc == 0:
+        return None, 0
+    P = _ell_np_to_coo(Pd, Pc, Pn, n_pad, nc).tocsr()
+
+    lane = np.arange(n_pad)
+    k = np.arange(K)[:, None]
+    slot = k < nnz[None, :]
+    off = (colsA != lane[None, :]) & slot
+    diag = np.where((colsA == lane[None, :]) & slot, data, 0).sum(axis=0)
+    row_sum = np.where(off, data, 0).sum(axis=0)
+    is_real_f = (cf == F_PT) & (lane < n)
+    for _ in range(max_passes):
+        done = np.diff(P.indptr) > 0
+        todo = is_real_f & ~done
+        if not todo.any():
+            break
+        usable = smask & done[colsA]
+        active = todo & usable.any(axis=0)
+        if not active.any():
+            break
+        wmask = usable & active[None, :]
+        used_sum = np.where(wmask, data, 0).sum(axis=0)
+        dtil = diag + (row_sum - used_sum)
+        dtil = np.where(dtil != 0, dtil, 1.0)
+        rows_w = np.broadcast_to(lane[None, :], colsA.shape)
+        W = sp.csr_matrix(
+            (data[wmask], (rows_w[wmask], colsA[wmask])),
+            shape=(n_pad, n_pad))
+        U = sp.diags(np.where(active, -1.0 / dtil, 0.0)) @ (W @ P)
+        P = (P + U).tocsr()  # active rows were empty: addition = set
+    return P, nc
+
+
+def _np_jacobi_refine_p(data, colsA, nnz, cf, P, n: int, omega: float,
+                        passes: int, p_max: int):
+    """NumPy mirror of setup.aggressive.jacobi_refine_p (hypre's
+    jacobi_interp): ``passes`` sweeps of
+    P <- trunc_{p_max}(P - omega * D_FF^{-1} A P) on F rows, refining the
+    multipass interpolation of an aggressive splitting."""
+    import scipy.sparse as sp
+
+    K, n_pad = data.shape
+    lane = np.arange(n_pad)
+    slot = np.arange(K)[:, None] < nnz[None, :]
+    rows = np.broadcast_to(lane[None, :], colsA.shape)
+    Acsr = sp.csr_matrix((data[slot], (rows[slot], colsA[slot])),
+                         shape=(n_pad, n_pad))
+    d = Acsr.diagonal()
+    dinv = np.where(d != 0, 1.0 / np.where(d != 0, d, 1.0), 0.0)
+    fmask = (np.asarray(cf) == F_PT) & (lane < n)
+    Df = sp.diags(np.where(fmask, omega * dinv, 0.0))
+    for _ in range(passes):
+        P = (P - Df @ (Acsr @ P)).tocsr()
+        P.eliminate_zeros()
+        P = _np_truncate_p(P, p_max)
+    return P.tocsr()
+
+
 def _np_truncate_p(P, max_elems: int):
     """Interpolation truncation (hypre's P_max_elmts): keep the
     ``max_elems`` largest-|w| entries per row and rescale the kept positive
@@ -341,13 +427,21 @@ def _np_filter_csr(Ac, tol: float):
     return out
 
 
-def _np_estimate_lmax(data, cols, dinv, iters: int = 40, safety: float = 1.1):
+# padded rows from which the host routes bound lambda_max(D^-1 A) by
+# Gershgorin in place of the power iteration (the reference's switch; its
+# device routes always power-iterate)
+GERSHGORIN_ROWS = 65536
+
+
+def _np_estimate_lmax(data, cols, dinv, iters: int = 40, safety: float = 1.1,
+                      gershgorin_rows: float = GERSHGORIN_ROWS):
     """Largest eigenvalue of D^-1 A for the Chebyshev smoothers: power
-    iteration from the reference's start vector, or, on levels of 65536
-    rows and more, the Gershgorin bound max_i dinv_i * sum_j |a_ij| (a
-    strict upper bound, which is all the fourth-kind smoother needs)."""
+    iteration from the reference's start vector, or, on levels of
+    ``gershgorin_rows`` padded rows and more, the Gershgorin bound
+    max_i dinv_i * sum_j |a_ij| (a strict upper bound, which is all the
+    fourth-kind smoother needs)."""
     n_pad = data.shape[1]
-    if n_pad >= 65536:
+    if n_pad >= gershgorin_rows:
         s = np.abs(data).sum(axis=0) * np.abs(dinv)
         return data.dtype.type(s.max())
     i = np.arange(n_pad, dtype=data.dtype)
@@ -365,19 +459,26 @@ def _np_estimate_lmax(data, cols, dinv, iters: int = 40, safety: float = 1.1):
 # ---------------------------------------------------------------------------
 
 def _host_level_aux(A: EllMatrix, data, cols, nnz, config: AmgConfig):
-    """dinv and Chebyshev lmax for one host level (numpy).  Coloring for
-    the multicolor Gauss-Seidel smoother is not ported."""
-    if config.smoother == "mcgs":
-        raise NotImplementedError("smoother 'mcgs' is not yet ported")
+    """dinv, colouring and Chebyshev lmax for one host level (numpy).  The
+    multicolor smoother's colours come from the graph of (a + a.T) != 0;
+    padding rows get colour 0."""
+    from raptor_tpu_torch.solve.smoothers import greedy_coloring_host
+
     K, n_pad = data.shape
     rows = np.broadcast_to(np.arange(n_pad)[None, :], (K, n_pad))
     k = np.arange(K)[:, None]
     d = np.where((cols == rows) & (k < nnz[None, :]), data, 0).sum(axis=0)
     dinv = (1.0 / np.where(d != 0, d, 1)).astype(data.dtype)
-    lmax = None
-    if config.smoother in ("chebyshev", "cheb4", "block_cheb"):
+    color, ncolors, lmax = None, 1, None
+    if config.smoother == "mcgs":
+        a = _ell_np_to_coo(data, cols, nnz, A.shape[0], A.shape[1]).tocsr()
+        g = ((a + a.T) != 0).tocsr()
+        col_np, ncolors = greedy_coloring_host(g.indptr, g.indices, a.shape[0])
+        color = np.zeros(n_pad, dtype=np.int32)
+        color[: a.shape[0]] = col_np
+    elif config.smoother in ("chebyshev", "cheb4", "block_cheb"):
         lmax = _np_estimate_lmax(data, cols, dinv)
-    return dinv, None, 1, lmax
+    return dinv, color, ncolors, lmax
 
 
 def _geo_level(data, colsA, nnz, smask, geo: list, n: int, n_pad: int):
@@ -426,15 +527,14 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
     from raptor_tpu_torch.core.hybrid import GeoTransfer
     from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level, _bucket8
 
-    if config.aggressive:
-        raise NotImplementedError("aggressive coarsening is not yet ported")
     ids = None if row_ids is None else np.asarray(row_ids)
     geo = None if geo is None else list(geo)  # the live extents, per level
 
     out = []  # host-level tuples
     n = A.shape[0]
     while len(levels) + len(out) + 1 < config.max_levels and n > config.coarse_size:
-        if config.interp not in ("direct", "classical", "extended"):
+        if (config.interp not in ("direct", "classical", "extended")
+                and not config.aggressive):
             raise ValueError(
                 f"host setup tail: unsupported interp {config.interp!r}")
         data, colsA, nnz = _ell_np(A)
@@ -452,7 +552,16 @@ def host_build_tail(A: EllMatrix, levels: list, config: AmgConfig, dtype,
                 geo_w = (wm, wp, meta)
                 d = int(np.argmax(geo))
                 geo[d] = (geo[d] + 1) // 2
-        if geo_w is None:  # the classical route: splitting, then P
+        if geo_w is None and config.aggressive:
+            seed = config.seed + len(levels) + len(out)
+            cf = _np_aggressive_cf(colsA, smask, n, n_pad, seed)
+            P_pad_csr, nc = _np_multipass(data, colsA, nnz, smask, cf, n)
+            if config.interp_refine > 0 and P_pad_csr is not None:
+                P_pad_csr = _np_jacobi_refine_p(
+                    data, colsA, nnz, cf, P_pad_csr, n,
+                    config.interp_refine_omega, config.interp_refine,
+                    config.p_max_elements)
+        elif geo_w is None:  # the classical route: splitting, then P
             if config.splitting == "rs":
                 import scipy.sparse as sp
 

@@ -296,7 +296,10 @@ def ext_mm_core(S: EllMatrix, ext_data, ext_cols_glob, ext_nnz, ext_ccols,
     cval = torch.cat(cvals, 0)
     KV = cand.shape[0]
     cand, order = torch.sort(cand, dim=0, stable=True)
-    oc, ov, p_nnz = _merge_sorted_rows(cand, cval.gather(0, order), BIGC, KV)
+    # each of the K2 + 1 candidate groups (the strong-C entries, a strong-F
+    # neighbour's row) holds a coarse id once
+    oc, ov, p_nnz = _merge_sorted_rows(cand, cval.gather(0, order), BIGC, KV,
+                                       max_run=K2 + 1)
     del cand, cval, order
 
     dii = torch.where(dii != 0, dii, 1)

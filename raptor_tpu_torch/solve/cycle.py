@@ -4,9 +4,12 @@ Counterpart of ``raptor_tpu/solve/cycle.py``.  The V-/W-cycle recursion is
 plain Python over the levels; the coarsest level is a dense inverse (one
 matvec) and the coarse tail below ``tail_start`` can be folded into one
 dense operator (``materialize_tail``).  A level's operator runs through
-K1 on its DIA planes (``Ahyb``) or K4 on its banded layout, and its
-transfers through the geo-split reshapes (``Tgeo``) or K6
-(``core/hybrid.py``); the others use the gather ELL SpMV.
+its BlockELL layout (``Abell``, torch einsums), K1 on its DIA planes
+(``Ahyb``) or K4 on its banded layout, and its transfers through the
+geo-split reshapes (``Tgeo``) or K6 (``core/hybrid.py``); the others use
+the gather ELL SpMV.  On a fast layout the smoothers take their operator
+applies from it, the two-stage GS's inner triangular series excepted
+(scalar ELL, the same matrix in the same ordering).
 
 The reference folds the tail by ``vmap`` over identity columns; here the
 columns are a batch dimension (B, n) on the ELL path.  As in the
@@ -23,8 +26,9 @@ import torch
 
 from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.ops.sparse_ops import spmv
-from raptor_tpu_torch.solve.smoothers import (NOT_PORTED, chebyshev,
-                                              chebyshev4, jacobi)
+from raptor_tpu_torch.solve.smoothers import (chebyshev, chebyshev4, jacobi,
+                                              multicolor_gs, triangular_apply,
+                                              two_stage_gs)
 
 if TYPE_CHECKING:
     from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
@@ -33,9 +37,13 @@ __all__ = ["apply_op", "apply_transfer", "cycle", "make_preconditioner",
            "materialize_tail"]
 
 def apply_op(lev: "Level", x):
-    """A @ x through the level's DIA planes (K1) or banded layout (K4) when
-    present, else the gather ELL SpMV.  All share the level's vector
-    ordering."""
+    """A @ x through the level's BlockELL layout, DIA planes (K1) or banded
+    layout (K4) when present, else the gather ELL SpMV.  All share the
+    level's vector ordering."""
+    if lev.Abell is not None:
+        from raptor_tpu_torch.core.bell import bell_spmv
+
+        return bell_spmv(lev.Abell, x)
     if lev.Ahyb is not None:
         from raptor_tpu_torch.core.hybrid import hybrid_spmv_ro
 
@@ -69,6 +77,24 @@ def _smooth_sp(lev: "Level", cfg: AmgConfig, b, x, backward: bool, sp,
         for _ in range(sweeps):
             x = x + cfg.omega * lev.dinv * res(x)
         return x
+    if cfg.smoother == "mcgs":
+        order = list(range(lev.ncolors))
+        if backward:
+            order.reverse()
+        for _ in range(sweeps):
+            for c in order:
+                x = x + torch.where(lev.color == c, lev.dinv * res(x), 0)
+        return x
+    if cfg.smoother == "tsgs":
+        # the outer residual through the fast layout, the inner triangular
+        # Jacobi series on the scalar ELL
+        for _ in range(sweeps):
+            r = res(x)
+            z = lev.dinv * r
+            for _j in range(cfg.gs_inner):
+                z = lev.dinv * (r - triangular_apply(lev.A, z, upper=backward))
+            x = x + z
+        return x
     if cfg.smoother == "chebyshev":
         lmax = lev.cheb_lmax
         lmin = lmax / 30.0
@@ -97,8 +123,6 @@ def _smooth_sp(lev: "Level", cfg: AmgConfig, b, x, backward: bool, sp,
             ) * (lev.dinv * r)
             x = x + d
         return x
-    if cfg.smoother in NOT_PORTED:
-        raise NotImplementedError(f"smoother {cfg.smoother!r} is not yet ported")
     raise ValueError(f"unknown smoother for banded layout: {cfg.smoother}")
 
 
@@ -124,9 +148,33 @@ def _smooth(lev: "Level", cfg: AmgConfig, b, x, backward: bool,
     if lev.Aband is not None or lev.Ahyb is not None:
         return _smooth_sp(lev, cfg, b, x, backward,
                           sp=lambda v: apply_op(lev, v), x0_zero=x0_zero)
+    if cfg.smoother == "block_jacobi":
+        if lev.Abell is None:  # no block alignment: scalar Jacobi
+            return jacobi(lev.A, lev.dinv, b, x, omega=cfg.omega,
+                          sweeps=sweeps, x0_zero=x0_zero)
+        from raptor_tpu_torch.core.bell import block_jacobi
+
+        return block_jacobi(lev.Abell, lev.binv, b, x, omega=cfg.omega,
+                            sweeps=sweeps, x0_zero=x0_zero)
+    if cfg.smoother == "block_cheb":
+        if lev.Abell is None:  # scalar-diagonal fourth-kind Chebyshev
+            return chebyshev4(lev.A, lev.dinv, b, x, lev.cheb_lmax,
+                              degree=cfg.cheb_degree, x0_zero=x0_zero)
+        from raptor_tpu_torch.core.bell import block_chebyshev4
+
+        return block_chebyshev4(lev.Abell, lev.binv, b, x, lev.cheb_lmax,
+                                degree=cfg.cheb_degree, x0_zero=x0_zero)
     if cfg.smoother == "jacobi":
         return jacobi(lev.A, lev.dinv, b, x, omega=cfg.omega, sweeps=sweeps,
                       x0_zero=x0_zero)
+    if cfg.smoother == "mcgs":
+        return multicolor_gs(lev.A, lev.dinv, b, x, lev.color,
+                             ncolors=lev.ncolors, sweeps=sweeps,
+                             backward=backward, x0_zero=x0_zero)
+    if cfg.smoother == "tsgs":
+        return two_stage_gs(lev.A, lev.dinv, b, x, sweeps=sweeps,
+                            inner=cfg.gs_inner, backward=backward,
+                            x0_zero=x0_zero)
     if cfg.smoother == "chebyshev":
         lmax = lev.cheb_lmax
         return chebyshev(lev.A, lev.dinv, b, x, lmax / 30.0, lmax,
@@ -134,8 +182,6 @@ def _smooth(lev: "Level", cfg: AmgConfig, b, x, backward: bool,
     if cfg.smoother == "cheb4":
         return chebyshev4(lev.A, lev.dinv, b, x, lev.cheb_lmax,
                           degree=cfg.cheb_degree, x0_zero=x0_zero)
-    if cfg.smoother in NOT_PORTED:
-        raise NotImplementedError(f"smoother {cfg.smoother!r} is not yet ported")
     raise ValueError(f"unknown smoother: {cfg.smoother}")
 
 
@@ -188,16 +234,28 @@ def make_preconditioner(hier: "Hierarchy"):
 
 def _level_dense(lev: "Level", cfg: AmgConfig, Meff: torch.Tensor) -> torch.Tensor:
     """Dense matrix of one level's cycle body with the recursion replaced by
-    the (already dense) coarse map ``Meff``: the body runs on all identity
-    columns at once as a (n, n) batch.  The caller strips the fast
-    layouts first (the ELL path applies the same matrix to a batch)."""
-    c = torch.eye(lev.A.n_rows_pad, dtype=lev.dinv.dtype, device=lev.dinv.device)
-    x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)
-    r = c - apply_op(lev, x)
-    rc = spmv(lev.R, r)
-    ec = rc @ Meff.T  # row-wise Meff @ rc
-    x = x + spmv(lev.P, ec)
-    return _smooth(lev, cfg, c, x, backward=True).T
+    the (already dense) coarse map ``Meff``: the body runs on the identity
+    columns as (B, n) batches, B chosen so that a batch's (B, K, n) gather
+    stays under the SpGEMM expand's element budget.  The caller strips the
+    fast layouts first (the ELL path applies the same matrix to a
+    batch)."""
+    from raptor_tpu_torch.ops.sparse_ops import _EXPAND_ELEM_BUDGET
+
+    n = lev.A.n_rows_pad
+    width = max(E.K * max(E.n_rows_pad, E.n_cols_pad)
+                for E in (lev.A, lev.P, lev.R))
+    batch = max(1, _EXPAND_ELEM_BUDGET // width)
+    eye = torch.eye(n, dtype=lev.dinv.dtype, device=lev.dinv.device)
+    rows = []
+    for lo in range(0, n, batch):
+        c = eye[lo:lo + batch]
+        x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)
+        r = c - apply_op(lev, x)
+        rc = spmv(lev.R, r)
+        ec = rc @ Meff.T  # row-wise Meff @ rc
+        x = x + spmv(lev.P, ec)
+        rows.append(_smooth(lev, cfg, c, x, backward=True))
+    return torch.cat(rows).T
 
 
 def _dense_ell(A) -> torch.Tensor:

@@ -20,7 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load", "status", "rs_splitting_native", "pmis_splitting_native"]
+__all__ = ["load", "status", "rs_splitting_native", "pmis_splitting_native",
+           "greedy_coloring_native"]
 
 _ROOT = Path(__file__).resolve().parents[2]
 SRC = _ROOT / "native" / "host_kernels.cpp"
@@ -55,6 +56,8 @@ def load() -> ctypes.CDLL | None:
     lib.pmis_splitting.argtypes = [i64p, i64p, ctypes.c_int64, i64p,
                                    ctypes.c_int64, i32p]
     lib.pmis_splitting.restype = None
+    lib.greedy_coloring.argtypes = [i64p, i32p, ctypes.c_int64, i32p]
+    lib.greedy_coloring.restype = ctypes.c_int32
     return lib
 
 
@@ -104,3 +107,18 @@ def pmis_splitting_native(srows, scols, w, cf0) -> np.ndarray | None:
                        ctypes.c_int64(es.shape[0]), _ptr(ww, ctypes.c_int64),
                        ctypes.c_int64(cf.shape[0]), _ptr(cf, ctypes.c_int32))
     return cf
+
+
+def greedy_coloring_native(indptr, indices, n) -> tuple | None:
+    """Native natural-order greedy colouring; the same colours as
+    ``solve/smoothers._greedy_coloring_py``.  Returns (colour array,
+    ncolors), or None if the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    ip = np.ascontiguousarray(indptr, dtype=np.int64)
+    ix = np.ascontiguousarray(indices, dtype=np.int32)
+    color = np.zeros(n, dtype=np.int32)
+    nc = lib.greedy_coloring(_ptr(ip, ctypes.c_int64), _ptr(ix, ctypes.c_int32),
+                             ctypes.c_int64(n), _ptr(color, ctypes.c_int32))
+    return color, int(nc)

@@ -231,22 +231,9 @@ def _case_reordered(ring: Ring, case: dict):
             "y_unguarded": _np(ring.all_gather(unguarded))}
 
 
-def _case_not_ported(ring: Ring, case: dict):
-    """The message of the NotImplementedError that distributing and
-    solving with the case's smoother raises (None if nothing raised)."""
-    h = _hierarchy(case)
-    try:
-        dh = distribute_hierarchy(h, ring, case["tail_size"])
-        dist_solve(dh, torch.from_numpy(case["b"]), ring, maxiter=3)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 CASES = {"matrix": _case_matrix, "halo": _case_halo, "spmv": _case_spmv,
          "rect": _case_rect, "distribute": _case_distribute,
-         "solve": _case_solve, "reordered": _case_reordered,
-         "not_ported": _case_not_ported}
+         "solve": _case_solve, "reordered": _case_reordered}
 
 
 def run_cases(ring: Ring, device, cases: list) -> list:

@@ -216,6 +216,14 @@ def _geo_tree(T):
     return {"wm": np.asarray(T.wm), "wp": np.asarray(T.wp), "meta": T.meta}
 
 
+def _bell_tree(B):
+    if B is None:
+        return None
+    return {"data": np.asarray(B.data), "cols": np.asarray(B.cols),
+            "row_nnz": np.asarray(B.row_nnz), "shape": B.shape, "bs": B.bs,
+            "nb_pad": B.nb_pad}
+
+
 def algebraic_tree_from_jax(hier) -> dict:
     """The plain-numpy tree of a JAX algebraic ``Hierarchy`` for
     ``raptor_tpu_torch.setup.convert.algebraic_hierarchy_from_numpy``."""
@@ -225,7 +233,9 @@ def algebraic_tree_from_jax(hier) -> dict:
              "dinv": np.asarray(lv.dinv), "cheb_lmax": _opt(lv.cheb_lmax),
              "n": lv.n, "Aband": _band_tree(lv.Aband),
              "Pband": _band_tree(lv.Pband), "Rband": _band_tree(lv.Rband),
-             "Ahyb": _hyb_tree(lv.Ahyb), "Tgeo": _geo_tree(lv.Tgeo)}
+             "Ahyb": _hyb_tree(lv.Ahyb), "Tgeo": _geo_tree(lv.Tgeo),
+             "color": _opt(lv.color), "ncolors": lv.ncolors,
+             "Abell": _bell_tree(lv.Abell), "binv": _opt(lv.binv)}
             for lv in hier.levels
         ],
         "coarse_inv": np.asarray(hier.coarse_inv),

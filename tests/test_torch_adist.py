@@ -179,10 +179,6 @@ def _cases4(inputs):
         "reordered": dict(kind="reordered", matrix=shuffled_poisson(20),
                           setup_cfg=dict(BAND_CFG, fine_layout="ell"),
                           level=0, tail_size=BAND_TAIL, x=x20),
-        "not_mcgs": dict(_ell_solve(inputs, "jacobi", "V", "cg"),
-                         kind="not_ported", cfg={"smoother": "mcgs"}),
-        "not_tsgs": dict(_ell_solve(inputs, "jacobi", "V", "cg"),
-                         kind="not_ported", cfg={"smoother": "tsgs"}),
         "band_solve": _band_solve(),
         "band_one": _band_solve(solo=True),
         "taps": _ell_solve(inputs, "jacobi", "V", "cg", taps=(2, 2)),
@@ -681,18 +677,3 @@ def test_dist_solve_taps_matches_flat(spmd):
         assert all(out["taps_ext_equal"]) and len(out["taps_ext_equal"]) == 4
         assert out["taps_iterations"] == out["iterations"]
         _close(out["taps_x"], out["x"], TAPS_TOL)
-
-
-# ---------------------------------------------------------------------------
-# what is not ported
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("smoother", ["mcgs", "tsgs"])
-def test_gauss_seidel_smoothers_raise(spmd, smoother):
-    for r in spmd[4].result():
-        assert "not yet ported" in r[f"not_{smoother}"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        from raptor_tpu_torch.config import AmgConfig
-
-        pdist._dist_smooth(None, AmgConfig(smoother=smoother), None, None,
-                           backward=False, sp=None)

@@ -333,26 +333,42 @@ def test_stationary_iteration_converges(thiers):
 # what is not ported yet
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", [
-    "device_levels", "cljp", "aggregation", "mcgs", "aggressive"])
+@pytest.mark.parametrize("case", ["cljp"])
 def test_not_yet_ported_raises(case):
+    A = shuffled_poisson(8)
+    cfg = dict(splitting="cljp", smoother="cheb4")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tapi.setup(A, TCfg(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("case", [
+    "device_levels", "aggregation", "mcgs", "aggressive"])
+def test_formerly_unported_configurations_solve(case):
+    """The configurations that raised before their modules were ported
+    (fat-level refinement on a device level, smoothed aggregation, mcgs,
+    aggressive coarsening) build and reach a true 1e-8 through the refined
+    solve, with the reference's level sizes and iteration count."""
     A = shuffled_poisson(8)
     cfg = dict(splitting="pmis", smoother="cheb4")
     if case == "device_levels":
-        # fat-level Jacobi refinement on a device level (its level 1 is
-        # wider than EXT_DEVICE_MAX_K)
+        # level 1 is wider than EXT_DEVICE_MAX_K
         cfg = dict(cfg, host_setup_threshold=100, interp="extended",
                    fat_interp_refine=1)
-    elif case == "cljp":
-        cfg = dict(cfg, splitting="cljp")
     elif case == "aggregation":
         cfg = dict(cfg, splitting="aggregation", interp="smoothed")
     elif case == "mcgs":
         cfg = dict(cfg, smoother="mcgs")
     elif case == "aggressive":
         cfg = dict(cfg, aggressive=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.setup(A, TCfg(**cfg), device="cpu")
+    b = default_rhs(A.shape[0])
+    sc = dict(tol=1e-8, refine=True)
+    jh = japi.setup(A, JCfg(**cfg))
+    _, ji = japi.solve(A, b, JCfg(**cfg), JSolve(**sc), hier=jh)
+    th = tapi.setup(A, TCfg(**cfg), device="cpu")
+    x, ti = tapi.solve(A, b, TCfg(**cfg), TSolve(**sc), hier=th)
+    assert [lv.n for lv in th.levels] == [lv.n for lv in jh.levels]
+    assert ti["iterations"] == ji["iterations"]
+    assert np.linalg.norm(b - A @ x) / np.linalg.norm(b) <= 1e-8
 
 
 @pytest.mark.parametrize("krylov", ["bicgstab", "gmres", "fgmres"])

@@ -492,6 +492,30 @@ def test_banded_cycle_and_solve_on_card_match_cpu(alg16):
     assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8
 
 
+@pytest.mark.parametrize("smoother", ["mcgs", "tsgs"])
+def test_gauss_seidel_banded_cycle_on_card_matches_cpu(smoother):
+    """An mcgs and a tsgs V-cycle on shuffled 16^3 with banded levels: each
+    colour's residual (mcgs) and the outer residual (tsgs) go through K4,
+    the transfers through K6; the card's cycle against the CPU's."""
+    from raptor_tpu_torch.api import setup
+    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    dev = cuda_device()
+    cfg = AmgConfig(**dict(ALG, smoother=smoother))
+    h = setup(_shuffled(16), cfg, device=dev)
+    assert h.levels[0].Aband is not None
+    if smoother == "mcgs":
+        assert h.levels[0].color is not None and h.levels[0].ncolors > 1
+    hc = h.to("cpu")
+    b = torch.from_numpy(default_rhs(h.levels[0].A.n_rows_pad, dtype=np.float32))
+    before = dict(bk.launches)
+    y = cycle(h, b.to(dev)).cpu()
+    assert bk.launches["K4"] > before.get("K4", 0)
+    assert bk.launches["K6"] > before.get("K6", 0)
+    assert rel_err(y, cycle(hc, b)) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # K4 at every variant its launch plan can pick: bit for bit
 # ---------------------------------------------------------------------------

@@ -230,11 +230,35 @@ def test_fused_level_matches_reference(level_inputs, interp, dtype):
     assert rel_err(to[5].numpy(), np.asarray(jo[5])) <= LMAX_TOL[dtype]
 
 
-def test_fat_interp_refine_raises(level_inputs):
-    _, tA = _pair(level_inputs[(np.float32, "lap27")])
-    cfg = TCfg(splitting="pmis", interp="extended", fat_interp_refine=1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_fused_level(tA, tA.shape[0], cfg, 0)
+@pytest.mark.parametrize("name", ["L1", "L2", "lap27"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_fat_interp_refine_matches_reference(level_inputs, dtype, name):
+    """``fat_interp_refine`` on a fat level (every input here but L0 is
+    wider than EXT_DEVICE_MAX_K): the Jacobi sweep on the
+    strength-compacted ext+i (``aggressive.jacobi_refine_p``) gives the
+    reference's C/F set and P's row sums within TOL.  On the Galerkin
+    levels P, R and Ac also match (structure exact, values within TOL).
+    On lap27's constant 27-point stencil the truncation to p_max chooses
+    among equal weights, which rounding orders (fp64 keeps other entries
+    than the reference there); the kept parts are rescaled to the full
+    row sums, so the sums hold on every input."""
+    jA, tA = _pair(level_inputs[(dtype, name)])
+    n = tA.shape[0]
+    kw = dict(splitting="pmis", interp="extended", fat_interp_refine=1,
+              pad_multiple=128)
+    jo = j_fused_level(jA, n, JCfg(**kw), 0)
+    to = t_fused_level(tA, n, TCfg(**kw), 0)
+    assert to[3] == jo[3] > 0
+    assert np.array_equal(to[6], np.asarray(jo[6]))
+    sums = [np.where(np.arange(P.K)[:, None] < _np(P.row_nnz)[None, :],
+                     _np(P.data), 0).sum(0) for P in (to[0], jo[0])]
+    assert rel_err(*sums) <= TOL[dtype]
+    if name != "lap27":
+        for i, what in enumerate(("P", "R", "Ac")):
+            _same_ell(to[i], jo[i], TOL[dtype], what)
+    # the sweep changed P: it is not the unrefined level's
+    plain = t_fused_level(tA, n, TCfg(**dict(kw, fat_interp_refine=0)), 0)
+    assert not torch.equal(plain[0].data, to[0].data)
 
 
 def test_device_route_leaves_and_host_tail():

@@ -11,6 +11,8 @@ summation order at most).  A run whose expand is forced through row chunks
 port's own unchunked run.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,7 +186,7 @@ def test_merge_sorted_rows_matches_reference(dtype):
         j = jso._merge_sorted_rows(jnp.asarray(cols), jnp.asarray(vals), sent,
                                    k_out)
         t = tso._merge_sorted_rows(torch.from_numpy(cols),
-                                   torch.from_numpy(vals), sent, k_out)
+                                   torch.from_numpy(vals), sent, k_out, W)
         assert np.array_equal(t[0].numpy(), np.asarray(j[0]))
         assert np.array_equal(t[2].numpy(), np.asarray(j[2]))
         assert rel_err(t[1].numpy(), np.asarray(j[1])) <= TOL[dtype]
@@ -219,3 +221,62 @@ def test_chunked_expand_is_bit_equal(monkeypatch):
     assert int(l1) == int(l0) == 2
     for name in ("data", "cols", "row_nnz"):
         assert torch.equal(getattr(C1, name), getattr(C0, name)), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_merge_passes_are_bit_equal_to_slot_scatters(dtype, monkeypatch):
+    """``_merge_sorted_rows`` summing by term position (one pass a
+    position) against summing by slot (one scatter a slot), each forced:
+    the same adds in the same order, bit for bit, with -0.0 and
+    single-term runs among the terms, and with runs beyond k_out dropped
+    alike."""
+    rng = np.random.default_rng(5)
+    W, n, sent = 48, 300, 40
+    cols = np.sort(rng.integers(0, 44, size=(W, n)), axis=0)  # >= 40: invalid
+    cols = np.where(cols >= sent, sent, cols)
+    vals = rng.standard_normal((W, n)).astype(dtype)
+    vals[rng.random((W, n)) < 0.1] = -0.0
+    max_run = int(max(np.unique(c[c < sent], return_counts=True)[1].max(initial=1)
+                      for c in cols.T))
+    c, v = torch.from_numpy(cols), torch.from_numpy(vals)
+    for k_out in (40, 6):
+        monkeypatch.setattr(tso, "_merge_by_passes", lambda *a: False)
+        ref = tso._merge_sorted_rows(c, v, sent, k_out, max_run)
+        monkeypatch.setattr(tso, "_merge_by_passes", lambda *a: True)
+        got = tso._merge_sorted_rows(c, v, sent, k_out, max_run)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert torch.equal(torch.signbit(got[1]), torch.signbit(ref[1]))
+
+
+@pytest.mark.parametrize("case", ["sa", "pmis_extended", "aggressive"])
+def test_run_bounds_hold_on_the_device_routes(case, monkeypatch):
+    """Every caller's run bound holds: the device routes build the same
+    levels, bit for bit, whether every merge sums by slot or by term
+    position (a bound below a real run would drop terms in the second form
+    only): SA (nodal condensation, strength pattern, SpGEMM, ell_add), PMIS
+    with ext+i (its candidate merge) and aggressive coarsening (multipass,
+    Jacobi refinement, filter)."""
+    import raptor_tpu_torch.api as tapi
+    from raptor_tpu_torch.config import PRESETS
+    from raptor_tpu_torch.gallery import anisotropic_2d, elasticity_3d, poisson_3d
+
+    A, B = {"sa": lambda: elasticity_3d(5)[:2],
+            "pmis_extended": lambda: (poisson_3d(12), None),
+            "aggressive": lambda: (anisotropic_2d(24), None)}[case]()
+    preset = {"sa": "config4", "pmis_extended": "config5",
+              "aggressive": "config3"}[case]
+    cfg = dataclasses.replace(PRESETS[preset], host_setup_threshold=0)
+    built = []
+    for passes in (False, True):
+        monkeypatch.setattr(tso, "_merge_by_passes", lambda *a, p=passes: p)
+        built.append(tapi.setup(A, cfg, B=B, device="cpu"))
+    slots, by_pass = built
+    assert [lv.n for lv in slots.levels] == [lv.n for lv in by_pass.levels]
+    for a, b in zip(slots.levels, by_pass.levels):
+        for E, F in ((a.A, b.A), (a.P, b.P)):
+            if E is None:
+                assert F is None
+                continue
+            for name in ("data", "cols", "row_nnz"):
+                assert torch.equal(getattr(E, name), getattr(F, name)), name
