@@ -152,7 +152,34 @@ Phases, each of which raises on failure (there is no CPU path):
     K4's halo form and K6's map_cols form on rank 0's and the last rank's
     tiles of every operator the ranks shard, bit for bit, every launch
     shape of the four ranks among those compared.
-    Phases 18-22 print their wall seconds.
+    Phases 18-22 print their wall seconds;
+23. CLJP: the H2 bit positions drawn on the card for 884,736 rows at
+    rounds 0, 1 and 7 against the reference's sha256 digests; then shuffled
+    CLJP_N^3 and 96^3 with CLJP (ALG_CFG, splitting "cljp") through api.setup
+    and api.solve, every level built on the card (checked before
+    Hierarchy.to), level 0's C/F set drawn again on the card and checked on
+    the host (every F point with a strong influence has a C influence);
+    V-cycles, the refined solve (true <= 1e-8) on counts set to 0 just
+    before it (K4, K5 and K6 each launched, once for each CUDA call of
+    their kind), then K4, K6 and K5 bit for bit at every launch shape of
+    the path, and K4 at the widest banded level timed; at CLJP_N^3 the
+    level sizes are the reference's and the iterations within 1 of its
+    count (the reference has no count at 96^3);
+24. full coarsening on the main path (CFG, dim_policy "size", bf16
+    cast_hierarchy, structured_solve_refined) at 128^3 and 64^3, on counts
+    set to 0 just before each: the reference's plans, true relres <= 1e-8,
+    at 64^3 the reference's iterations +- 1, every CUDA dia_spmv call
+    launching K1 or K2, then K1 (fp32, bf16; 27 offsets) and K2 bit for
+    bit at every launch shape of the path; V-cycle ms and solve seconds
+    beside phase 4's semicoarsening;
+25. the user surface: ``python -m raptor_tpu_torch info`` in a subprocess
+    (names the card); shuffled SURFACE_N^3 written as .rbm and .mtx.gz
+    and read back equal; in process through cli.main: the banded CLJP solve of the
+    .rbm (K4 launched, the written x passing the host fp64 check), bench
+    config2, and bench config5 at 256^3 on one card (the single-device
+    structured route, K2 on the fine level); phase 23's CLJP_N^3
+    hierarchy saved with save_hierarchy, loaded on the card and solved again (the
+    same iterations, x bit-equal).
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -163,10 +190,12 @@ TFLOP/s (H100 SXM, NVIDIA's data sheet).
 
 The line before the last is the kernels' JSON record (K1, K1v1, K2, K3, K4,
 K5, K6, and the sharded forms K4-halo and K6-map_cols, each with the
-launches of its own paths: K4, K5 and K6 those of the 48^3 row and of
-phase 21's refined solve, K4-halo those of rank 0 of phase 17, of phase
-21's two one-rank solves and of rank 0 of phase 22, K6-map_cols those of
-rank 0 of phases 17 and 22); the last line is
+launches of its own paths: K4, K5 and K6 those of the 48^3 row, of
+phase 21's refined solve and of phase 23's two refined solves, K1 and K2
+those of the 128^3 path and of phase 24's two paths, K4-halo those of
+rank 0 of phase 17, of phase 21's two one-rank solves and of rank 0 of
+phase 22, K6-map_cols those of rank 0 of phases 17 and 22); the last line
+is
 {"ok": true, "device": {...}}.
 """
 
@@ -261,6 +290,36 @@ CONFIG4_DEVICE_SIZES_PIN = [324864, 17646, 960, 66, 6]
 CONFIG3_FULL_N = 768
 # phase 22: the four-rank mcgs solve's shuffled grid
 MCGS4_N = 48
+# phase 23: CLJP (ALG_CFG with splitting "cljp"): all levels built on the
+# card.  The reference's CLJP build compiles one program a level on the
+# CPU (32^3: 453 s; 48^3: 43 minutes, and its solve past 25 GB of host
+# memory), so the sizes and iterations pinned are its CLJP_N^3 ones; 96^3
+# runs too, checked by its own relres and kernels
+CLJP_CFG = dict(ALG_CFG, splitting="cljp")
+CLJP_N, CLJP_N_WIDE = 32, 96
+# the reference's level sizes and refined-solve iterations at shuffled
+# CLJP_N^3 (raptor_tpu.api.setup and solve on the CPU)
+CLJP_SIZES = [32768, 16384, 7645, 3395, 1781, 925, 498, 278, 152, 74, 34]
+CLJP_ITERS = 6
+# sha256 of the reference's CLJP bit positions, jax.random.randint(
+# fold_in(PRNGKey(17), it), (884736,), 0, 31, int32), as little-endian int32
+CLJP_BITS_N = 884736
+CLJP_BITS_SHA256 = {
+    0: "b124b7e9351d278161922fc5253705ad9aa8d9404fccd9461f76305d511b703d",
+    1: "cad12691254f4be11a9b4ac8c372ee9d109086428ed92cb332b8edd925aec833",
+    7: "e9bce0771c893a1695ebb7b5d9bc74e9cd7531849f71ee7ed2c8ae1006a02885"}
+# phase 24: full coarsening on the main path (CFG, dim_policy "size");
+# the reference's plan_coarsening at 128^3 and 64^3 (host arithmetic) and
+# its refined-solve iterations at 64^3 (its 128^3 solve is not run on the
+# CPU); 128^3 is checked by its plan, relres and kernels
+FC_CFG = dict(CFG, full_coarsening=True)
+FC_PLANS = {128: (-2, -2, -2, -2), 64: (-2, -2, -2)}
+FC_ITERS = 7  # at 64^3
+FC_ITERS_N = 64
+# phase 25: the CLI and I/O on shuffled SURFACE_N^3; files go under the
+# checkout's build/
+SURFACE_N = 48
+SMOKE_DIR = "build/chip_smoke"
 
 
 def stencil_7pt() -> np.ndarray:
@@ -2729,6 +2788,382 @@ def phase_mcgs_ranks(dev, krec) -> dict:
             "launches_by_shape": outs[0]["shapes"], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: CLJP, full coarsening, the user surface
+# ---------------------------------------------------------------------------
+
+def cljp_bits_digests(dev) -> dict:
+    """The CLJP bit positions drawn on the card for n = CLJP_BITS_N at the
+    pinned rounds, against the reference's digests."""
+    import hashlib
+
+    from raptor_tpu_torch.utils.threefry import cljp_bits
+
+    out = {}
+    for it, want in CLJP_BITS_SHA256.items():
+        bits = cljp_bits(it, CLJP_BITS_N, device=dev)
+        if bits.device != dev:
+            raise AssertionError("the CLJP bits were not drawn on the card")
+        got = hashlib.sha256(bits.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        print(f"[cljp] threefry bits n={CLJP_BITS_N} round {it}: sha256 {got}")
+        if got != want:
+            raise AssertionError(f"CLJP bits of round {it}: {got}, the "
+                                 f"reference's {want}")
+        out[it] = got
+    return out
+
+
+def cljp_invariant(dev, h, cfg) -> int:
+    """Level 0's C/F set drawn again on the card as build_hierarchy draws
+    it (the strength graph of the RCM-ordered operator, weights keyed on
+    the original row ids), checked on the host: every F point with a
+    strong influence has a C influence, and the C count is level 1's size.
+    Returns the C count."""
+    from raptor_tpu_torch.setup.cljp import cljp_splitting
+    from raptor_tpu_torch.setup.splitting import C_PT, make_perm_ids
+    from raptor_tpu_torch.setup.strength import strength_mask
+
+    E = h.levels[0].A
+    n = E.shape[0]
+    sm = strength_mask(E, cfg.theta, cfg.strength)
+    perm = make_perm_ids(h.perm[:n].cpu().numpy(), E.n_rows_pad, cfg.seed,
+                         device=dev)
+    cf = cljp_splitting(E, sm, perm)
+    if cf.device != dev:
+        raise AssertionError("the C/F set was not drawn on the card")
+    cf, smh, cols = cf.cpu().numpy(), sm.cpu().numpy(), E.cols.cpu().numpy()
+    is_c = cf == C_PT
+    strong_c = (smh & is_c[cols]).any(0)
+    bad = np.flatnonzero(~is_c[:n] & smh[:, :n].any(0) & ~strong_c[:n])
+    nc = int(is_c[:n].sum())
+    print(f"[cljp] level 0 C/F set on the card: {nc} C points, {len(bad)} F "
+          "points with a strong influence and no C influence")
+    if len(bad) or nc != h.levels[1].n:
+        raise AssertionError(f"CLJP invariant: {len(bad)} F points without a "
+                             f"C influence, {nc} C points against level 1's "
+                             f"{h.levels[1].n}")
+    return nc
+
+
+def phase_cljp(dev, krec, nx: int) -> tuple:
+    """Phase 23: CLJP on shuffled nx^3 through api.setup and api.solve on
+    the card: every level built there (checked before Hierarchy.to), the
+    C/F invariant of level 0, V-cycles, the refined solve on counts set to
+    0 just before it (K4, K5 and K6 each launched, once for each CUDA call
+    of their kind), then every launch shape against its plain version.
+    At CLJP_N the sizes and iterations are the reference's."""
+    from raptor_tpu_torch import AmgConfig, SolveConfig, solve
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.solve.cycle import cycle
+
+    t_phase = time.perf_counter()
+    tag = f"cljp{nx}"
+    A = shuffled_poisson(nx)
+    n = A.shape[0]
+    cfg = AmgConfig(**CLJP_CFG)
+    h, rec = timed_setup(tag, A, cfg, dev, every_level=True)
+    sizes = [lv.n for lv in h.levels]
+    print(f"[{tag}] sizes {sizes}; {rec['device_levels']} of {len(sizes)} "
+          "levels built on the card")
+    _print_levels(tag, h)
+    if rec["device_levels"] != len(sizes) or h.levels[0].Aband is None:
+        raise AssertionError(f"{tag}: not every level built on the card, or "
+                             "no banded layout")
+    if nx == CLJP_N and sizes != CLJP_SIZES:
+        raise AssertionError(f"{tag}: sizes {sizes}, the reference's {CLJP_SIZES}")
+    nc = cljp_invariant(dev, h, cfg)
+
+    b = np.ones(n)
+    bd = pad_vector(b.astype(np.float32), h.levels[0].A.n_rows_pad, device=dev)
+    y = cycle(h, bd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CYCLES):
+        y = cycle(h, bd)
+    torch.cuda.synchronize()
+    vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"{tag}: V-cycle output not finite")
+
+    sc = SolveConfig(tol=MAX_RELRES, refine=True)
+    clear_banded_counts()
+    t0 = time.perf_counter()
+    x, info = solve(A, b, cfg, sc, hier=h)
+    torch.cuda.synchronize()
+    sol = time.perf_counter() - t0
+    launches, rows = banded_proof(tag)
+    iters = int(info["iterations"])
+    relres = _true_relres(A, x, b)
+    print(f"[{tag}] setup {rec['s']:.3f} s, V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} "
+          f"DOF/s, {N_CYCLES} cycles between syncs), api.solve {sol:.3f} s, "
+          f"{iters} PCG iterations, certified {info['relres']:.3e}, true fp64 "
+          f"relres {relres:.3e}")
+    if x.shape != (n,) or not np.isfinite(x).all():
+        raise AssertionError(f"{tag}: solution not finite or misshapen")
+    if not relres <= MAX_RELRES:
+        raise AssertionError(f"{tag}: true relres {relres} > {MAX_RELRES}")
+    if nx == CLJP_N and abs(iters - CLJP_ITERS) > 1:
+        raise AssertionError(f"{tag}: {iters} iterations, the reference's "
+                             f"{CLJP_ITERS}")
+    key = f"shapes_{tag}"
+    phase_banded_shapes(dev, f"cljp {nx}^3", h, A, krec, rows, key)
+    excess = banded_excess(tag, krec, rows, key)
+    # K4 at the widest banded level
+    wide = max((lv for lv in h.levels if lv.Aband is not None),
+               key=lambda lv: lv.Aband.meta[0])
+    wk = wide.Aband.meta[0]
+    k4_wide = krec["K4"][key][(wide.Aband.n_pad, wk)]
+    print(f"[{tag}] K4 at the widest banded level (n={wide.n}, K {wk}): "
+          f"{k4_wide[0] * 1e3:.1f} us L2-warm, bound {k4_wide[2] * 1e3:.1f} us")
+    wall = time.perf_counter() - t_phase
+    print(f"[{tag}] phase 23 at {nx}^3: {wall:.1f} s")
+    return {"n": n, "sizes": sizes, "c_points_l0": nc, "setup_s": rec["s"],
+            "device_levels": rec["device_levels"],
+            "peak_mem_gib": rec["peak_mem_gib"], "vcycle_ms": vc,
+            "solve_s": sol, "iters": iters, "relres": relres,
+            "certified": float(info["relres"]), "launches": launches,
+            "launches_by_shape": rows, "excess_ms": excess,
+            "k4_widest": {"K": wk, "n": wide.n, "warm_ms": k4_wide[0],
+                          "bound_ms": k4_wide[2]},
+            "wall_s": wall}, h, x
+
+
+def phase_full(dev, krec, nx: int) -> dict:
+    """Phase 24: the structured main path with full coarsening at nx^3
+    (CFG, dim_policy 'size', bf16 cast_hierarchy, structured_solve_refined)
+    on counts set to 0 just before it: the reference's plan, every CUDA
+    dia_spmv call launching K1 or K2; then K1 (fp32 and bf16) and K2 bit
+    for bit at every launch shape of the path."""
+    from raptor_tpu_torch import (AmgConfig, build_structured_hierarchy,
+                                  cast_hierarchy, dia_from_stencil, scycle,
+                                  structured_solve_refined)
+    from raptor_tpu_torch.gallery import default_rhs, stencil_grid
+    from raptor_tpu_torch.ops.cuda.dia_kernel import (dia_spmv_const,
+                                                      dia_spmv_const_ref,
+                                                      dia_spmv_v2,
+                                                      dia_spmv_v2_ref,
+                                                      launches,
+                                                      launches_by_shape)
+    from raptor_tpu_torch.structured.dia import cuda_calls
+
+    t_phase = time.perf_counter()
+    tag = f"full{nx}"
+    st = stencil_7pt()
+    dims = (nx,) * 3
+    n = nx ** 3
+    cfg = AmgConfig(**FC_CFG)
+    A = dia_from_stencil(st, dims, device=dev)
+    b = torch.from_numpy(default_rhs(n, dtype=np.float32)).to(dev)
+    launches.clear()
+    launches_by_shape.clear()
+    cuda_calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = build_structured_hierarchy(A, cfg, dim_policy="size")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    plan = tuple(lv.cdim for lv in h.levels[:-1])
+    print(f"[{tag}] setup {setup_s:.3f} s, plan {plan}, {len(h.levels)} levels, "
+          f"dense tail from L{h.tail_start}")
+    for lv in h.levels:
+        print(f"[{tag}]   dims {lv.dims} n_off {lv.A.n_off} cdim {lv.cdim}"
+              + ("" if lv.Pt is None else f" Pt/Rt offsets {len(lv.Pt.offsets)}"))
+    if plan != tuple(FC_PLANS[nx]):
+        raise AssertionError(f"{tag}: plan {plan}, the reference's {FC_PLANS[nx]}")
+    hM = cast_hierarchy(h, torch.bfloat16)
+    y = scycle(hM, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CYCLES):
+        y = scycle(hM, b)
+    torch.cuda.synchronize()
+    vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"{tag}: V-cycle output not finite")
+    structured_solve_refined(h, b, tol=MAX_RELRES, M_hier=hM)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (xh, xl), rel, iters = structured_solve_refined(h, b, tol=MAX_RELRES,
+                                                    M_hier=hM)
+    torch.cuda.synchronize()
+    sol = time.perf_counter() - t0
+    k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
+    rows = by_shape(tag, launches_by_shape, ("K1", "K2"))
+    print(f"[proof] {tag} path: {calls} CUDA dia_spmv calls, {k1} K1 launches, "
+          f"{k2} K2 launches")
+    if k1 + k2 != calls or k1 == 0 or k2 == 0:
+        raise AssertionError(f"the {tag} path did not run through the kernels")
+    x64 = xh.double().cpu().numpy() + xl.double().cpu().numpy()
+    b64 = b.double().cpu().numpy()
+    relres = float(np.linalg.norm(b64 - stencil_grid(st, dims) @ x64)
+                   / np.linalg.norm(b64))
+    print(f"[{tag}] V-cycle bf16 {vc:.3f} ms ({n / vc * 1e3:.4g} DOF/s), refined "
+          f"solve {sol:.3f} s, {int(iters)} PCG iterations, certified "
+          f"{float(rel):.3e}, true fp64 relres {relres:.3e}")
+    if not np.isfinite(x64).all() or not relres <= MAX_RELRES:
+        raise AssertionError(f"{tag}: true relres {relres} > {MAX_RELRES}")
+    if nx == FC_ITERS_N and abs(int(iters) - FC_ITERS) > 1:
+        raise AssertionError(f"{tag}: {int(iters)} iterations, the reference's "
+                             f"{FC_ITERS}")
+    # every launch shape of the path against its plain version, each timed
+    # (L2-warm) beside its bound: planes (none for K2) + x + y, 2
+    # operations an offset a row
+    gen = torch.Generator(device=dev).manual_seed(11)
+    timed = {}
+    for hh in (h, hM):
+        for lv in hh.levels:
+            for M in (lv.A, lv.Pt, lv.Rt):
+                if M is None:
+                    continue
+                x = torch.randn(M.n, generator=gen, device=dev)
+                n_off = len(M.offsets)
+                if M.const_planes is not None:
+                    key = ("K2", M.n, n_off, "float32")
+                    args = (M.const_planes, M.offsets, M.dims, x)
+                    fn, ref, moved = dia_spmv_const, dia_spmv_const_ref, 8 * M.n
+                else:
+                    dt = str(M.data.dtype).removeprefix("torch.")
+                    key = ("K1", M.n, n_off, dt)
+                    args = (M.data, M.linear_offsets(), x)
+                    fn, ref = dia_spmv_v2, dia_spmv_v2_ref
+                    moved = M.data.numel() * M.data.element_size() + 8 * M.n
+                if key in timed:
+                    continue
+                k = key[0]
+                krec[k]["err"] = max(krec[k]["err"], _equal(
+                    f"{k} {tag} {M.dims} {n_off} offsets {key[3]}",
+                    fn(*args), ref(*args)))
+                warm = cuda_ms(lambda: fn(*args))
+                bms, by = bound(moved, 2 * n_off * M.n)
+                timed[key] = (warm, bms)
+                print(f"[kernel] {k} {tag} n={M.n} {n_off} offsets {key[3]}: "
+                      f"{warm * 1e3:.2f} us L2-warm, bound {bms * 1e3:.2f} us "
+                      f"({by}) (device time, graph replay)")
+    covered(tag, rows, set(timed))
+    excess = {k: sum(c * (timed[(k, n, w, dt)][0] - timed[(k, n, w, dt)][1])
+                     for k2, n, w, dt, c in rows if k2 == k)
+              for k in ("K1", "K2")}
+    print(f"[kernel] {tag}: sum over the path's shapes of launches x (L2-warm "
+          f"- bound): K1 {excess['K1']:.4f} ms, K2 {excess['K2']:.4f} ms")
+    wall = time.perf_counter() - t_phase
+    print(f"[{tag}] phase 24 at {nx}^3: {wall:.1f} s")
+    return {"n": n, "plan": list(plan), "levels": len(h.levels),
+            "setup_s": setup_s, "vcycle_bf16_ms": vc, "solve_s": sol,
+            "iters": int(iters), "relres": relres,
+            "launches": {"K1": k1, "K2": k2}, "launches_by_shape": rows,
+            "shapes": {" ".join(map(str, key)): v for key, v in timed.items()},
+            "excess_ms": excess, "wall_s": wall}
+
+
+def _cli(argv: list) -> dict:
+    """raptor_tpu_torch.cli.main(argv) in this process: its JSON line."""
+    import io
+
+    from raptor_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"[cli] {' '.join(argv)}: {line[:400]}")
+    return json.loads(line)
+
+
+def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
+    """Phase 25: the user surface.  ``python -m raptor_tpu_torch info`` in
+    a subprocess; shuffled SURFACE_N^3 written as .rbm and .mtx.gz and read
+    back;
+    the CLI's banded CLJP solve of the .rbm (K4 launched, the written x
+    checked by a host fp64 residual), bench config2 and bench config5 (one
+    card: the single-device structured route, K2 on the fine level); phase
+    23's hierarchy saved, loaded on the card and solved again (the same
+    iterations, x bit-equal)."""
+    import os
+    import sys
+
+    from raptor_tpu_torch import AmgConfig, SolveConfig, solve
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import banded_kernel
+    from raptor_tpu_torch.ops.cuda import dia_kernel
+    from raptor_tpu_torch.utils.checkpoint import load_hierarchy, save_hierarchy
+    from raptor_tpu_torch.utils.io import read_matrix, read_vector, write_matrix
+
+    t_phase = time.perf_counter()
+    out = {}
+    proc = subprocess.run([sys.executable, "-m", "raptor_tpu_torch", "info"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m raptor_tpu_torch info: {proc.stderr}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[cli] python -m raptor_tpu_torch info: {info}")
+    if (info["backend"] != "cuda"
+            or torch.cuda.get_device_name(0) not in info["devices"]):
+        raise AssertionError("the CLI's info does not name the card")
+    out["info"] = info
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    A = shuffled_poisson(SURFACE_N)
+    t0 = time.perf_counter()
+    for ext in ("rbm", "mtx.gz"):
+        path = os.path.join(SMOKE_DIR, f"A{SURFACE_N}.{ext}")
+        write_matrix(path, A)
+        B = read_matrix(path)
+        if B.shape != A.shape or (B != A).nnz:
+            raise AssertionError(f"{path} did not read back equal")
+    out["io_s"] = time.perf_counter() - t0
+    print(f"[io] shuffled {SURFACE_N}^3 written and read back as .rbm and .mtx.gz: "
+          f"{out['io_s']:.1f} s")
+
+    xpath = os.path.join(SMOKE_DIR, "x.npy")
+    clear_banded_counts()
+    r = _cli(["solve", "--matrix", os.path.join(SMOKE_DIR, f"A{SURFACE_N}.rbm"),
+              "--layout", "banded", "--splitting", "cljp", "--out", xpath])
+    k4 = banded_kernel.launches["K4"]
+    x = read_vector(xpath)
+    b = default_rhs(A.shape[0])
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    print(f"[cli] banded CLJP solve: {r['iterations']} iterations, K4 "
+          f"{k4} launches, the written x's true fp64 relres {relres:.3e}")
+    if k4 == 0 or not relres <= MAX_RELRES:
+        raise AssertionError(f"CLI solve: K4 {k4} launches, relres {relres}")
+    out["solve"] = dict(r, k4_launches=k4, true_relres=relres)
+
+    r = _cli(["bench", "--preset", "config2"])
+    if not r["relres"] <= 1e-6:
+        raise AssertionError(f"bench config2: relres {r['relres']}")
+    out["config2"] = r
+    dia_kernel.launches_by_shape.clear()
+    r = _cli(["bench", "--preset", "config5"])
+    k2 = dia_kernel.launches_by_shape[("K2", 256 ** 3, 7, "float32")]
+    print(f"[cli] bench config5: K2 {k2} launches on the 256^3 fine level")
+    if (not r["relres"] <= 1e-6 or k2 == 0
+            or r["problem"] != "poisson3d n=256 (structured, 1 device(s))"):
+        raise AssertionError(f"bench config5: {r}, K2 {k2} launches")
+    out["config5"] = dict(r, k2_launches=k2)
+
+    path = os.path.join(SMOKE_DIR, f"cljp{CLJP_N}")
+    t0 = time.perf_counter()
+    save_hierarchy(path, h_cljp)
+    h2 = load_hierarchy(path, dev)
+    ck_s = time.perf_counter() - t0
+    A = shuffled_poisson(CLJP_N)
+    b1 = np.ones(A.shape[0])
+    cfg = AmgConfig(**CLJP_CFG)
+    x2, info2 = solve(A, b1, cfg, SolveConfig(tol=MAX_RELRES, refine=True),
+                      hier=h2)
+    same = bool(np.array_equal(x2, x_cljp))
+    print(f"[ckpt] phase 23's hierarchy saved and loaded on the card in "
+          f"{ck_s:.2f} s ({os.path.getsize(path + '.pt') / 2**20:.1f} MiB): "
+          f"{info2['iterations']} iterations (phase 23: {iters_cljp}), x "
+          f"bit-equal: {same}")
+    if info2["iterations"] != iters_cljp or not same:
+        raise AssertionError("the loaded hierarchy does not solve as the saved one")
+    out["checkpoint"] = {"s": ck_s, "iters": info2["iterations"]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[cli] phase 25: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     # the CSR yardsticks are built from checked indices; PyTorch warns on
     # every sparse CSR tensor that its support is in beta
@@ -2840,10 +3275,33 @@ def main() -> None:
                                  + mcgs4["launches"][0]["K4-halo"])
     launch_counts["K6-map_cols"] += mcgs4["launches"][0]["K6-map_cols"]
 
+    # phases 23-25: CLJP, full coarsening and the user surface; the new
+    # paths' launches are added to the kernels line
+    torch.cuda.empty_cache()
+    cljp = {"bits_sha256": cljp_bits_digests(dev)}
+    cljp[str(CLJP_N)], h_cljp, x_cljp = phase_cljp(dev, rec, CLJP_N)
+    cljp[str(CLJP_N_WIDE)], _, _ = phase_cljp(dev, rec, CLJP_N_WIDE)
+    torch.cuda.empty_cache()
+    full = {str(nx): phase_full(dev, rec, nx) for nx in (SIZE, FC_ITERS_N)}
+    print(f"[full] 128^3 full coarsening: V-cycle bf16 "
+          f"{full[str(SIZE)]['vcycle_bf16_ms']:.3f} ms, solve "
+          f"{full[str(SIZE)]['solve_s']:.3f} s, {full[str(SIZE)]['iters']} "
+          f"iterations; semicoarsening (phase 4): V-cycle bf16 "
+          f"{main_rec['vcycle_bf16_ms']:.3f} ms, solve {main_rec['solve_s']:.3f} "
+          f"s, {main_rec['iters']} iterations")
+    surface = phase_surface(dev, h_cljp, x_cljp, cljp[str(CLJP_N)]["iters"])
+    for r in (cljp[str(CLJP_N)], cljp[str(CLJP_N_WIDE)]):
+        for k in ("K4", "K5", "K6"):
+            launch_counts[k] += r["launches"][k]
+    for r in full.values():
+        for k in ("K1", "K2"):
+            launch_counts[k] += r["launches"][k]
+
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
                       "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4, "configs": configs,
-                      "mcgs96": mcgs96, "mcgs_ranks": mcgs4}))
+                      "mcgs96": mcgs96, "mcgs_ranks": mcgs4, "cljp": cljp,
+                      "full": full, "surface": surface}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",

@@ -1,22 +1,30 @@
 """raptor_tpu_torch — the algebraic-multigrid solver of ``raptor_tpu``
 ported to PyTorch, with hand-written CUDA kernels for Hopper.
 
-What is ported so far:
+Everything the JAX package does on one device is ported:
 
-* the structured (DIA) engine's main path: stencil operators,
-  semicoarsening setup, V-/W-cycles with five smoothers, PCG and the
-  df64-certified refined solve;
-* the plane-sharded structured engine (config 5) over torch.distributed:
-  one process per rank, halo shifts over NCCL or host-staged gloo
-  (``parallel/comm.py``), the block-by-block setup and the sharded cycle
-  and solve (``structured/dist.py``, ``structured/dist_setup.py``);
+* the structured (DIA) engine: stencil operators, semicoarsening and full
+  coarsening (BoxMG-style staged interpolation), V-/W-cycles with five
+  smoothers, the folded dense coarse tail, PCG and the df64-certified
+  refined solve;
+* the algebraic engine (``setup``/``solve`` on a scipy CSR matrix): RS,
+  PMIS and CLJP splittings, aggressive coarsening with multipass
+  interpolation, direct, classical and extended+i interpolation, smoothed
+  aggregation; levels above ``host_setup_threshold`` (CLJP levels at every
+  size) built with tensors on the device, the rest on the host in NumPy;
+  the ELL, BlockELL, RCM-banded and DIA-plane layouts; jacobi, chebyshev,
+  cheb4, multicolor and two-stage Gauss-Seidel and the block smoothers;
 * PCG, BiCGStab and (F)GMRES with an injectable inner product;
-* the algebraic engine's banded general-matrix path: ``setup``/``solve``
-  on a scipy CSR matrix with the host (NumPy) level loop (RS or PMIS;
-  direct, classical or extended interpolation), the RCM-banded layouts,
-  V-/W-cycles with jacobi, chebyshev and cheb4, PCG and the df64-refined
-  solve;
+* the plane-sharded structured engine (config 5) and the algebraic
+  sharded solve (``distribute_hierarchy``, ``dist_solve``, TAPS) over
+  torch.distributed;
+* matrix and vector file I/O, hierarchy and solver-state checkpoints,
+  profiling hooks, and the command line (``python -m raptor_tpu_torch``);
 * the JAX-free configuration and stencil gallery.
+
+The sharded setup of the algebraic engine (the reference's
+``parallel/dist_setup.py`` and ``dist_sa.py``) is not ported yet: its
+sharded solve runs on a hierarchy built on one device.
 
 The DIA (plain and halo-extended), banded and rectangular SpMVs and the
 banded df64 residual run through the kernels of ``raptor_tpu_torch/csrc``
@@ -55,6 +63,8 @@ from raptor_tpu_torch.core.ell import EllMatrix
 from raptor_tpu_torch.core.hybrid import BandedMatrix, RectBanded
 from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
 from raptor_tpu_torch.api import setup, solve, solve_hier, solve_hier_refined
+from raptor_tpu_torch.utils.io import (read_matrix, read_vector, write_matrix,
+                                       write_vector)
 
 __all__ = [
     "AmgConfig",
@@ -94,4 +104,8 @@ __all__ = [
     "EllMatrix",
     "BandedMatrix",
     "RectBanded",
+    "read_matrix",
+    "read_vector",
+    "write_matrix",
+    "write_vector",
 ]

@@ -35,7 +35,6 @@ from raptor_tpu_torch.setup.hierarchy import (
     attach_residual_lo,
     build_hierarchy,
     cast_hierarchy_algebraic,
-    check_ported,
     hierarchy_stats,
 )
 from raptor_tpu_torch.solve.cycle import (apply_op, cycle, make_preconditioner,
@@ -62,7 +61,6 @@ def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, B=None, *,
     ``B``: optional (n, nc) near-nullspace candidates for smoothed
     aggregation (rigid body modes for elasticity); the classical paths
     ignore it."""
-    check_ported(config)
     if config.splitting == "aggregation" or config.interp == "smoothed":
         from raptor_tpu_torch.setup.aggregation import build_sa_hierarchy
 

@@ -341,11 +341,14 @@ def banded_from_ell(E: EllMatrix, tile: int = 1024,
         BandedPlanError,
         banded_plan,
         banded_plan_split,
+        slots_fit,
     )
 
     if E.n_rows_pad % tile != 0:
         return None
     vals, cols, nnz = _np(E.data), _np(E.cols), _np(E.row_nnz)
+    if not slots_fit(E.K, tile, vals.dtype.itemsize):
+        return None  # every plan, in any ordering, would raise
     try:
         plan, far = banded_plan(cols, nnz, vals, tile=tile), None
     except BandedPlanError:

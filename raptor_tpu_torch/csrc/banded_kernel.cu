@@ -36,7 +36,7 @@
 #include "hopper_copy.cuh"
 
 #define RAPTOR_BANDED_THREADS 256
-#define RAPTOR_MAX_SLOTS 256
+#define RAPTOR_MAX_SLOTS 1024
 #define RAPTOR_PAGE 1024
 // the slot count a live mask covers, rows per thread, the most live slots
 // the loop-free kernels take, slots per chunk of the looping kernels

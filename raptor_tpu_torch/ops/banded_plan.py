@@ -30,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["BandedPlanError", "banded_plan", "banded_plan_split",
-           "banded_plan_rect", "banded_plan_rect_split", "LANE", "PAGE"]
+           "banded_plan_rect", "banded_plan_rect_split", "slots_fit", "LANE",
+           "PAGE"]
 
 LANE = 128
 SUB = 8
@@ -59,6 +60,15 @@ def _check_plan_bounds(kh: int, npage: int, K: int, tile: int,
         raise BandedPlanError(
             f"{what}: bandwidth too large for the paged-gather kernel "
             f"(kh={kh}, npage={npage}, est VMEM={vmem >> 20}MiB)")
+
+
+def slots_fit(K: int, tile: int, itemsize: int) -> bool:
+    """Whether a plan of ``K`` slots can pass ``_check_plan_bounds`` at all:
+    its VMEM estimate at the narrowest window (kh = 0).  No ordering and no
+    near/far split lowers K (both keep every slot), so a False here means
+    every plan of the matrix raises."""
+    return 2 * (2 * tile * itemsize + 2 * K * tile * max(itemsize, 4)) \
+        <= VMEM_BUDGET
 
 
 def _blk(a, K, T, tile, dtype):

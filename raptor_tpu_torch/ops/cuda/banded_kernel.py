@@ -61,7 +61,7 @@ __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_halo",
            "banded_df64_residual_tiled_ref", "BandedLaunch", "live_slots",
            "launches", "launches_by_shape"]
 
-MAX_SLOTS = 256  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
+MAX_SLOTS = 1024  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
 # K4, K5 and K6 (csrc/banded_kernel.cu): the slots a live mask covers,
 # rows per thread, the most live slots of the loop-free kernels and the
 # looping kernels' slots per chunk, threads per block at most and at least,

@@ -6,9 +6,10 @@ distance-2 splitting with multipass interpolation; direct, classical or
 extended interpolation; Galerkin RAP).  Smoothed aggregation has its own
 loop (``setup/aggregation.py``).  Levels with ``n >
 AmgConfig.host_setup_threshold`` are built with tensors on the caller's
-device (the device route: ``_fused_level`` for PMIS, ``_unfused_level``
-for RS, ``_geo_chain`` for geo-split levels); smaller ones on the host in
-NumPy (``setup/host_setup.py``), with bit-identical splittings.  Given grid
+device (the device route: ``_fused_level`` for PMIS and CLJP,
+``_unfused_level`` for RS, ``_geo_chain`` for geo-split levels); smaller
+ones on the host in NumPy (``setup/host_setup.py``), with bit-identical
+splittings.  Given grid
 extents (``geo``), both routes build geo-split levels (alternating
 semicoarsening) until the grid is exhausted or a level's coarsened
 dimension is weakly coupled.  ``Hierarchy.to(device)`` moves the finished
@@ -19,12 +20,17 @@ chain's RAP width overflow (``leftover``) is read with the chain's one host
 read and raises, and the chain's last planes go to the coarsest level when
 the loop ends right after a chain.
 
-Not ported yet (it raises ``NotImplementedError``): CLJP.
+CLJP levels (``setup/cljp.py``) are built on the device at every size, as
+in the reference, whose host tail takes RS and PMIS only: the level loop
+goes on below ``host_setup_threshold`` down to ``coarse_size``, and the
+coarsest level is inverted on the device.
 
-One difference from the reference's device route, a repair: the
-aggressive device level filters the row identities (``row_ids``) by its
-C points as the other levels do, where the reference leaves them stale
-and its host tail then fails to index them.
+Two differences from the reference's device route, repairs: a CLJP
+hierarchy on a detected grid leaves the geo chain at the threshold and
+goes on with CLJP levels, where the reference plans an empty chain there
+and fails; and the aggressive device level filters the row identities
+(``row_ids``) by its C points as the other levels do, where the reference
+leaves them stale and its host tail then fails to index them.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.core.ell import EllMatrix, _np, ell_from_csr, pad_rows, to_tensor
 
 __all__ = ["Level", "Hierarchy", "build_hierarchy", "hierarchy_stats",
-           "cast_hierarchy_algebraic", "attach_residual_lo", "check_ported"]
+           "cast_hierarchy_algebraic", "attach_residual_lo"]
 
 def _to(x, device):
     if x is None:
@@ -137,10 +143,10 @@ def _geo_cf(n: int, n_pad: int, exts: list, d: int) -> tuple:
         np.int32), stride
 
 
-def check_ported(config: AmgConfig) -> None:
-    """Raise for the configurations whose setup is not ported (CLJP)."""
-    if config.splitting == "cljp":
-        raise NotImplementedError("CLJP splitting is not yet ported")
+def _host_tail_takes(config: AmgConfig) -> bool:
+    """Whether the host route builds the levels below the threshold: it
+    takes RS and PMIS only, so CLJP levels stay on the device."""
+    return config.splitting in ("rs", "pmis")
 
 
 def attach_residual_lo(hier: Hierarchy, A_sp) -> Hierarchy:
@@ -297,18 +303,24 @@ def _interpolate(A: EllMatrix, smask, cf, interp: str, p_max: int):
 
 def _level_phase1(A: EllMatrix, perm, *, theta, strength_kind, splitting,
                   interp, want_lmax, p_max=4):
-    """First half of one device level: strength -> PMIS -> interpolation ->
-    width measurements -> smoother scalars.  Returns (P at the fine column
-    space, dinv, lmax or None, cf, (nc, w_T, w_P) as one int64 tensor)."""
+    """First half of one device level: strength -> PMIS or CLJP ->
+    interpolation -> width measurements -> smoother scalars.  Returns (P
+    at the fine column space, dinv, lmax or None, cf, (nc, w_T, w_P) as one
+    int64 tensor)."""
     from raptor_tpu_torch.ops.sparse_ops import _transpose_col_counts
     from raptor_tpu_torch.setup.splitting import pmis_splitting
     from raptor_tpu_torch.setup.strength import strength_mask
     from raptor_tpu_torch.solve.smoothers import estimate_lmax
 
-    if splitting != "pmis":
-        raise ValueError(f"unfusable splitting: {splitting}")
     smask = strength_mask(A, theta, strength_kind)
-    cf = pmis_splitting(A, smask, perm)
+    if splitting == "pmis":
+        cf = pmis_splitting(A, smask, perm)
+    elif splitting == "cljp":
+        from raptor_tpu_torch.setup.cljp import cljp_splitting
+
+        cf = cljp_splitting(A, smask, perm)
+    else:
+        raise ValueError(f"unfusable splitting: {splitting}")
     P, nc = _interpolate(A, smask, cf, interp, p_max)
     # w_P: the true max row width of P; the host slices P's slot axis to
     # bucket8(w_P) before the SpGEMMs (the builders emit a static bound)
@@ -342,9 +354,9 @@ def _level_phase2(A: EllMatrix, P: EllMatrix, *, k_T, k_AP, k_Ac, nc,
 
 def _fused_level(A: EllMatrix, n: int, config: AmgConfig, seed: int,
                  perm=None):
-    """One PMIS level on the device through the two level programs, with
-    three host reads: the coarse size and widths (with cf), the A·P width,
-    and Ac's width and leftover.  Returns (P, R, Ac, nc, dinv,
+    """One PMIS or CLJP level on the device through the two level programs,
+    with three host reads: the coarse size and widths (with cf), the A·P
+    width, and Ac's width and leftover.  Returns (P, R, Ac, nc, dinv,
     lmax_or_None, cf as host int32) with Ac compacted to its (bucketed)
     true width; P, R and Ac are None when the level does not coarsen."""
     from raptor_tpu_torch.ops.sparse_ops import _spgemm_width, _transpose_col_counts
@@ -701,11 +713,12 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
                     geo: "list | None" = None, *, device) -> Hierarchy:
     """Build an AMG hierarchy from a scipy.sparse matrix or an EllMatrix.
 
-    Levels with ``n > config.host_setup_threshold`` are built with tensors
-    on ``device`` (the device route): the geo chain while the grid lasts,
-    PMIS levels through ``_fused_level``, aggressive levels through
-    ``_aggressive_level``, RS levels through ``_unfused_level``, and the coarsest level with ``_dense_inverse`` when
-    the loop ends above the threshold.  Smaller levels go to the host route
+    Levels with ``n > config.host_setup_threshold`` (CLJP levels at every
+    size) are built with tensors on ``device`` (the device route): the geo
+    chain while the grid lasts, PMIS and CLJP levels through
+    ``_fused_level``, aggressive levels through ``_aggressive_level``, RS
+    levels through ``_unfused_level``, and the coarsest level with
+    ``_dense_inverse`` when the loop ends above the threshold.  Smaller levels go to the host route
     (``host_setup.host_build_tail``, NumPy), with the same integer PMIS
     weights.  The result mixes tensor and NumPy leaves; ``Hierarchy.to``
     moves it to one device.
@@ -720,8 +733,7 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
     from raptor_tpu_torch.setup.host_setup import host_build_tail
     from raptor_tpu_torch.setup.splitting import C_PT, make_perm_ids
 
-    check_ported(config)
-    if config.splitting not in ("rs", "pmis"):
+    if config.splitting not in ("rs", "pmis", "cljp"):
         raise ValueError(f"unknown splitting: {config.splitting}")
     A_in = None
     if not isinstance(A, EllMatrix):
@@ -733,9 +745,11 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
     # DIA planes of the next level's operator, from the geo chain
     pending_hyb = None
     n = A.shape[0]
+    host_tail = _host_tail_takes(config)
     while (len(levels) + 1 < config.max_levels and n > config.coarse_size
-           and n > config.host_setup_threshold):
-        if geo is not None and n == int(np.prod(geo)) and max(geo) > 2:
+           and (n > config.host_setup_threshold or not host_tail)):
+        if (geo is not None and n == int(np.prod(geo)) and max(geo) > 2
+                and n > config.host_setup_threshold):
             out = _geo_levels(A, n, geo, levels, config, ids, device)
             if out is None:
                 geo = None  # a weak dimension: rebuild through PMIS
@@ -744,7 +758,7 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
             levels.extend(new_levels)
             continue
         A = A.to(device)
-        if config.splitting == "pmis" and not config.aggressive:
+        if config.splitting in ("pmis", "cljp") and not config.aggressive:
             seed = config.seed + len(levels)
             perm = (None if ids is None else
                     make_perm_ids(ids, A.n_rows_pad, seed, device=device))
@@ -776,7 +790,7 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
         lev, A, n = out
         levels.append(lev)
 
-    if n <= config.host_setup_threshold:
+    if n <= config.host_setup_threshold and host_tail:
         hier = host_build_tail(A, levels, config, dtype, row_ids=ids, geo=geo,
                                ahyb0=pending_hyb)
     else:  # the coarsest level, built on the device

@@ -1,10 +1,11 @@
 """Interpolation operators of the device-level setup.
 
-Counterpart of ``raptor_tpu/setup/interp.py``: direct, modified classical
-and the strength-compacted extended+i interpolation, as eager PyTorch on
-the operator's device.  Each builds P in the entry-major ELL layout of A;
-its column space is the fine padded size (an upper bound) until the host
-reads the coarse count and ``tighten_coarse_space`` shrinks it.
+Counterpart of ``raptor_tpu/setup/interp.py``: direct, modified classical,
+extended+i and the strength-compacted extended+i interpolation, as eager
+PyTorch on the operator's device.  Each builds P in the entry-major ELL
+layout of A; its column space is the fine padded size (an upper bound)
+until the host reads the coarse count and ``tighten_coarse_space`` shrinks
+it.
 
 Direct interpolation with the ±-splitting: for F point i with strong C
 neighbours C_i,
@@ -33,6 +34,7 @@ from raptor_tpu_torch.setup.splitting import C_PT
 
 __all__ = ["direct_interpolation", "direct_interpolation_core",
            "classical_interpolation", "classical_interpolation_core",
+           "extended_interpolation", "extended_interpolation_core",
            "strength_compact", "ext_mm_core", "extended_interpolation_strong",
            "tighten_coarse_space", "add_identity_padding",
            "EXT_DEVICE_MAX_K", "EXT_STRONG_MAX_K"]
@@ -179,6 +181,126 @@ def classical_interpolation(A: EllMatrix, smask, cf):
     gcol = torch.arange(A.n_rows_pad, dtype=torch.int32, device=A.data.device)
     P = classical_interpolation_core(A, A.data, A.cols, A.row_nnz, smask,
                                      is_c, is_c, cmap, cmap, gcol)
+    return P, is_c.sum()
+
+
+def extended_interpolation_core(A: EllMatrix, ext_data, ext_cols_glob,
+                                ext_nnz, ext_strongc, ext_ccols, smask,
+                                is_c_row, is_c_col, cmap_row, cmap_col, gcol,
+                                gid_row, p_max: int = 4,
+                                dii_init=None) -> EllMatrix:
+    """Extended+i (distance-two) interpolation with caller-supplied views
+    (De Sterck, Falgout, Nolting & Yang 2008; hypre's ext+i):
+
+        T_i   = C_i ∪ (∪_{k∈F^s_i} C_k)          (distance-two coarse set)
+        w_ij  = -( a_ij + Σ_k a_ik a_kj / D_ik ) / â_ii,   j ∈ T_i
+        D_ik  = Σ_{l ∈ T_i ∪ {i}} a_kl
+        â_ii  = a_ii + Σ_{weak l ∉ T_i} a_il + Σ_k a_ik a_ki / D_ik
+                + Σ_{k: D_ik=0} a_ik
+
+    The views are ``classical_interpolation_core``'s plus ``ext_strongc``
+    (the strong-C mask of the ext rows' slots), ``ext_ccols`` (the coarse id
+    of each ext-row entry's column, -1 for F) and ``gid_row`` (the global
+    id of each local row).  The target set lives in KT = K*(K2+1) slots,
+    deduplicated by KT rounds of min extraction, so it stays ascending;
+    ``p_max`` > 0 truncates each row to its largest |w| with ±-separate
+    rescaling.  ``dii_init`` replaces the plain diagonal."""
+    K, n = A.data.shape
+    K2 = ext_data.shape[0]
+    dev = A.data.device
+    off = (A.cols != A.row_index()) & A.slot_mask()
+    a = A.data
+    cl = A.cols.long()
+    isc = is_c_col[cl]
+    strong_c = smask & isc
+    strong_f = smask & ~isc & off
+
+    BIG = 2**30
+    gcols_own = gcol[cl]  # (K, n) global ids of own entries
+    # the candidate union of distance-1 and distance-2 strong-C ids, each a
+    # (global id, coarse id) pair kept together through the dedup
+    cand = [torch.where(strong_c, gcols_own, BIG)]
+    candc = [torch.where(strong_c, cmap_col[cl], -1)]
+    for k1 in range(K):
+        kk = cl[k1]
+        keep_k = strong_f[k1][None, :] & ext_strongc[:, kk]
+        cand.append(torch.where(keep_k, ext_cols_glob[:, kk], BIG))
+        candc.append(torch.where(keep_k, ext_ccols[:, kk], -1))
+    cand = torch.cat(cand, 0).to(torch.int32)  # (K*(K2+1), n)
+    candc = torch.cat(candc, 0).to(torch.int32)
+    KT = cand.shape[0]
+    t_rows, t_cids = [], []
+    cur = cand
+    for _ in range(KT):
+        m = cur.amin(0)
+        t_cids.append(torch.where(cand == m[None, :], candc, -1).amax(0))
+        t_rows.append(m)
+        cur = torch.where(cur == m[None, :], BIG, cur)
+    T_mat = torch.stack(t_rows)  # (KT, n) ascending global ids, BIG = empty
+    T_cid = torch.stack(t_cids)
+    t_mask = T_mat < BIG
+
+    w = torch.zeros(KT, n, dtype=a.dtype, device=dev)
+    dii = A.diagonal() if dii_init is None else dii_init
+    for k1 in range(K):
+        # direct a_ij part for any own entry whose column is in T_i; entries
+        # outside T that are not strong-F collapse into the diagonal
+        eq_own = (gcols_own[k1][None, :] == T_mat) & t_mask
+        w = w + torch.where(eq_own & off[k1][None, :], a[k1][None, :], 0)
+        in_t = eq_own.any(0)
+        dii = dii + torch.where(off[k1] & ~strong_f[k1] & ~in_t, a[k1], 0)
+
+    for k1 in range(K):
+        kk = cl[k1]
+        act = strong_f[k1]
+        rowk_cols = ext_cols_glob[:, kk]  # (K2, n)
+        rowk_vals = ext_data[:, kk]
+        rowk_nnz = ext_nnz[kk]
+        u = torch.zeros(KT, n, dtype=a.dtype, device=dev)
+        den = torch.zeros(n, dtype=a.dtype, device=dev)
+        diag_add = torch.zeros(n, dtype=a.dtype, device=dev)
+        for k2 in range(K2):
+            rc = rowk_cols[k2]
+            rv = torch.where(k2 < rowk_nnz, rowk_vals[k2], 0)
+            eq = (rc[None, :] == T_mat) & t_mask
+            u = u + torch.where(eq, rv[None, :], 0)
+            hit_i = rc == gid_row
+            den = den + torch.where(eq.any(0) | hit_i, rv, 0)
+            diag_add = diag_add + torch.where(hit_i, rv, 0)
+        ok = den != 0
+        coef = torch.where(act & ok, a[k1] / torch.where(ok, den, 1), 0)
+        w = w + coef[None, :] * u
+        dii = dii + coef * diag_add  # the +i cross term a_ik a_ki / D_ik
+        dii = dii + torch.where(act & ~ok, a[k1], 0)  # zero-D fallback
+
+    dii = torch.where(dii != 0, dii, 1)
+    pvals = torch.where(t_mask, -w / dii[None, :], 0)
+    if p_max > 0 and KT > p_max:
+        pvals = _truncate(pvals, t_mask, p_max)
+        Kp = p_max
+    else:
+        Kp = KT
+    sel = pvals != 0
+    # T is ascending, so the front-packed columns stay sorted per row
+    P_data, P_cols = _compact(sel, pvals, T_cid, Kp)
+    P_data, P_cols, p_nnz = _identity_c_rows(
+        P_data, P_cols, sel.sum(0, dtype=torch.int32), is_c_row, cmap_row)
+    return EllMatrix(data=P_data, cols=P_cols, row_nnz=p_nnz,
+                     shape=(A.shape[0], A.n_rows_pad),
+                     n_rows_pad=A.n_rows_pad, n_cols_pad=A.n_rows_pad)
+
+
+def extended_interpolation(A: EllMatrix, smask, cf, p_max: int = 4):
+    """Single-device extended+i interpolation on the full operator (see
+    ``extended_interpolation_core``).  Returns (P, n_coarse)."""
+    is_c, cmap = _coarse_map(cf)
+    cl = A.cols.long()
+    gcol = torch.arange(A.n_rows_pad, dtype=torch.int32, device=A.data.device)
+    sc = smask & is_c[cl]
+    ccols = torch.where(is_c[cl], cmap[cl], -1)
+    P = extended_interpolation_core(A, A.data, A.cols, A.row_nnz, sc, ccols,
+                                    smask, is_c, is_c, cmap, cmap, gcol, gcol,
+                                    p_max=p_max)
     return P, is_c.sum()
 
 

@@ -94,8 +94,7 @@ def plan_coarsening_dist(
     (balanced shards, parity-aligned compaction); sharding stops
     (agglomeration onto replicas) once the grid drops below tail_size."""
     # the sharded levels semicoarsen only: plan without full coarsening
-    full = plan_coarsening(A, dataclasses.replace(config, full_coarsening=False),
-                           dim_policy)
+    full = plan_coarsening(A, config, dim_policy, allow_full=False)
     dims = list(A.dims)
     plan = []
     t = 0

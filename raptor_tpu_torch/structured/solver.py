@@ -12,15 +12,19 @@ its row between its two in-line C neighbors,
 which reproduces linear interpolation on Poisson and adapts to coefficient
 jumps/anisotropy.
 
+With ``AmgConfig.full_coarsening`` a level whose live couplings are
+balanced coarsens every dimension at once (plan marker ``FULL_STEP``) with
+BoxMG-style staged operator-induced interpolation (``_build_transfer_full``).
+
 Vectors may carry a leading batch dimension (B, n) through the smoothers,
 the transfers and ``dia_spmv``: ``materialize_tail`` applies a level's cycle
-body to every identity column at once.  Full coarsening (all dimensions per
-step) is not ported yet and raises ``NotImplementedError``.
+body to every identity column at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,6 +36,7 @@ from raptor_tpu_torch.structured.dia import (
     DiaMatrix,
     _linear,
     boundary_mask_traced,
+    dia_filter_offsets,
     dia_mult,
     dia_spmv,
     dia_transpose,
@@ -46,7 +51,7 @@ __all__ = ["SLevel", "SHierarchy", "plan_coarsening",
 
 Vec = Tuple[int, ...]
 
-FULL_STEP = -2  # the reference's plan marker for full coarsening (not ported)
+FULL_STEP = -2  # plan marker: coarsen every dimension at once
 
 
 def _to(t, device):
@@ -115,6 +120,37 @@ def _expand(vc: torch.Tensor, dims: Vec, d: int) -> torch.Tensor:
     return out.reshape(*lead, -1)
 
 
+def _every_other_full(dims: Vec):
+    return (Ellipsis,) + tuple(slice(None, None, 2) for _ in dims)
+
+
+def _compact_full(v: torch.Tensor, dims: Vec) -> torch.Tensor:
+    lead = v.shape[:-1]
+    return v.reshape(*lead, *dims)[_every_other_full(dims)].reshape(*lead, -1)
+
+
+def _expand_full(vc: torch.Tensor, dims: Vec) -> torch.Tensor:
+    lead = vc.shape[:-1]
+    cd = tuple((d + 1) // 2 for d in dims)
+    out = vc.new_zeros(*lead, *dims)
+    out[_every_other_full(dims)] = vc.reshape(*lead, *cd)
+    return out.reshape(*lead, -1)
+
+
+def _restrict(rr: torch.Tensor, lev: "SLevel") -> torch.Tensor:
+    """Compact an embedded residual to the next level's grid."""
+    if lev.cdim == FULL_STEP:
+        return _compact_full(rr, lev.dims)
+    return _compact(rr, lev.dims, lev.cdim)
+
+
+def _prolong(ec: torch.Tensor, lev: "SLevel") -> torch.Tensor:
+    """Embed a coarse correction into this level's grid."""
+    if lev.cdim == FULL_STEP:
+        return _expand_full(ec, lev.dims)
+    return _expand(ec, lev.dims, lev.cdim)
+
+
 def _coord(dims: Vec, ax: int, device) -> torch.Tensor:
     """(n,) int64: each row's coordinate along ``ax``."""
     stride = int(np.prod(dims[ax + 1:]))
@@ -177,6 +213,90 @@ def _build_transfer(A: DiaMatrix, d: int) -> DiaMatrix:
     return DiaMatrix(data=data, offsets=(ne, zero_off, e), dims=dims)
 
 
+def _build_transfer_full(A: DiaMatrix) -> DiaMatrix:
+    """Embedded prolongation for full coarsening (C = all-even points):
+    BoxMG-style staged operator-induced interpolation.
+
+    Stage s defines the F-points that are odd in exactly s dimensions from
+    already-defined neighbors (fewer odd dims), with weights from the
+    stencil collapsed over the even dims:
+
+        w_sigma = - (Σ_{o: o|T = sigma} a_o) / (Σ_{o: o|T = 0} a_o)
+
+    for each odd-dim subset T and sigma in {-1,0,1}^T minus 0.  The total
+    prolongator is the composition P_nd ∘ ... ∘ P_1; parity bounds its true
+    support to inf-norm <= 1 offsets, so the structurally dead planes of
+    the composition are filtered exactly."""
+    dims, dev = A.dims, A.device
+    nd = len(dims)
+    odd = [_coord(dims, d, dev) % 2 == 1 for d in range(nd)]
+
+    def embed(T, sigma):
+        o = [0] * nd
+        for d, v in zip(T, sigma):
+            o[d] = v
+        return tuple(o)
+
+    stages = []
+    for s_ in range(1, nd + 1):
+        planes: dict = {}
+        class_any = None
+        for T in itertools.combinations(range(nd), s_):
+            mask = None
+            for d in range(nd):
+                m = odd[d] if d in T else ~odd[d]
+                mask = m if mask is None else mask & m
+            class_any = mask if class_any is None else class_any | mask
+            # collapsed couplings over the non-T dims
+            denom = None
+            for k, o in enumerate(A.offsets):
+                if all(o[d] == 0 for d in T):
+                    denom = A.data[k] if denom is None else denom + A.data[k]
+            denom = _nonzero_or_one(denom)
+            for sigma in itertools.product((-1, 0, 1), repeat=s_):
+                if all(v == 0 for v in sigma):
+                    continue
+                num = None
+                for k, o in enumerate(A.offsets):
+                    if all(o[d] == v for d, v in zip(T, sigma)):
+                        num = A.data[k] if num is None else num + A.data[k]
+                if num is None:
+                    continue
+                w = torch.where(mask, -num / denom, 0.0).to(A.dtype)
+                off = embed(T, sigma)
+                planes[off] = planes[off] + w if off in planes else w
+        # identity on everything not in this stage's classes
+        zero = tuple([0] * nd)
+        ident = torch.where(class_any, 0.0, 1.0).to(A.dtype)
+        planes[zero] = planes[zero] + ident if zero in planes else ident
+        offs = sorted(planes)
+        stages.append(DiaMatrix(data=torch.stack([planes[o] for o in offs]),
+                                offsets=tuple(offs), dims=dims))
+
+    Pt = stages[0]
+    for Ps in stages[1:]:
+        Pt = dia_filter_offsets(dia_mult(Ps, Pt, keep=_inf_norm_le1),
+                                _inf_norm_le1)
+    return Pt
+
+
+def _inf_norm_le1(o) -> bool:
+    return max(abs(v) for v in o) <= 1
+
+
+def _all_even(o) -> bool:
+    return all(v % 2 == 0 for v in o)
+
+
+def _compact_dia_full(Ae: DiaMatrix) -> DiaMatrix:
+    """Restrict an all-even-supported embedded operator to the full-coarse
+    grid (compact every dimension)."""
+    out = Ae
+    for d in range(len(Ae.dims)):
+        out = _compact_dia(out, d)
+    return out
+
+
 def _compact_dia(Ae: DiaMatrix, d: int) -> DiaMatrix:
     """Restrict an embedded C-row/C-col operator to the coarse grid."""
     dims = Ae.dims
@@ -212,14 +332,18 @@ def _estimate_lmax_dia(A: DiaMatrix, dinv):
 
 def plan_coarsening(
     A: DiaMatrix, config: AmgConfig, dim_policy: str = "operator",
+    allow_full: bool | None = None,
 ) -> Tuple[int, ...]:
-    """Coarsening plan (sequence of dims).
+    """Coarsening plan (sequence of dims, ``FULL_STEP`` for a step that
+    coarsens every dimension).
 
     'size' policy is fully static; 'operator' reads the per-offset plane
     means once, then evolves the couplings with the standard semicoarsening
-    model (coarsening dim d scales its coupling by 1/4 — h_d doubles)."""
-    if config.full_coarsening:
-        raise NotImplementedError("full coarsening is not ported yet")
+    model (coarsening dim d scales its coupling by 1/4 — h_d doubles).
+    ``allow_full`` (default ``config.full_coarsening``) takes a full step
+    while every dimension is live and the couplings are within 4x."""
+    if allow_full is None:
+        allow_full = config.full_coarsening
     dims = list(A.dims)
     nd = len(dims)
     if dim_policy == "operator":
@@ -244,11 +368,21 @@ def plan_coarsening(
         and n > config.coarse_size
         and max(dims) > 3
     ):
-        cand = [s[ax] if dims[ax] > 3 else -1.0 for ax in range(nd)]
-        d = int(np.argmax(cand))
-        plan.append(d)
-        dims[d] = (dims[d] + 1) // 2
-        s[d] /= 4.0
+        live = [ax for ax in range(nd) if dims[ax] > 3]
+        s_live = [s[ax] for ax in live]
+        balanced = (allow_full and len(live) == nd
+                    and max(s_live) <= 4.0 * max(min(s_live), 1e-30))
+        if balanced:
+            plan.append(FULL_STEP)
+            for ax in range(nd):
+                dims[ax] = (dims[ax] + 1) // 2
+                s[ax] /= 4.0
+        else:
+            cand = [s[ax] if dims[ax] > 3 else -1.0 for ax in range(nd)]
+            d = int(np.argmax(cand))
+            plan.append(d)
+            dims[d] = (dims[d] + 1) // 2
+            s[d] /= 4.0
         n = int(np.prod(dims))
     return tuple(plan)
 
@@ -265,13 +399,17 @@ def _build_hierarchy_planned(
 ) -> SHierarchy:
     """The numeric setup for a fixed plan: transfers, Galerkin RAP and
     smoother data for every level."""
-    if FULL_STEP in plan:
-        raise NotImplementedError("full coarsening is not ported yet")
     levels = []
     for d in plan:
-        Pt = _build_transfer(A, d)
-        Rt = dia_transpose(Pt)
-        Ac = _compact_dia(dia_mult(Rt, dia_mult(A, Pt)), d)
+        if d == FULL_STEP:
+            Pt = _build_transfer_full(A)
+            Rt = dia_transpose(Pt)
+            Ac = _compact_dia_full(
+                dia_mult(Rt, dia_mult(A, Pt), keep=_all_even))
+        else:
+            Pt = _build_transfer(A, d)
+            Rt = dia_transpose(Pt)
+            Ac = _compact_dia(dia_mult(Rt, dia_mult(A, Pt)), d)
         dinv, red, lmax = _smoother_data(A, config)
         levels.append(SLevel(A=A, Pt=Pt, Rt=Rt, dinv=dinv, red=red,
                              cheb_lmax=lmax, dims=A.dims, cdim=d))
@@ -308,9 +446,9 @@ def _slevel_dense(lev: SLevel, cfg: AmgConfig, Meff: torch.Tensor) -> torch.Tens
     c = torch.eye(lev.A.n, dtype=lev.dinv.dtype, device=lev.dinv.device)
     x = _smooth(lev, cfg, c, torch.zeros_like(c), backward=False)
     r = c - dia_spmv(lev.A, x)
-    rc = _compact(dia_spmv(lev.Rt, r), lev.dims, lev.cdim)
+    rc = _restrict(dia_spmv(lev.Rt, r), lev)
     # row-wise Meff @ rc (an fp32 Meff promotes to a float64 level's dtype)
-    e = _expand(rc @ Meff.T.to(rc.dtype), lev.dims, lev.cdim)
+    e = _prolong(rc @ Meff.T.to(rc.dtype), lev)
     x = x + dia_spmv(lev.Pt, e)
     return _smooth(lev, cfg, c, x, backward=True).T
 
@@ -470,12 +608,12 @@ def _slevel(hier: SHierarchy, cfg: AmgConfig, k: int, b):
         return hier.coarse_inv @ b
     x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False, x0_zero=True)
     r = b - dia_spmv(lev.A, x) if cfg.nu1 else b
-    rc = _compact(dia_spmv(lev.Rt, r), lev.dims, lev.cdim)
+    rc = _restrict(dia_spmv(lev.Rt, r), lev)
     ec = _slevel(hier, cfg, k + 1, rc)
     if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
         Ac = hier.levels[k + 1].A
         ec = ec + _slevel(hier, cfg, k + 1, rc - dia_spmv(Ac, ec))
-    x = x + dia_spmv(lev.Pt, _expand(ec, lev.dims, lev.cdim))
+    x = x + dia_spmv(lev.Pt, _prolong(ec, lev))
     return _smooth(lev, cfg, b, x, backward=True)
 
 

@@ -330,24 +330,16 @@ def test_stationary_iteration_converges(thiers):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# configurations whose modules were ported after the first slices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["cljp"])
-def test_not_yet_ported_raises(case):
-    A = shuffled_poisson(8)
-    cfg = dict(splitting="cljp", smoother="cheb4")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.setup(A, TCfg(**cfg), device="cpu")
-
-
 @pytest.mark.parametrize("case", [
-    "device_levels", "aggregation", "mcgs", "aggressive"])
+    "device_levels", "aggregation", "mcgs", "aggressive", "cljp"])
 def test_formerly_unported_configurations_solve(case):
     """The configurations that raised before their modules were ported
     (fat-level refinement on a device level, smoothed aggregation, mcgs,
-    aggressive coarsening) build and reach a true 1e-8 through the refined
-    solve, with the reference's level sizes and iteration count."""
+    aggressive coarsening, CLJP) build and reach a true 1e-8 through the
+    refined solve, with the reference's level sizes and iteration count."""
     A = shuffled_poisson(8)
     cfg = dict(splitting="pmis", smoother="cheb4")
     if case == "device_levels":
@@ -360,6 +352,8 @@ def test_formerly_unported_configurations_solve(case):
         cfg = dict(cfg, smoother="mcgs")
     elif case == "aggressive":
         cfg = dict(cfg, aggressive=True)
+    elif case == "cljp":
+        cfg = dict(cfg, splitting="cljp")
     b = default_rhs(A.shape[0])
     sc = dict(tol=1e-8, refine=True)
     jh = japi.setup(A, JCfg(**cfg))

@@ -893,3 +893,160 @@ def test_geo_cycle_and_solve_on_card_match_cpu(geo32):
     _, info_c = solve(A, rhs, cfg, sc, hier=h.to("cpu"))
     assert info["iterations"] == info_c["iterations"]
     assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# CLJP on the card: the threefry bits, the splitting and its banded levels
+# ---------------------------------------------------------------------------
+
+def _threefry_np(key, x1):
+    """Threefry-2x32 of the counters (0, x1) in NumPy uint32 arithmetic,
+    which wraps at 32 bits by itself."""
+    k0, k1 = (np.uint32(k) for k in key)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0 = np.zeros_like(x1) + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+@pytest.mark.parametrize("it", [0, 7])
+@pytest.mark.parametrize("n", [1, 4097, 884736])
+def test_threefry_bits_on_card_match_numpy(n, it):
+    from raptor_tpu_torch.utils import threefry
+
+    dev = cuda_device()
+    with np.errstate(over="ignore"):
+        key = _threefry_np((0, 17), np.array([it], np.uint32))
+        key = (int(key[0][0]), int(key[1][0]))
+        sub = [_threefry_np(key, np.array([c], np.uint32)) for c in (0, 1)]
+        cnt = np.arange(n, dtype=np.uint32)
+        hi, lo = (np.bitwise_xor(*_threefry_np((int(a[0]), int(b[0])), cnt))
+                  for a, b in sub)
+    ref = ((hi % 31) * 4 + lo % 31) % 31  # 2^32 mod 31 = 4
+    got = threefry.cljp_bits(it, n, device=dev)
+    assert got.is_cuda and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(), ref.astype(np.int32))
+
+
+CLJP = dict(ALG, splitting="cljp")
+
+
+@pytest.fixture(scope="module")
+def cljp16():
+    from raptor_tpu_torch.api import setup
+
+    dev = cuda_device()
+    A = _shuffled(16)
+    cfg = AmgConfig(**CLJP, host_setup_threshold=0)
+    return A, setup(A, cfg, device=dev), setup(A, cfg, device="cpu")
+
+
+def test_cljp_splitting_on_card_matches_cpu():
+    from raptor_tpu_torch.core.ell import ell_from_csr
+    from raptor_tpu_torch.setup.cljp import cljp_splitting
+    from raptor_tpu_torch.setup.splitting import make_perm
+    from raptor_tpu_torch.setup.strength import strength_mask
+
+    dev = cuda_device()
+    A = _shuffled(24)
+    E = ell_from_csr(A, dtype=np.float32)
+    out = []
+    for d in (dev, "cpu"):
+        Ed = E.to(d)
+        sm = strength_mask(Ed, 0.25, "classical")
+        out.append(cljp_splitting(Ed, sm, make_perm(A.shape[0], E.n_rows_pad,
+                                                    0, device=d)).cpu())
+    assert torch.equal(out[0], out[1])
+
+
+def test_cljp_levels_built_on_card_equal_cpu(cljp16):
+    _, h, hc = cljp16
+    assert [lv.n for lv in h.levels] == [lv.n for lv in hc.levels]
+    for lv, lc in zip(h.levels, hc.levels):
+        assert torch.equal(lv.A.cols.cpu(), lc.A.cols)
+        assert rel_err(lv.A.data.cpu(), lc.A.data) <= 1e-5
+
+
+def test_cljp_banded_shapes_bit_for_bit(cljp16):
+    """K4 on every banded level and K6 on every banded P and R of a CLJP
+    hierarchy (CLJP's denser coarse grids give wider rows than PMIS's)."""
+    _, h, _ = cljp16
+    n_k4 = n_k6 = 0
+    for i, lv in enumerate(h.levels):
+        if lv.Aband is not None:
+            plan = lv.Aband.plan()
+            x = _x(plan["n"], plan["vals"].device, seed=i)
+            assert torch.equal(bk.banded_spmv(plan, x), bk.banded_spmv_ref(plan, x))
+            n_k4 += 1
+        for band in (lv.Pband, lv.Rband):
+            if band is not None:
+                r = band.plan()
+                x = _x(r["n_cols"], r["vals"].device, seed=i)
+                assert torch.equal(bk.banded_spmv_rect(r, x),
+                                   bk.banded_spmv_rect_ref(r, x))
+                n_k6 += 1
+    assert n_k4 >= 1 and n_k6 >= 2
+
+
+def test_cljp_solve_on_card_matches_cpu(cljp16):
+    from raptor_tpu_torch.api import solve
+
+    A, h, hc = cljp16
+    rhs = np.ones(A.shape[0])
+    cfg = AmgConfig(**CLJP, host_setup_threshold=0)
+    sc = SolveConfig(tol=1e-8, refine=True)
+    before = dict(bk.launches)
+    x, info = solve(A, rhs, cfg, sc, hier=h)
+    assert all(bk.launches[k] > before.get(k, 0) for k in ("K4", "K5", "K6"))
+    _, info_c = solve(A, rhs, cfg, sc, hier=hc)
+    assert info["iterations"] == info_c["iterations"]
+    assert np.linalg.norm(rhs - A @ x) / np.linalg.norm(rhs) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# full coarsening: K1 at its 27-offset transfers and coarse operators
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def full32():
+    dev = cuda_device()
+    A = tdia.dia_from_stencil(stencil_7pt(), (32, 32, 32), device=dev)
+    return ts.build_structured_hierarchy(
+        A, AmgConfig(**CFG, full_coarsening=True), dim_policy="size")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what", ["L0 Pt", "L0 Rt", "L1 A"])
+def test_k1_at_full_coarsening_shapes_bit_for_bit(full32, what, dtype):
+    lev, name = what.split()
+    lv = full32.levels[int(lev[1])]
+    assert lv.cdim == ts.FULL_STEP if lev == "L0" else True
+    M = {"Pt": lv.Pt, "Rt": lv.Rt, "A": lv.A}[name]
+    assert len(M.offsets) == 27
+    data = M.data.to(dtype).contiguous()
+    lins = M.linear_offsets()
+    x = _x(M.n, data.device)
+    before = tk.launches["K1"]
+    y = tk.dia_spmv_v2(data, lins, x)
+    assert tk.launches["K1"] == before + 1
+    assert torch.equal(y, tk.dia_spmv_v2_ref(data, lins, x))
+
+
+def test_full_coarsening_cycle_and_solve_on_card_match_cpu(full32):
+    h = full32
+    hm = ts.cast_hierarchy(h, torch.bfloat16)
+    b = torch.from_numpy(default_rhs(32**3, dtype=np.float32))
+    dev = h.levels[0].A.device
+    assert rel_err(ts.scycle(hm, b.to(dev)).cpu(),
+                   ts.scycle(hm.to("cpu"), b)) <= 1e-5
+    _, _, it = ts.structured_solve_refined(h, b.to(dev), tol=1e-8, M_hier=hm)
+    _, _, it_c = ts.structured_solve_refined(h.to("cpu"), b, tol=1e-8,
+                                             M_hier=hm.to("cpu"))
+    assert int(it) == int(it_c)

@@ -86,3 +86,41 @@ def test_chip_smoke_fails_without_gpu(tmp_path, alone):
                           timeout=120, capture_output=True, text=True)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("sub", ["setup", "solve", "core", "ops"])
+def test_subpackages_export_the_reference_names(sub):
+    """Each subpackage re-exports the names the reference's does (the
+    reference's ``__all__``, read from its source), plus CLJP's splitting
+    in ``setup``."""
+    import importlib
+
+    ref = ast.parse((ROOT / "raptor_tpu" / sub / "__init__.py").read_text())
+    names = next(ast.literal_eval(node.value) for node in ref.body
+                 if isinstance(node, ast.Assign)
+                 and node.targets[0].id == "__all__")
+    mod = importlib.import_module(f"raptor_tpu_torch.{sub}")
+    assert set(names) <= set(mod.__all__)
+    for name in mod.__all__:
+        assert getattr(mod, name) is not None, name
+    if sub == "setup":
+        assert "cljp_splitting" in mod.__all__
+
+
+def test_cli_info_runs_without_jax():
+    """``python -m raptor_tpu_torch info --device cpu`` in a fresh process
+    names the CPU and loads no JAX."""
+    proc = subprocess.run([sys.executable, "-m", "raptor_tpu_torch", "info",
+                           "--device", "cpu"], cwd=ROOT, timeout=120,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    out = __import__("json").loads(proc.stdout.strip().splitlines()[-1])
+    assert out["backend"] == "cpu" and out["devices"] == ["cpu"]
+    code = ("import sys, runpy\n"
+            "sys.argv = ['raptor_tpu_torch', 'info', '--device', 'cpu']\n"
+            "runpy.run_module('raptor_tpu_torch', run_name='__main__')\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'raptor_tpu.')) or m == 'raptor_tpu')\n"
+            "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -115,12 +115,6 @@ def test_operator_plan_matches_jax(dims):
     assert ts.plan_coarsening(T, TCfg(**CFG)) == js.plan_coarsening(J, JCfg(**CFG))
 
 
-def test_full_coarsening_not_ported():
-    A = tdia.dia_from_stencil(stencil_5pt(), (8, 8), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ts.build_structured_hierarchy(A, TCfg(**CFG, full_coarsening=True))
-
-
 def test_w_tail_fold_matches_jax(jh2_tail):
     """Folding a W-cycle tail (coarse map 2M - M A' M) on carried levels."""
     jh2 = dataclasses.replace(jh2_tail, tail_op=None, tail_start=-1,
