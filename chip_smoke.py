@@ -179,7 +179,19 @@ Phases, each of which raises on failure (there is no CPU path):
     config2, and bench config5 at 256^3 on one card (the single-device
     structured route, K2 on the fine level); phase 23's CLJP_N^3
     hierarchy saved with save_hierarchy, loaded on the card and solved again (the
-    same iterations, x bit-equal).
+    same iterations, x bit-equal);
+26. the sharded algebraic setup (parallel/dist_setup.py): 26a shuffled
+    DSETUP_N^3 (PMIS, direct, cheb4 degree 2, ELL) built by
+    dist_build_hierarchy on one rank over NCCL, fp32 cold and warm (seconds,
+    peak memory, every sharded tensor on the card), dist_solve (cg, tol
+    1e-6, true fp64 <= 1e-5) within 1 iteration of the single-device build
+    sharded by distribute_hierarchy on the same ring, the fp64 sizes equal
+    to the single-device device route's (host_setup_threshold 0); 26b the
+    same on DSETUP_RANKS ranks sharing the card over gloo (fp64 sizes equal
+    to 26a's, iterations +-1); 26c ext+i at 96^3, CLJP at CLJP_N^3 and
+    config 3's preset at 768^2, each on one rank with its fp64 sizes equal
+    to the single-device device route's and a solve to true <= 1e-5.
+    ``--dist-setup-only`` runs phases 1, 2 and 26 alone.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -320,6 +332,14 @@ FC_ITERS_N = 64
 # checkout's build/
 SURFACE_N = 48
 SMOKE_DIR = "build/chip_smoke"
+# phase 26: the sharded algebraic setup at shuffled DSETUP_N^3 (the size of
+# phases 9 and 15) with the reference bench row's smoother on the ELL
+# layout, on one rank over NCCL and on DSETUP_RANKS ranks sharing the card
+# over gloo; the sharded solve's tolerances (fp32 PCG, no refinement)
+DSETUP_N, DSETUP_RANKS, DSETUP_TAIL = 96, 4, 4096
+DSETUP_CFG = dict(splitting="pmis", interp="direct", smoother="cheb4",
+                  cheb_degree=2)
+DSETUP_TOL, DSETUP_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
 
 
 def stencil_7pt() -> np.ndarray:
@@ -3164,6 +3184,274 @@ def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the sharded algebraic setup (parallel/dist_setup.py)
+# ---------------------------------------------------------------------------
+
+def dist_sizes(dh) -> list:
+    """A dist-built hierarchy's sharded level sizes and the real coarse size
+    below them.  (The tail is built on the block-padded coarse operator,
+    whose size counts every rank's padding rows.)"""
+    P = dh.bridge_P
+    coarse = torch.unique(P.cols[P.slot_mask()]).numel()
+    return [lv.n for lv in dh.levels] + [int(coarse)]
+
+
+def _dm_tensors(dm) -> list:
+    if dm is None:
+        return []
+    return [dm.data, dm.cols, dm.row_nnz, *dm.halo.send_idx, *dm.halo.recv_tgt]
+
+
+def check_on_card(tag: str, dh) -> None:
+    """Raise unless every tensor of the sharded levels (A and its halo
+    plan, dinv, P, R, colours, lambda_max), of the bridge and of the tail's
+    operators lies on the card."""
+    for k, lv in enumerate(dh.levels):
+        ts = (_dm_tensors(lv.A) + _dm_tensors(lv.Pmat) + _dm_tensors(lv.Rmat)
+              + [t for t in (lv.dinv, lv.color, lv.cheb_lmax) if t is not None])
+        if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
+            raise AssertionError(f"[{tag}] sharded level {k} holds tensors "
+                                 "off the card")
+    rest = [dh.bridge_P.data, dh.bridge_R.data,
+            *(lv.A.data for lv in dh.tail.levels)]
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in rest):
+        raise AssertionError(f"[{tag}] the bridge or the tail is off the card")
+
+
+def timed_dist_build(A, cfg, ring, dtype, dev) -> tuple:
+    """(dist_build_hierarchy on ``dev``, seconds, peak device GiB)."""
+    from raptor_tpu_torch.parallel import dist_build_hierarchy
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dh = dist_build_hierarchy(A, cfg, ring, DSETUP_TAIL, dtype, device=dev)
+    torch.cuda.synchronize()
+    return (dh, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def dist_solve_checked(tag: str, A, dh, ring, dtype) -> tuple:
+    """dist_solve (cg, DSETUP_TOL) of b = default_rhs on ``dh``: (its
+    iterations, the true fp64 relres of the gathered x against A, the
+    solve's seconds).  Raises on a non-finite x or a relres above
+    DSETUP_MAX_TRUE."""
+    from raptor_tpu_torch.core.ell import pad_vector
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.parallel import dist_solve
+
+    n = A.shape[0]
+    b = default_rhs(n)
+    n_pad = dh.levels[0].n_local * ring.axis_size
+    bd = pad_vector(b, n_pad, dtype=dtype, device=dh.levels[0].dinv.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = dist_solve(dh, bd, ring, tol=DSETUP_TOL, maxiter=300)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    xg = ring.all_gather(x).double().cpu().numpy()
+    if xg.shape != (n_pad,) or not np.isfinite(xg).all():
+        raise AssertionError(f"[{tag}] sharded solution not finite or misshapen")
+    relres = _true_relres(A, xg[:n], b)
+    if not relres <= DSETUP_MAX_TRUE:
+        raise AssertionError(f"[{tag}] true relres {relres} > {DSETUP_MAX_TRUE}")
+    return int(info.iterations), relres, solve_s
+
+
+def single_device_sizes(A, cfg, dev) -> tuple:
+    """(sizes, seconds) of the single-device build with every level on the
+    card (host_setup_threshold 0) in fp64."""
+    from raptor_tpu_torch.setup.hierarchy import build_hierarchy
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = build_hierarchy(A, dataclasses.replace(cfg, host_setup_threshold=0),
+                        dtype=np.float64, device=dev)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    sizes = [lv.n for lv in h.levels]
+    del h
+    torch.cuda.empty_cache()
+    return sizes, s
+
+
+def same_sizes(tag: str, got: list, ref: list) -> None:
+    if got != ref[:len(got)]:
+        raise AssertionError(f"[{tag}] dist-built sizes {got}, the single-"
+                             f"device build's {ref}")
+
+
+def phase_dist_setup_one_rank(dev) -> dict:
+    """Phases 26a and 26c on one rank over NCCL: shuffled DSETUP_N^3 built
+    by dist_build_hierarchy in fp32, cold and warm, every tensor checked on
+    the card; dist_solve against the single-device build of the same
+    configuration sharded by distribute_hierarchy on the same ring (+-1
+    iteration); the fp64 sizes against the single-device device route's
+    (threshold 0); then the ext+i, CLJP and config 3 branches, each at its
+    own input, by the same checks."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch import AmgConfig, PRESETS, setup
+    from raptor_tpu_torch.gallery import anisotropic_2d
+    from raptor_tpu_torch.parallel import Ring, distribute_hierarchy
+
+    t_phase = time.perf_counter()
+    A = shuffled_poisson(DSETUP_N)
+    cfg = AmgConfig(**DSETUP_CFG)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        builds = []
+        for _ in ("cold", "warm"):
+            dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, dev)
+            builds.append((s, peak))
+        check_on_card("dsetup1", dh)
+        sizes32 = dist_sizes(dh)
+        tail32 = [lv.n for lv in dh.tail.levels]
+        iters, relres, solve_s = dist_solve_checked("dsetup1", A, dh, ring,
+                                                    np.float32)
+        del dh
+        torch.cuda.empty_cache()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h1 = setup(A, cfg, device=dev)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        dh1 = distribute_hierarchy(h1, ring, DSETUP_TAIL)
+        it1, rel1, _ = dist_solve_checked("dsetup1 single", A, dh1, ring,
+                                          np.float32)
+        del h1, dh1
+        torch.cuda.empty_cache()
+
+        dh64, s64, peak64 = timed_dist_build(A, cfg, ring, torch.float64, dev)
+        sizes64 = dist_sizes(dh64)
+        del dh64
+        torch.cuda.empty_cache()
+        ref64, ref_s = single_device_sizes(A, cfg, dev)
+        print(f"[dsetup1] shuffled {DSETUP_N}^3 ({A.shape[0]} rows) on 1 rank "
+              f"(NCCL), {DSETUP_CFG}, ELL, fp32: dist_build_hierarchy "
+              f"{builds[0][0]:.3f} s cold, {builds[1][0]:.3f} s warm, peak "
+              f"device memory {builds[0][1]:.3f} / {builds[1][1]:.3f} GiB; "
+              f"single-device api.setup (levels above the default threshold "
+              f"on the card) {single_s:.3f} s; fp64 dist build {s64:.3f} s "
+              f"(peak {peak64:.3f} GiB), fp64 single-device device route "
+              f"(threshold 0) {ref_s:.3f} s")
+        print(f"[dsetup1] sizes fp64 {sizes64} (single-device fp64 {ref64}); "
+              f"fp32 {sizes32}, tail {tail32}; dist_solve {iters} iterations "
+              f"in {solve_s:.3f} s, true fp64 relres {relres:.3e}; the single-"
+              f"device build through distribute_hierarchy {it1} iterations "
+              f"(true {rel1:.3e})")
+        same_sizes("dsetup1", sizes64, ref64)
+        if abs(iters - it1) > 1:
+            raise AssertionError(f"[dsetup1] {iters} iterations, the single-"
+                                 f"device build {it1}")
+        one = {"n": A.shape[0], "setup_cold_s": builds[0][0],
+               "setup_warm_s": builds[1][0], "peak_mem_gib": builds[0][1],
+               "single_device_setup_s": single_s, "sizes64": sizes64,
+               "single_sizes64": ref64, "sizes32": sizes32, "tail32": tail32,
+               "iters": iters, "relres": relres, "solve_s": solve_s,
+               "single_iters": it1, "setup64_s": s64,
+               "single64_s": ref_s}
+
+        branches = {}
+        for name, M, bcfg in (
+                ("ext+i", A, AmgConfig(**DEVSETUP_CFG)),
+                ("cljp", shuffled_poisson(CLJP_N),
+                 AmgConfig(**dict(DSETUP_CFG, splitting="cljp"))),
+                ("config3", anisotropic_2d(CONFIG3_FULL_N), PRESETS["config3"])):
+            tag = f"dsetup1 {name}"
+            dh, s, peak = timed_dist_build(M, bcfg, ring, torch.float64, dev)
+            check_on_card(tag, dh)
+            sizes = dist_sizes(dh)
+            it, rel, _ = dist_solve_checked(tag, M, dh, ring, np.float64)
+            del dh
+            torch.cuda.empty_cache()
+            ref, ref_s = single_device_sizes(M, bcfg, dev)
+            print(f"[{tag}] n={M.shape[0]}: fp64 dist build {s:.3f} s (peak "
+                  f"{peak:.3f} GiB), sizes {sizes}; single-device device "
+                  f"route {ref_s:.3f} s, sizes {ref}; dist_solve {it} "
+                  f"iterations, true relres {rel:.3e}")
+            same_sizes(tag, sizes, ref)
+            branches[name] = {"n": M.shape[0], "setup_s": s, "sizes": sizes,
+                              "single_sizes": ref, "single_s": ref_s,
+                              "iters": it, "relres": rel}
+        one["branches"] = branches
+    finally:
+        dist.destroy_process_group()
+    one["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dsetup1] phases 26a and 26c: {one['phase_s']:.1f} s")
+    return one
+
+
+def rank_dist_setup(ring, device, n: int) -> dict:
+    """One rank of phase 26b (runs in a spawned process): shuffled n^3 by
+    dist_build_hierarchy in fp64 (sizes) and fp32 (timed, checked on the
+    card, solved); rank 0 returns the gathered x."""
+    from raptor_tpu_torch import AmgConfig
+
+    A = shuffled_poisson(n)
+    cfg = AmgConfig(**DSETUP_CFG)
+    dh64, s64, _ = timed_dist_build(A, cfg, ring, torch.float64, device)
+    sizes64 = dist_sizes(dh64)
+    del dh64
+    torch.cuda.empty_cache()
+    dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, device)
+    check_on_card(f"dsetup{ring.axis_size} rank {ring.axis_index}", dh)
+    iters, relres, solve_s = dist_solve_checked(
+        f"dsetup{ring.axis_size}", A, dh, ring, np.float32)
+    return {"sizes64": sizes64, "sizes32": dist_sizes(dh), "setup_s": s,
+            "setup64_s": s64, "peak_mem_gib": peak, "iters": iters,
+            "relres": relres, "solve_s": solve_s}
+
+
+def phase_dist_setup_ranks(dev, one: dict) -> dict:
+    """Phase 26b: DSETUP_RANKS ranks sharing the card over gloo (host-
+    staged messages), each building its shards of shuffled DSETUP_N^3;
+    fp64 sizes equal to 26a's, iterations within one of 26a's, the
+    gathered x checked on every rank by the host fp64 residual."""
+    from raptor_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    outs = spawn(rank_dist_setup, DSETUP_RANKS, "gloo", dev, DSETUP_N,
+                 timeout=900.0)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        print(f"[dsetup{DSETUP_RANKS}] rank {r}: fp32 dist_build_hierarchy "
+              f"{o['setup_s']:.3f} s (peak {o['peak_mem_gib']:.3f} GiB), fp64 "
+              f"{o['setup64_s']:.3f} s; {o['iters']} iterations in "
+              f"{o['solve_s']:.3f} s, true relres {o['relres']:.3e}")
+    o = outs[0]
+    print(f"[dsetup{DSETUP_RANKS}] {DSETUP_N}^3 on {DSETUP_RANKS} ranks sharing "
+          f"the card (gloo): sizes fp64 {o['sizes64']} (one rank: "
+          f"{one['sizes64']}), fp32 {o['sizes32']}; {o['iters']} iterations "
+          f"(one rank: {one['iters']}); {wall:.1f} s with the processes' start")
+    if any(p["sizes64"] != one["sizes64"] for p in outs):
+        raise AssertionError(f"[dsetup{DSETUP_RANKS}] fp64 sizes differ from "
+                             f"one rank's {one['sizes64']}")
+    if any(p["iters"] != o["iters"] for p in outs):
+        raise AssertionError(f"[dsetup{DSETUP_RANKS}] the ranks disagree on "
+                             "the iteration count")
+    if abs(o["iters"] - one["iters"]) > 1:
+        raise AssertionError(f"[dsetup{DSETUP_RANKS}] {o['iters']} iterations, "
+                             f"one rank {one['iters']}")
+    return {"ranks": DSETUP_RANKS, "wall_s": wall,
+            "setup_s": [p["setup_s"] for p in outs],
+            "setup64_s": [p["setup64_s"] for p in outs],
+            "peak_mem_gib": [p["peak_mem_gib"] for p in outs],
+            "sizes64": o["sizes64"], "sizes32": o["sizes32"],
+            "iters": o["iters"], "relres": o["relres"]}
+
+
+def phase_dist_setup(dev) -> dict:
+    """Phase 26: 26a and 26c on one rank, then 26b on DSETUP_RANKS."""
+    torch.cuda.empty_cache()
+    one = phase_dist_setup_one_rank(dev)
+    return {"one_rank": one, "ranks": phase_dist_setup_ranks(dev, one)}
+
+
 def main() -> None:
     # the CSR yardsticks are built from checked indices; PyTorch warns on
     # every sparse CSR tensor that its support is in beta
@@ -3296,12 +3584,16 @@ def main() -> None:
     for r in full.values():
         for k in ("K1", "K2"):
             launch_counts[k] += r["launches"][k]
+    # phase 26: the sharded setup launches no kernel of its own (its levels
+    # take the ELL halo route, as the reference's do)
+    dsetup = phase_dist_setup(dev)
 
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
                       "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4, "configs": configs,
                       "mcgs96": mcgs96, "mcgs_ranks": mcgs4, "cljp": cljp,
-                      "full": full, "surface": surface}))
+                      "full": full, "surface": surface,
+                      "dist_setup": dsetup}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",
@@ -3331,5 +3623,18 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def main_dist_setup() -> None:
+    """``--dist-setup-only``: the device, the kernels' build and phase 26
+    alone (no kernels line and no final ok line: not the smoke's result)."""
+    dev = phase_device()
+    phase_build()
+    print(json.dumps({"dist_setup": phase_dist_setup(dev)}))
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:] == ["--dist-setup-only"]:
+        main_dist_setup()
+    else:
+        main()

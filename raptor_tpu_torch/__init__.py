@@ -15,16 +15,18 @@ Everything the JAX package does on one device is ported:
   the ELL, BlockELL, RCM-banded and DIA-plane layouts; jacobi, chebyshev,
   cheb4, multicolor and two-stage Gauss-Seidel and the block smoothers;
 * PCG, BiCGStab and (F)GMRES with an injectable inner product;
-* the plane-sharded structured engine (config 5) and the algebraic
-  sharded solve (``distribute_hierarchy``, ``dist_solve``, TAPS) over
-  torch.distributed;
+* the plane-sharded structured engine (config 5), the algebraic sharded
+  setup (``dist_build_hierarchy``: PMIS or CLJP, direct, classical or
+  extended+i interpolation, aggressive coarsening with multipass
+  interpolation, on row shards) and the algebraic sharded solve
+  (``distribute_hierarchy``, ``dist_solve``, TAPS) over torch.distributed;
 * matrix and vector file I/O, hierarchy and solver-state checkpoints,
   profiling hooks, and the command line (``python -m raptor_tpu_torch``);
 * the JAX-free configuration and stencil gallery.
 
-The sharded setup of the algebraic engine (the reference's
-``parallel/dist_setup.py`` and ``dist_sa.py``) is not ported yet: its
-sharded solve runs on a hierarchy built on one device.
+The sharded smoothed-aggregation setup (the reference's
+``parallel/dist_sa.py``) is not ported yet: a sharded SA solve runs on a
+hierarchy built on one device.
 
 The DIA (plain and halo-extended), banded and rectangular SpMVs and the
 banded df64 residual run through the kernels of ``raptor_tpu_torch/csrc``
@@ -63,6 +65,7 @@ from raptor_tpu_torch.core.ell import EllMatrix
 from raptor_tpu_torch.core.hybrid import BandedMatrix, RectBanded
 from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
 from raptor_tpu_torch.api import setup, solve, solve_hier, solve_hier_refined
+from raptor_tpu_torch.parallel.dist_setup import dist_build_hierarchy
 from raptor_tpu_torch.utils.io import (read_matrix, read_vector, write_matrix,
                                        write_vector)
 
@@ -99,6 +102,7 @@ __all__ = [
     "solve",
     "solve_hier",
     "solve_hier_refined",
+    "dist_build_hierarchy",
     "Hierarchy",
     "Level",
     "EllMatrix",

@@ -13,6 +13,7 @@ from raptor_tpu_torch.parallel.dist import (
     dist_solve,
     make_solve_mesh,
 )
+from raptor_tpu_torch.parallel.dist_setup import dist_build_hierarchy
 from raptor_tpu_torch.parallel.dist_taps import (
     TapsDistHierarchy,
     distribute_hierarchy_taps,
@@ -39,4 +40,5 @@ __all__ = [
     "distribute_hierarchy",
     "dist_solve",
     "make_solve_mesh",
+    "dist_build_hierarchy",
 ]

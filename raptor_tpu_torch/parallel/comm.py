@@ -3,7 +3,7 @@
 Counterpart of the ``shard_map`` collectives the JAX package's sharded
 engines use on a mesh axis: the ring ``ppermute`` by any offset (the two
 neighbour shifts of ``raptor_tpu/structured/dist.py:197-202``, the halo
-rounds of ``raptor_tpu/parallel/halo.py``), ``psum`` and the tiled
+rounds of ``raptor_tpu/parallel/halo.py``), ``psum``, ``pmax`` and the tiled
 ``all_gather``.  One process per rank holds its own shard; a ``Ring`` wraps
 the process group those ranks share, the whole world or a subgroup (the
 "node" and "chip" axes of the TAPS exchange, ``parallel/taps.py``).
@@ -100,6 +100,14 @@ class Ring:
             return t
         buf = self._stage(t).clone()
         dist.all_reduce(buf, group=self.group)
+        return buf.to(t.device)
+
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the ring (a new tensor)."""
+        if self.axis_size == 1:
+            return t
+        buf = self._stage(t).clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
         return buf.to(t.device)
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -87,6 +87,19 @@ def shuffled_poisson(nx: int, scale: float = 1.0, seed: int = 0):
     return A[p][:, p].tocsr()
 
 
+def diag_scaled(A, seed: int = 0):
+    """D A D with D a diagonal of default_rng(seed) draws in [0.5, 1.5]:
+    the same sparsity and an SPD M-matrix again, with coarse Galerkin
+    values that meet the strength threshold theta * max at no exact tie
+    (the gallery stencils' rational coarse values do, and a tie resolves
+    by the summation order, which differs between the two packages)."""
+    import scipy.sparse as sp
+
+    d = np.random.default_rng(seed).uniform(0.5, 1.5, A.shape[0])
+    D = sp.diags(d)
+    return (D @ sp.csr_matrix(A) @ D).tocsr()
+
+
 def rcm_ell(nx: int):
     """Shuffled nx^3 Poisson, RCM-ordered, as ELL arrays (cols, row_nnz,
     data) with the rows padded to a multiple of 1024."""
@@ -244,3 +257,45 @@ def algebraic_tree_from_jax(hier) -> dict:
         "a0_lo": _opt(hier.a0_lo), "a0_lo_band": _opt(hier.a0_lo_band),
         "config": dataclasses.asdict(hier.config),
     }
+
+
+def _dm_block(m, rank: int, ndev: int):
+    """Rank ``rank``'s block of a JAX DistMatrix (global arrays, (ndev, m)
+    plans) as the plain-numpy dict of a port DistMatrix."""
+    if m is None:
+        return None
+    nl = m.n_rows_local
+
+    def block(a):
+        return np.asarray(a)[..., rank * nl:(rank + 1) * nl]
+
+    return {"data": block(m.data), "cols": block(m.cols),
+            "row_nnz": block(m.row_nnz),
+            "send_idx": [np.asarray(s)[rank] for s in m.halo.send_idx],
+            "recv_tgt": [np.asarray(r)[rank] for r in m.halo.recv_tgt],
+            "offsets": m.halo.offsets, "n_ext": m.halo.n_ext,
+            "n_local": m.halo.n_local, "n_rows_local": nl, "K": m.K,
+            "shape": m.shape}
+
+
+def dist_tree_from_jax(dh, rank: int) -> dict:
+    """One rank's blocks of a JAX ``DistHierarchy`` (sharded levels on the
+    ELL route) as the plain-numpy tree of
+    ``tests/_torch_dist_setup_spmd.hierarchy_from_tree``; the tail and the
+    bridge whole."""
+    ndev = dh.ndev
+    levels = []
+    for lv in dh.levels:
+        nl = lv.n_local
+        own = slice(rank * nl, (rank + 1) * nl)
+        levels.append({
+            "A": _dm_block(lv.A, rank, ndev), "P": _dm_block(lv.Pmat, rank, ndev),
+            "R": _dm_block(lv.Rmat, rank, ndev),
+            "dinv": np.asarray(lv.dinv)[own],
+            "cheb_lmax": _opt(lv.cheb_lmax),
+            "color": None if lv.color is None else np.asarray(lv.color)[own],
+            "ncolors": lv.ncolors, "n": lv.n, "n_local": nl})
+    return {"levels": levels, "bridge_P": _ell_tree(dh.bridge_P),
+            "bridge_R": _ell_tree(dh.bridge_R),
+            "tail": algebraic_tree_from_jax(dh.tail),
+            "config": dataclasses.asdict(dh.config), "ndev": ndev}

@@ -1050,3 +1050,55 @@ def test_full_coarsening_cycle_and_solve_on_card_match_cpu(full32):
     _, _, it_c = ts.structured_solve_refined(h.to("cpu"), b, tol=1e-8,
                                              M_hier=hm.to("cpu"))
     assert int(it) == int(it_c)
+
+
+# ---------------------------------------------------------------------------
+# the sharded algebraic setup (parallel/dist_setup.py) on a ring of one
+# ---------------------------------------------------------------------------
+
+def test_dist_setup_one_rank_on_card_matches_cpu():
+    """dist_build_hierarchy of poisson_3d(16) on one NCCL rank, in fp64:
+    every sharded level holds CUDA tensors, and the level sizes, the C/F
+    set of the fine level, every level's A and P structure and their
+    values (to 1e-12) equal the same build on the CPU."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.core.ell import ell_from_csr
+    from raptor_tpu_torch.parallel import Ring, dist_build_hierarchy
+    from raptor_tpu_torch.parallel import dist_setup as ds
+    from raptor_tpu_torch.parallel.partition import distribute_matrix
+    from raptor_tpu_torch.setup.splitting import make_perm
+
+    dev = cuda_device()
+    A = poisson_3d(16)
+    cfg = AmgConfig(splitting="pmis", interp="direct", smoother="cheb4",
+                    coarse_size=64, host_setup_threshold=0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        hs = {d: dist_build_hierarchy(A, cfg, ring, 256, torch.float64,
+                                      device=d) for d in (dev, "cpu")}
+        g, c = hs[dev], hs["cpu"]
+        assert [lv.n for lv in g.levels] == [lv.n for lv in c.levels]
+        assert [lv.n for lv in g.tail.levels] == [lv.n for lv in c.tail.levels]
+        for lg, lc in zip(g.levels, c.levels):
+            for mg, mc in ((lg.A, lc.A), (lg.Pmat, lc.Pmat)):
+                if mc is None:
+                    assert mg is None
+                    continue
+                assert mg.data.is_cuda and mg.cols.is_cuda
+                assert torch.equal(mg.cols.cpu(), mc.cols)
+                assert torch.equal(mg.row_nnz.cpu(), mc.row_nnz)
+                assert (mg.data.cpu() - mc.data).abs().max() <= 1e-12
+        assert torch.equal(g.bridge_P.cols.cpu(), c.bridge_P.cols)
+        assert (g.bridge_P.data.cpu() - c.bridge_P.data).abs().max() <= 1e-12
+        E = ell_from_csr(A, dtype=np.float64, row_pad_multiple=8)
+        perm = make_perm(E.shape[0], E.n_rows_pad, cfg.seed, device="cpu")
+        cf = {}
+        for d in (dev, "cpu"):
+            dm = distribute_matrix(E.to(d) if d != "cpu" else E, ring)
+            cf[d] = ds._run_split(ring, dm, perm.to(d), cfg, E.n_rows_pad)[0]
+        assert cf[dev].is_cuda and torch.equal(cf[dev].cpu(), cf["cpu"])
+    finally:
+        dist.destroy_process_group()

@@ -124,3 +124,25 @@ def test_cli_info_runs_without_jax():
             "assert not bad, bad\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dist_build_hierarchy_exported_without_jax():
+    """``dist_build_hierarchy`` is importable from ``raptor_tpu_torch`` and
+    ``raptor_tpu_torch.parallel`` (the reference's ``raptor_tpu.parallel``
+    exports it too), and importing them loads no JAX."""
+    ref = ast.parse((ROOT / "raptor_tpu" / "parallel" / "__init__.py").read_text())
+    assert "dist_build_hierarchy" in ast.dump(ref)
+    code = ("import sys\n"
+            "import raptor_tpu_torch as r\n"
+            "from raptor_tpu_torch.parallel import dist_build_hierarchy as d\n"
+            "from raptor_tpu_torch.parallel.dist_setup import "
+            "dist_build_hierarchy as e\n"
+            "assert r.dist_build_hierarchy is d is e\n"
+            "assert 'dist_build_hierarchy' in r.__all__\n"
+            "import raptor_tpu_torch.parallel as p\n"
+            "assert 'dist_build_hierarchy' in p.__all__\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'raptor_tpu.')) or m == 'raptor_tpu')\n"
+            "assert not bad, bad\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
