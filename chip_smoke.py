@@ -191,7 +191,19 @@ Phases, each of which raises on failure (there is no CPU path):
     to 26a's, iterations +-1); 26c ext+i at 96^3, CLJP at CLJP_N^3 and
     config 3's preset at 768^2, each on one rank with its fp64 sizes equal
     to the single-device device route's and a solve to true <= 1e-5.
-    ``--dist-setup-only`` runs phases 1, 2 and 26 alone.
+    ``--dist-setup-only`` runs phases 1, 2 and 26 alone;
+27. the sharded smoothed-aggregation setup (parallel/dist_sa.py) with
+    config 4's preset: 27a elasticity_3d(DSA_N) (324,864 rows) built by
+    dist_build_sa_hierarchy on one rank over NCCL, fp32 cold and warm
+    (seconds, peak memory, every sharded tensor, binv included, on the
+    card), its sharded sizes and real coarse size beside phase 19's (level
+    0 and the first coarse size equal), dist_solve (cg, tol 1e-6;
+    certified <= 1e-6, host fp64 true <= 1e-5) within DSA_FENCE iterations
+    of the single-device device-route build sharded by distribute_hierarchy
+    on the same ring; 27b elasticity_3d(DSA_N4) (95,232 rows, two sharded
+    levels) on DSA_RANKS ranks sharing the card over gloo: sizes equal to
+    one rank's, iterations +-1, each rank's seconds.  ``--dist-sa-only``
+    runs phases 1, 2 and 27 alone.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -340,6 +352,15 @@ DSETUP_N, DSETUP_RANKS, DSETUP_TAIL = 96, 4, 4096
 DSETUP_CFG = dict(splitting="pmis", interp="direct", smoother="cheb4",
                   cheb_degree=2)
 DSETUP_TOL, DSETUP_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
+# phase 27: the sharded smoothed-aggregation setup with config 4's preset:
+# elasticity_3d(DSA_N) (the bench's size, 324,864 rows) on one rank over
+# NCCL, and elasticity_3d(DSA_N4) (95,232 rows, two sharded levels above
+# the tail) on DSA_RANKS ranks sharing the card over gloo; the sharded
+# solve's tolerances; iterations within DSA_FENCE of the single-device
+# hierarchy sharded by distribute_hierarchy (the reference's own fence,
+# tests/distributed/test_dist_algebraic_setup.py:432)
+DSA_N, DSA_N4, DSA_RANKS = 48, 32, 4
+DSA_FENCE = 2
 
 
 def stencil_7pt() -> np.ndarray:
@@ -3205,11 +3226,12 @@ def _dm_tensors(dm) -> list:
 
 def check_on_card(tag: str, dh) -> None:
     """Raise unless every tensor of the sharded levels (A and its halo
-    plan, dinv, P, R, colours, lambda_max), of the bridge and of the tail's
-    operators lies on the card."""
+    plan, dinv, P, R, colours, lambda_max, the block inverses), of the
+    bridge and of the tail's operators lies on the card."""
     for k, lv in enumerate(dh.levels):
         ts = (_dm_tensors(lv.A) + _dm_tensors(lv.Pmat) + _dm_tensors(lv.Rmat)
-              + [t for t in (lv.dinv, lv.color, lv.cheb_lmax) if t is not None])
+              + [t for t in (lv.dinv, lv.color, lv.cheb_lmax, lv.binv)
+                 if t is not None])
         if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
             raise AssertionError(f"[{tag}] sharded level {k} holds tensors "
                                  "off the card")
@@ -3219,14 +3241,21 @@ def check_on_card(tag: str, dh) -> None:
         raise AssertionError(f"[{tag}] the bridge or the tail is off the card")
 
 
-def timed_dist_build(A, cfg, ring, dtype, dev) -> tuple:
-    """(dist_build_hierarchy on ``dev``, seconds, peak device GiB)."""
-    from raptor_tpu_torch.parallel import dist_build_hierarchy
+def timed_dist_build(A, cfg, ring, dtype, dev, B=None) -> tuple:
+    """(dist_build_hierarchy, or dist_build_sa_hierarchy with candidates
+    ``B`` for smoothed aggregation, on ``dev``; seconds; peak device
+    GiB)."""
+    from raptor_tpu_torch.parallel import (dist_build_hierarchy,
+                                           dist_build_sa_hierarchy)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dh = dist_build_hierarchy(A, cfg, ring, DSETUP_TAIL, dtype, device=dev)
+    if cfg.splitting == "aggregation":
+        dh = dist_build_sa_hierarchy(A, cfg, ring, B, DSETUP_TAIL, dtype,
+                                     device=dev)
+    else:
+        dh = dist_build_hierarchy(A, cfg, ring, DSETUP_TAIL, dtype, device=dev)
     torch.cuda.synchronize()
     return (dh, time.perf_counter() - t0,
             torch.cuda.max_memory_allocated() / 2**30)
@@ -3235,8 +3264,8 @@ def timed_dist_build(A, cfg, ring, dtype, dev) -> tuple:
 def dist_solve_checked(tag: str, A, dh, ring, dtype) -> tuple:
     """dist_solve (cg, DSETUP_TOL) of b = default_rhs on ``dh``: (its
     iterations, the true fp64 relres of the gathered x against A, the
-    solve's seconds).  Raises on a non-finite x or a relres above
-    DSETUP_MAX_TRUE."""
+    solve's seconds).  Raises on a non-finite x, a certified (recurrence)
+    relres above DSETUP_TOL or a true one above DSETUP_MAX_TRUE."""
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.gallery import default_rhs
     from raptor_tpu_torch.parallel import dist_solve
@@ -3256,6 +3285,9 @@ def dist_solve_checked(tag: str, A, dh, ring, dtype) -> tuple:
     relres = _true_relres(A, xg[:n], b)
     if not relres <= DSETUP_MAX_TRUE:
         raise AssertionError(f"[{tag}] true relres {relres} > {DSETUP_MAX_TRUE}")
+    if not float(info.relres) <= DSETUP_TOL:
+        raise AssertionError(f"[{tag}] certified relres {float(info.relres)} "
+                             f"> {DSETUP_TOL}")
     return int(info.iterations), relres, solve_s
 
 
@@ -3452,6 +3484,175 @@ def phase_dist_setup(dev) -> dict:
     return {"one_rank": one, "ranks": phase_dist_setup_ranks(dev, one)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the sharded smoothed-aggregation setup (parallel/dist_sa.py)
+# ---------------------------------------------------------------------------
+
+def phase_dist_sa_one_rank(dev) -> dict:
+    """Phase 27a, and 27b's one-rank builds, on one rank over NCCL:
+    config 4's preset at elasticity_3d(DSA_N) built by
+    dist_build_sa_hierarchy in fp32, cold and warm (seconds, peak memory,
+    every sharded tensor, binv included, on the card); its sharded sizes
+    and real coarse size beside phase 19's device route (level 0 and the
+    first coarse size equal); dist_solve (cg, tol 1e-6, certified <= 1e-6,
+    host fp64 true <= 1e-5) within DSA_FENCE iterations of the single-
+    device device-route hierarchy sharded by distribute_hierarchy on the
+    same ring.  Then elasticity_3d(DSA_N4) on the same ring: the sizes and
+    iterations 27b is held to."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch import PRESETS, setup
+    from raptor_tpu_torch.gallery import elasticity_3d
+    from raptor_tpu_torch.parallel import Ring, distribute_hierarchy
+
+    t_phase = time.perf_counter()
+    A, B, _ = elasticity_3d(DSA_N)
+    cfg = PRESETS["config4"]
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        builds, dh = [], None
+        for _ in ("cold", "warm"):
+            dh = None
+            torch.cuda.empty_cache()
+            dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, dev, B=B)
+            builds.append((s, peak))
+        check_on_card("dsa1", dh)
+        sizes = dist_sizes(dh)
+        tail = [lv.n for lv in dh.tail.levels]
+        blocks = sum(lv.binv is not None for lv in dh.levels)
+        iters, relres, solve_s = dist_solve_checked("dsa1", A, dh, ring,
+                                                    np.float32)
+        del dh
+        torch.cuda.empty_cache()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h1 = setup(A, cfg, B=B, device=dev)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        single_sizes = [lv.n for lv in h1.levels]
+        dh1 = distribute_hierarchy(h1, ring, DSETUP_TAIL)
+        it1, rel1, _ = dist_solve_checked("dsa1 single", A, dh1, ring,
+                                          np.float32)
+        del h1, dh1
+        torch.cuda.empty_cache()
+        print(f"[dsa1] config 4 elasticity_3d({DSA_N}) ({A.shape[0]} rows) on "
+              f"1 rank (NCCL), fp32: dist_build_sa_hierarchy "
+              f"{builds[0][0]:.3f} s cold, {builds[1][0]:.3f} s warm, peak "
+              f"device memory {builds[0][1]:.3f} / {builds[1][1]:.3f} GiB; "
+              f"single-device device SA (api.setup) {single_s:.3f} s")
+        print(f"[dsa1] sharded sizes and the real coarse size {sizes} (tail "
+              f"{tail}, {blocks} sharded levels with block inverses); phase "
+              f"19's device route {CONFIG4_DEVICE_SIZES_PIN}, this run's "
+              f"single-device build {single_sizes}; dist_solve {iters} "
+              f"iterations in {solve_s:.3f} s, true fp64 relres {relres:.3e}; "
+              f"the single-device build through distribute_hierarchy {it1} "
+              f"iterations (true {rel1:.3e})")
+        if (sizes[:2] != CONFIG4_DEVICE_SIZES_PIN[:2]
+                or sizes[:2] != single_sizes[:2]):
+            raise AssertionError(f"[dsa1] sharded sizes {sizes}, phase 19's "
+                                 f"{CONFIG4_DEVICE_SIZES_PIN}, this run's "
+                                 f"single-device {single_sizes}")
+        if blocks != len(sizes) - 1:
+            raise AssertionError(f"[dsa1] {blocks} sharded levels with block "
+                                 "inverses")
+        if abs(iters - it1) > DSA_FENCE:
+            raise AssertionError(f"[dsa1] {iters} iterations, the single-"
+                                 f"device build {it1}")
+        one = {"n": A.shape[0], "setup_cold_s": builds[0][0],
+               "setup_warm_s": builds[1][0], "peak_mem_gib": builds[0][1],
+               "peak_mem_warm_gib": builds[1][1], "sizes": sizes,
+               "tail": tail, "single_sizes": single_sizes,
+               "single_setup_s": single_s, "iters": iters, "relres": relres,
+               "solve_s": solve_s, "single_iters": it1}
+
+        # 27b's reference: the DSA_N4 input on this ring of one
+        A4, B4, _ = elasticity_3d(DSA_N4)
+        dh, s4, peak4 = timed_dist_build(A4, cfg, ring, torch.float32, dev, B=B4)
+        sizes4 = dist_sizes(dh)
+        it4, rel4, _ = dist_solve_checked("dsa1 n4", A4, dh, ring, np.float32)
+        del dh
+        torch.cuda.empty_cache()
+        print(f"[dsa1] elasticity_3d({DSA_N4}) ({A4.shape[0]} rows) on 1 rank: "
+              f"sizes {sizes4}, build {s4:.3f} s (peak {peak4:.3f} GiB), {it4} "
+              f"iterations, true {rel4:.3e}")
+        if len(sizes4) < 3:
+            raise AssertionError(f"[dsa1] elasticity_3d({DSA_N4}) gave "
+                                 f"{len(sizes4) - 1} sharded levels")
+        one["n4"] = {"n": A4.shape[0], "sizes": sizes4, "setup_s": s4,
+                     "peak_mem_gib": peak4, "iters": it4, "relres": rel4}
+    finally:
+        dist.destroy_process_group()
+    one["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dsa1] phase 27a: {one['phase_s']:.1f} s")
+    return one
+
+
+def rank_dist_sa(ring, device, n: int) -> dict:
+    """One rank of phase 27b (runs in a spawned process): config 4's preset
+    at elasticity_3d(n) by dist_build_sa_hierarchy in fp32, timed, checked
+    on the card and solved."""
+    from raptor_tpu_torch import PRESETS
+    from raptor_tpu_torch.gallery import elasticity_3d
+
+    A, B, _ = elasticity_3d(n)
+    dh, s, peak = timed_dist_build(A, PRESETS["config4"], ring, torch.float32,
+                                   device, B=B)
+    check_on_card(f"dsa{ring.axis_size} rank {ring.axis_index}", dh)
+    iters, relres, solve_s = dist_solve_checked(
+        f"dsa{ring.axis_size}", A, dh, ring, np.float32)
+    return {"sizes": dist_sizes(dh), "setup_s": s, "peak_mem_gib": peak,
+            "iters": iters, "relres": relres, "solve_s": solve_s}
+
+
+def phase_dist_sa_ranks(dev, one: dict) -> dict:
+    """Phase 27b: DSA_RANKS ranks sharing the card over gloo, each building
+    its shards of elasticity_3d(DSA_N4) with config 4's preset; sizes equal
+    to one rank's, iterations within one of one rank's."""
+    from raptor_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    outs = spawn(rank_dist_sa, DSA_RANKS, "gloo", dev, DSA_N4, timeout=900.0)
+    wall = time.perf_counter() - t0
+    ref = one["n4"]
+    for r, o in enumerate(outs):
+        print(f"[dsa{DSA_RANKS}] rank {r}: dist_build_sa_hierarchy "
+              f"{o['setup_s']:.3f} s (peak {o['peak_mem_gib']:.3f} GiB); "
+              f"{o['iters']} iterations in {o['solve_s']:.3f} s, true relres "
+              f"{o['relres']:.3e}")
+    o = outs[0]
+    print(f"[dsa{DSA_RANKS}] elasticity_3d({DSA_N4}) on {DSA_RANKS} ranks "
+          f"sharing the card (gloo): sizes {o['sizes']} (one rank: "
+          f"{ref['sizes']}); {o['iters']} iterations (one rank: "
+          f"{ref['iters']}); {wall:.1f} s with the processes' start")
+    if any(p["sizes"] != ref["sizes"] for p in outs):
+        raise AssertionError(f"[dsa{DSA_RANKS}] sizes differ from one rank's "
+                             f"{ref['sizes']}")
+    if any(p["iters"] != o["iters"] for p in outs):
+        raise AssertionError(f"[dsa{DSA_RANKS}] the ranks disagree on the "
+                             "iteration count")
+    if abs(o["iters"] - ref["iters"]) > 1:
+        raise AssertionError(f"[dsa{DSA_RANKS}] {o['iters']} iterations, one "
+                             f"rank {ref['iters']}")
+    return {"ranks": DSA_RANKS, "n": ref["n"], "wall_s": wall,
+            "setup_s": [p["setup_s"] for p in outs],
+            "peak_mem_gib": [p["peak_mem_gib"] for p in outs],
+            "sizes": o["sizes"], "iters": o["iters"], "relres": o["relres"]}
+
+
+def phase_dist_sa(dev) -> dict:
+    """Phase 27: 27a on one rank, then 27b on DSA_RANKS."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = phase_dist_sa_one_rank(dev)
+    out = {"one_rank": one, "ranks": phase_dist_sa_ranks(dev, one)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[dsa] phase 27: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     # the CSR yardsticks are built from checked indices; PyTorch warns on
     # every sparse CSR tensor that its support is in beta
@@ -3587,13 +3788,15 @@ def main() -> None:
     # phase 26: the sharded setup launches no kernel of its own (its levels
     # take the ELL halo route, as the reference's do)
     dsetup = phase_dist_setup(dev)
+    # phase 27: the sharded SA setup, likewise on the ELL halo route
+    dsa = phase_dist_sa(dev)
 
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
                       "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4, "configs": configs,
                       "mcgs96": mcgs96, "mcgs_ranks": mcgs4, "cljp": cljp,
                       "full": full, "surface": surface,
-                      "dist_setup": dsetup}))
+                      "dist_setup": dsetup, "dist_sa": dsa}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",
@@ -3623,18 +3826,21 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def main_dist_setup() -> None:
-    """``--dist-setup-only``: the device, the kernels' build and phase 26
-    alone (no kernels line and no final ok line: not the smoke's result)."""
+def main_alone(name: str, phase) -> None:
+    """``--dist-setup-only`` and ``--dist-sa-only``: the device, the
+    kernels' build and phase 26 or 27 alone (no kernels line and no final
+    ok line: not the smoke's result)."""
     dev = phase_device()
     phase_build()
-    print(json.dumps({"dist_setup": phase_dist_setup(dev)}))
+    print(json.dumps({name: phase(dev)}))
 
 
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1:] == ["--dist-setup-only"]:
-        main_dist_setup()
+        main_alone("dist_setup", phase_dist_setup)
+    elif sys.argv[1:] == ["--dist-sa-only"]:
+        main_alone("dist_sa", phase_dist_sa)
     else:
         main()

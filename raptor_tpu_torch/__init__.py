@@ -18,15 +18,13 @@ Everything the JAX package does on one device is ported:
 * the plane-sharded structured engine (config 5), the algebraic sharded
   setup (``dist_build_hierarchy``: PMIS or CLJP, direct, classical or
   extended+i interpolation, aggressive coarsening with multipass
-  interpolation, on row shards) and the algebraic sharded solve
-  (``distribute_hierarchy``, ``dist_solve``, TAPS) over torch.distributed;
+  interpolation, on row shards), the sharded smoothed-aggregation setup
+  (``dist_build_sa_hierarchy``, config 4's pipeline) and the algebraic
+  sharded solve (``distribute_hierarchy``, ``dist_solve``, TAPS) over
+  torch.distributed;
 * matrix and vector file I/O, hierarchy and solver-state checkpoints,
   profiling hooks, and the command line (``python -m raptor_tpu_torch``);
 * the JAX-free configuration and stencil gallery.
-
-The sharded smoothed-aggregation setup (the reference's
-``parallel/dist_sa.py``) is not ported yet: a sharded SA solve runs on a
-hierarchy built on one device.
 
 The DIA (plain and halo-extended), banded and rectangular SpMVs and the
 banded df64 residual run through the kernels of ``raptor_tpu_torch/csrc``
@@ -66,6 +64,7 @@ from raptor_tpu_torch.core.hybrid import BandedMatrix, RectBanded
 from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
 from raptor_tpu_torch.api import setup, solve, solve_hier, solve_hier_refined
 from raptor_tpu_torch.parallel.dist_setup import dist_build_hierarchy
+from raptor_tpu_torch.parallel.dist_sa import dist_build_sa_hierarchy
 from raptor_tpu_torch.utils.io import (read_matrix, read_vector, write_matrix,
                                        write_vector)
 
@@ -103,6 +102,7 @@ __all__ = [
     "solve_hier",
     "solve_hier_refined",
     "dist_build_hierarchy",
+    "dist_build_sa_hierarchy",
     "Hierarchy",
     "Level",
     "EllMatrix",

@@ -14,6 +14,7 @@ from raptor_tpu_torch.parallel.dist import (
     make_solve_mesh,
 )
 from raptor_tpu_torch.parallel.dist_setup import dist_build_hierarchy
+from raptor_tpu_torch.parallel.dist_sa import dist_build_sa_hierarchy
 from raptor_tpu_torch.parallel.dist_taps import (
     TapsDistHierarchy,
     distribute_hierarchy_taps,
@@ -41,4 +42,5 @@ __all__ = [
     "dist_solve",
     "make_solve_mesh",
     "dist_build_hierarchy",
+    "dist_build_sa_hierarchy",
 ]

@@ -727,11 +727,16 @@ def dist_build_hierarchy(A, config: AmgConfig, ring: Ring,
     row block to ``device``.  Supports PMIS or CLJP splitting with direct,
     modified-classical or extended+i interpolation, and aggressive
     (distance-two) coarsening with multipass interpolation (config 3's
-    pipeline); RS and smoothed-aggregation setups take the single-device
-    build and ``distribute_hierarchy``.  Levels are sharded down to
+    pipeline); smoothed aggregation is ``parallel/dist_sa.py``'s
+    ``dist_build_sa_hierarchy``, and RS takes the single-device build and
+    ``distribute_hierarchy``.  Levels are sharded down to
     ``tail_size`` rows; the rest is built whole on every rank.  The result
     equals the single-device hierarchy up to the block-padded coarse
     renumbering and solves with ``dist_solve`` unchanged."""
+    if config.splitting == "aggregation":
+        raise ValueError("dist_build_hierarchy supports splitting='pmis' or "
+                         "'cljp'; smoothed aggregation is "
+                         "dist_build_sa_hierarchy")
     if config.splitting not in ("pmis", "cljp"):
         raise ValueError("dist_build_hierarchy supports splitting='pmis' or "
                          f"'cljp' (got {config.splitting!r})")

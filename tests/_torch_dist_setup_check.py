@@ -96,6 +96,11 @@ def check_build(ranks, jdh, part):
                 if lv.color is not None:
                     assert np.array_equal(g["color"], np.asarray(lv.color)[own])
                     assert g["ncolors"] == lv.ncolors, what
+                assert (g["binv"] is None) == (lv.binv is None), what
+                if lv.binv is not None:  # one (b, b) block per b rows
+                    nb = g["binv"].shape[0]
+                    _close(g["binv"], np.asarray(lv.binv)[rank * nb:(rank + 1) * nb],
+                           VAL_TOL, what + ("binv",))
         if part == "tail":
             # the tail's sizes, and its first operator (the last sharded
             # level's Galerkin product); its coarser levels are the host

@@ -1,5 +1,6 @@
 """Bodies of the spawned ranks of tests/test_torch_dist_setup.py and
-tests/test_torch_dist_setup_aggr.py.
+tests/test_torch_dist_setup_aggr.py, and the summaries and carried
+hierarchies tests/_torch_dist_sa_spmd.py shares.
 
 Each case runs on every rank of a ``raptor_tpu_torch.parallel.spawn`` run
 and returns plain numpy data.  This module imports no JAX: a spawned child
@@ -75,7 +76,8 @@ def summary(dh: DistHierarchy, ring: Ring) -> dict:
                     "P_gcols": _global_cols(lv.Pmat, ring),
                     "dinv": _np(lv.dinv), "cheb_lmax": _scalar(lv.cheb_lmax),
                     "color": _np(lv.color), "ncolors": lv.ncolors,
-                    "n": lv.n, "n_local": lv.n_local} for lv in dh.levels],
+                    "binv": _np(lv.binv), "n": lv.n,
+                    "n_local": lv.n_local} for lv in dh.levels],
         "bridge_P": _ell(dh.bridge_P), "bridge_R": _ell(dh.bridge_R),
         "tail_n": [lv.n for lv in dh.tail.levels],
         "tail_A": [_ell(lv.A) for lv in dh.tail.levels]}
@@ -116,7 +118,7 @@ def hierarchy_from_tree(tree: dict, device) -> DistHierarchy:
         A=_dm_from(lv["A"], device), dinv=opt(lv["dinv"]),
         Pmat=_dm_from(lv["P"], device), Rmat=_dm_from(lv["R"], device),
         cheb_lmax=opt(lv["cheb_lmax"]), n_local=lv["n_local"], n=lv["n"],
-        color=opt(lv["color"]), ncolors=lv["ncolors"])
+        color=opt(lv["color"]), ncolors=lv["ncolors"], binv=opt(lv.get("binv")))
         for lv in tree["levels"])
     return DistHierarchy(
         levels=levels, bridge_P=_ell_from(tree["bridge_P"], device),

@@ -12,6 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+# One intra-op thread a test process.  A run with several pytest workers
+# (xdist) puts them on one machine, and every worker imports this module
+# when it collects the port's tests.  torch's OpenMP threads spin while they wait,
+# so with its default (a thread a core) in each worker they take the cores
+# the other workers' work needs; the port's tests run small operators,
+# which one thread serves, as it serves the spawned ranks
+# (raptor_tpu_torch.parallel.comm._run_rank).
+torch.set_num_threads(1)
+
 
 def cuda_device() -> torch.device:
     """The card for a ``cuda``-marked test; skips (decided at run time,
@@ -281,20 +290,26 @@ def _dm_block(m, rank: int, ndev: int):
 def dist_tree_from_jax(dh, rank: int) -> dict:
     """One rank's blocks of a JAX ``DistHierarchy`` (sharded levels on the
     ELL route) as the plain-numpy tree of
-    ``tests/_torch_dist_setup_spmd.hierarchy_from_tree``; the tail and the
-    bridge whole."""
+    ``tests/_torch_dist_setup_spmd.hierarchy_from_tree``; the tail (an
+    algebraic or a smoothed-aggregation one) and the bridge whole.  A
+    level's block-diagonal inverses (``binv``, one (b, b) block per b
+    rows) shard with its rows."""
     ndev = dh.ndev
     levels = []
     for lv in dh.levels:
         nl = lv.n_local
         own = slice(rank * nl, (rank + 1) * nl)
+        binv = None
+        if lv.binv is not None:
+            nb = np.asarray(lv.binv).shape[0] // ndev
+            binv = np.asarray(lv.binv)[rank * nb:(rank + 1) * nb]
         levels.append({
             "A": _dm_block(lv.A, rank, ndev), "P": _dm_block(lv.Pmat, rank, ndev),
             "R": _dm_block(lv.Rmat, rank, ndev),
             "dinv": np.asarray(lv.dinv)[own],
             "cheb_lmax": _opt(lv.cheb_lmax),
             "color": None if lv.color is None else np.asarray(lv.color)[own],
-            "ncolors": lv.ncolors, "n": lv.n, "n_local": nl})
+            "ncolors": lv.ncolors, "n": lv.n, "n_local": nl, "binv": binv})
     return {"levels": levels, "bridge_P": _ell_tree(dh.bridge_P),
             "bridge_R": _ell_tree(dh.bridge_R),
             "tail": algebraic_tree_from_jax(dh.tail),

@@ -1102,3 +1102,73 @@ def test_dist_setup_one_rank_on_card_matches_cpu():
         assert cf[dev].is_cuda and torch.equal(cf[dev].cpu(), cf["cpu"])
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the sharded smoothed-aggregation setup (parallel/dist_sa.py) on a ring of
+# one
+# ---------------------------------------------------------------------------
+
+def _close_to(got, ref, tol=1e-10) -> bool:
+    """|got - ref| <= tol * max(1, max|ref|), got moved to the CPU."""
+    scale = max(1.0, float(ref.abs().max()))
+    return float((got.cpu() - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("case", ["elastic", "scalar"])
+def test_dist_sa_one_rank_on_card_matches_cpu(case):
+    """dist_build_sa_hierarchy on a gloo ring of one, in fp64:
+    elasticity_3d(8) with config 4's block smoother and its rigid-body
+    modes, and poisson_2d(32) with one candidate and cheb4.  Every sharded
+    tensor, binv included, lies on the card; the sizes, the A, P and R
+    structure, the bridge, and the values of A, P, dinv, binv and
+    lambda_max (to 1e-10 of the largest entry: the batched QR and the
+    block inverses are other libraries' on the two devices) equal the same
+    build on the CPU, and dist_solve takes the same iterations."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.gallery import elasticity_3d, poisson_2d
+    from raptor_tpu_torch.parallel import Ring, dist_build_sa_hierarchy, dist_solve
+
+    dev = cuda_device()
+    if case == "elastic":
+        A, B, _ = elasticity_3d(8)
+        cfg = AmgConfig(splitting="aggregation", interp="smoothed",
+                        smoother="block_cheb", num_candidates=6, theta=0.08,
+                        coarse_size=64, tail_max_n=0)
+    else:
+        A, B = poisson_2d(32), None
+        cfg = AmgConfig(splitting="aggregation", interp="smoothed",
+                        smoother="cheb4", coarse_size=32, tail_max_n=0)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        ring = Ring()
+        hs = {d: dist_build_sa_hierarchy(A, cfg, ring, B, 256, torch.float64,
+                                         device=d) for d in (dev, "cpu")}
+        g, c = hs[dev], hs["cpu"]
+        assert [lv.n for lv in g.levels] == [lv.n for lv in c.levels]
+        assert [lv.n for lv in g.tail.levels] == [lv.n for lv in c.tail.levels]
+        for lg, lc in zip(g.levels, c.levels):
+            assert (lg.binv is None) == (lc.binv is None) == (case != "elastic")
+            for tg, tc in ((lg.dinv, lc.dinv), (lg.binv, lc.binv),
+                           (lg.cheb_lmax, lc.cheb_lmax)):
+                if tc is not None:
+                    assert tg.is_cuda and _close_to(tg, tc)
+            for mg, mc in ((lg.A, lc.A), (lg.Pmat, lc.Pmat), (lg.Rmat, lc.Rmat)):
+                if mc is None:
+                    assert mg is None
+                    continue
+                assert mg.data.is_cuda and mg.cols.is_cuda
+                assert torch.equal(mg.cols.cpu(), mc.cols)
+                assert torch.equal(mg.row_nnz.cpu(), mc.row_nnz)
+                assert _close_to(mg.data, mc.data)
+        assert torch.equal(g.bridge_P.cols.cpu(), c.bridge_P.cols)
+        assert _close_to(g.bridge_P.data, c.bridge_P.data)
+        b = torch.zeros(g.levels[0].n_local, dtype=torch.float64)
+        b[:A.shape[0]] = torch.from_numpy(default_rhs(A.shape[0]))
+        xg, ig = dist_solve(g, b.to(dev), ring, tol=1e-8, maxiter=200)
+        xc, ic = dist_solve(c, b, ring, tol=1e-8, maxiter=200)
+        assert xg.is_cuda and int(ig.iterations) == int(ic.iterations)
+        assert _close_to(xg, xc, 1e-8)
+    finally:
+        dist.destroy_process_group()

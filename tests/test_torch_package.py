@@ -88,10 +88,11 @@ def test_chip_smoke_fails_without_gpu(tmp_path, alone):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("sub", ["setup", "solve", "core", "ops"])
+@pytest.mark.parametrize("sub", ["setup", "solve", "core", "ops", "parallel"])
 def test_subpackages_export_the_reference_names(sub):
     """Each subpackage re-exports the names the reference's does (the
-    reference's ``__all__``, read from its source), plus CLJP's splitting
+    reference's ``__all__``, read from its source; ``parallel`` since its
+    sharded SA setup, ``dist_build_sa_hierarchy``), plus CLJP's splitting
     in ``setup``."""
     import importlib
 
