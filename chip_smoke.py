@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of raptor_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
+"""Smoke run of raptor_tpu_torch on NVIDIA GPUs (Hopper, sm_90a): every
+phase on one card, and phase 28 across every card where there are two or
+more.
 
     python3 chip_smoke.py
 
@@ -203,7 +205,28 @@ Phases, each of which raises on failure (there is no CPU path):
     on the same ring; 27b elasticity_3d(DSA_N4) (95,232 rows, two sharded
     levels) on DSA_RANKS ranks sharing the card over gloo: sizes equal to
     one rank's, iterations +-1, each rank's seconds.  ``--dist-sa-only``
-    runs phases 1, 2 and 27 alone.
+    runs phases 1, 2 and 27 alone;
+28. the sharded engines on several cards, one NCCL rank a card (four
+    where four cards are visible, else two; with one card it prints that
+    it did not run), in one spawn: the ring's shifts (by +-1, +-2, 3 and
+    the ring's size; 1-D, 2-D and empty), psum, pmax and all_gather in
+    fp32, fp64, int64 and bf16, each equal to the gloo ring's result on the
+    same inputs and to what the inputs give, and TAPS's node and chip rings
+    with their global peer ranks; config 5 at SDIST_N^3 (every rank's K3
+    calls all K3 launches, no K1v1, iterations phase 11's +-1, rank 0's
+    gathered x true <= SDIST_MAX_TRUE); the algebraic sharded solve of
+    shuffled ADIST_N^3 padded for the ranks, flat and TAPS on a (2, N / 2)
+    grid (K4-halo and K6-map_cols on every rank, iterations the one-rank
+    solve's on the same hierarchy and phase 15's +-1, TAPS equal to the
+    flat solve), each rank's messages and words per V-cycle from the host
+    plans; dist_build_hierarchy at DSETUP_N^3 (fp64 sizes equal to 26a's,
+    iterations +-1) and dist_build_sa_hierarchy at elasticity_3d(DSA_N)
+    (sizes equal to 27a's, iterations within DSA_FENCE); V-cycle ms per
+    rank and rank 0's V-cycles under torch.profiler; then every launch
+    shape of K3, K4-halo and K6-map_cols on every rank bit for bit against
+    its plain version; and phase 25's ``bench --preset config5``, the
+    CLI's multi-card branch, names the card count.  ``--multi-card-only``
+    runs phases 1, 2 and 28 alone, with the one-rank runs it is held to.
 
 Every kernel is timed by CUDA-graph replay beside its plain version (K4 and
 K6 also at every shape of the 48^3 path, L2-warm and L2-cold, with the
@@ -218,8 +241,9 @@ launches of its own paths: K4, K5 and K6 those of the 48^3 row, of
 phase 21's refined solve and of phase 23's two refined solves, K1 and K2
 those of the 128^3 path and of phase 24's two paths, K4-halo those of
 rank 0 of phase 17, of phase 21's two one-rank solves and of rank 0 of
-phase 22, K6-map_cols those of rank 0 of phases 17 and 22); the last line
-is
+phase 22, K6-map_cols those of rank 0 of phases 17 and 22; where phase 28
+ran, rank 0's K3, K4-halo and K6-map_cols launches of it too); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -361,6 +385,9 @@ DSETUP_TOL, DSETUP_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
 # tests/distributed/test_dist_algebraic_setup.py:432)
 DSA_N, DSA_N4, DSA_RANKS = 48, 32, 4
 DSA_FENCE = 2
+# phase 28: the sharded engines at the sizes above on several cards, one
+# NCCL rank a card; the ring's collectives in the dtypes the engines send
+MC_DTYPES = (torch.float32, torch.float64, torch.int64, torch.bfloat16)
 
 
 def stencil_7pt() -> np.ndarray:
@@ -1877,17 +1904,18 @@ def ell_block_csr(E, r0: int, r1: int, shift: int, n_cols: int, dev):
     return host_csr(a, a.shape, dev)
 
 
-def sharded_cases(h, ndev: int, every: bool = True) -> list:
+def sharded_cases(h, ndev: int, every: bool = True, ranks=None) -> list:
     """(kernel, label, rank, local plan, buffer length, map_cols, ELL
-    operator, first row, column shift) for rank 0's and the last rank's
-    tiles of every operator the sharded path runs through K4's halo form
-    or K6's map_cols form: as dist_banded_spmv and dist_rect_banded_spmv
-    call them.  With ``every``, raises if an operator of a sharded level
-    does not shard that way; else skips it (the path takes ELL there)."""
+    operator, first row, column shift) for the tiles of ``ranks`` (rank 0's
+    and the last rank's by default) of every operator the sharded path runs
+    through K4's halo form or K6's map_cols form: as dist_banded_spmv and
+    dist_rect_banded_spmv call them.  With ``every``, raises if an operator
+    of a sharded level does not shard that way; else skips it (the path
+    takes ELL there)."""
     from raptor_tpu_torch.parallel.dist import _shardable_band, _shardable_rect
 
     t = n_sharded(h)
-    ranks = sorted({0, ndev - 1})
+    ranks = sorted({0, ndev - 1}) if ranks is None else ranks
     out = []
     for k in range(t):
         lev = h.levels[k]
@@ -1981,19 +2009,21 @@ def phase_sharded_kernels(dev, h4) -> dict:
     return rec
 
 
-def sharded_equal(dev, tag: str, h, ndev: int, rec, shapes: list) -> None:
+def sharded_equal(dev, tag: str, h, ndev: int, rec, shapes: list,
+                  ranks=None) -> None:
     """K4's halo form and K6's map_cols form against their plain versions,
-    bit for bit, on rank 0's and the last rank's tiles of every operator
-    the sharded path of ``h`` over ``ndev`` ranks runs through them
-    (random buffers); every (kernel, n, K, dtype) the path launched
-    (``shapes``, launches by shape) must be among them."""
+    bit for bit, on the tiles of ``ranks`` (rank 0's and the last rank's
+    by default) of every operator the sharded path of ``h`` over ``ndev``
+    ranks runs through them (random buffers); every (kernel, n, K, dtype)
+    the path launched (``shapes``, launches by shape) must be among
+    them."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     compared = set()
     for kern, label, rank, plan, length, map_cols, *_ in sharded_cases(
-            h, ndev, every=False):
+            h, ndev, every=False, ranks=ranks):
         x = torch.randn(length, generator=gen, device=dev)
         name = f"{kern} {tag} {label} rank {rank} n={plan['n']} K {plan['K']}"
         if kern == "K4-halo":
@@ -2216,22 +2246,28 @@ def exchange_counts(dh, th) -> dict:
 
 def rank_adist(ring, device, path: str, b_rcm) -> dict:
     """One rank of phase 17 (runs in a spawned process): the hierarchy
-    saved by the parent, sharded; the flat solve on the counts set to 0
-    just before it; then TAPS against the flat solve on the ELL route;
-    rank 0 returns the gathered x."""
-    import dataclasses
+    saved by the parent, through ``adist_body`` on a TAPS_GRID mesh."""
+    from raptor_tpu_torch.parallel import make_taps_mesh
 
+    h = torch.load(path, weights_only=False, map_location=device)
+    b = torch.from_numpy(b_rcm).to(device)
+    return adist_body(ring, device, h, b, make_taps_mesh(*TAPS_GRID))[0]
+
+
+def adist_body(ring, device, h, b, mesh) -> tuple:
+    """One rank of the algebraic sharded solve of ``h`` (phases 17 and
+    28): sharded, the flat solve on the counts set to 0 just before it;
+    then TAPS on ``mesh`` against the flat solve on the ELL route.
+    Returns (the rank's record, rank 0's with the gathered x; the sharded
+    hierarchy)."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.parallel import (dist_solve, dist_solve_taps,
                                            distribute_hierarchy,
-                                           distribute_hierarchy_taps,
-                                           make_taps_mesh)
+                                           distribute_hierarchy_taps)
     from raptor_tpu_torch.parallel import dist as pdist
     from raptor_tpu_torch.parallel.halo import halo_exchange
     from raptor_tpu_torch.parallel.taps import taps_exchange
 
-    h = torch.load(path, weights_only=False, map_location=device)
-    b = torch.from_numpy(b_rcm).to(device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dh = distribute_hierarchy(h, ring, ADIST_TAIL)
@@ -2247,7 +2283,6 @@ def rank_adist(ring, device, path: str, b_rcm) -> dict:
     shapes = sorted([*key, c] for key, c in bk.launches_by_shape.items())
     xg = ring.all_gather(x)
 
-    mesh = make_taps_mesh(*TAPS_GRID)
     th = distribute_hierarchy_taps(h, mesh, ADIST_TAIL)
     t0 = time.perf_counter()
     xt, it_t = dist_solve_taps(th, b, mesh, tol=ADIST_TOL, maxiter=200)
@@ -2266,15 +2301,16 @@ def rank_adist(ring, device, path: str, b_rcm) -> dict:
         v = torch.randn(plan.n_local, generator=gen, device=device)
         ext_equal.append(torch.equal(taps_exchange(v, plan, mesh),
                                      halo_exchange(v, dm.halo, ring)))
-    return {"iters": int(info.iterations), "certified": float(info.relres),
-            "distribute_s": dist_s, "solve_s": solve_s, "taps_s": taps_s,
-            "counts": counts, "calls": calls, "shapes": shapes,
-            "routes": [(lv.Aband is not None, lv.Pband is not None,
-                        lv.Rband is not None) for lv in dh.levels],
-            "taps_iters": int(it_t.iterations), "ell_iters": int(it_e.iterations),
-            "taps_equal": torch.equal(xt, xe), "ext_equal": ext_equal,
-            "exchanges": exchange_counts(dh, th),
-            "x": xg.cpu().numpy() if ring.axis_index == 0 else None}
+    rec = {"iters": int(info.iterations), "certified": float(info.relres),
+           "distribute_s": dist_s, "solve_s": solve_s, "taps_s": taps_s,
+           "counts": counts, "calls": calls, "shapes": shapes,
+           "routes": [(lv.Aband is not None, lv.Pband is not None,
+                       lv.Rband is not None) for lv in dh.levels],
+           "taps_iters": int(it_t.iterations), "ell_iters": int(it_e.iterations),
+           "taps_equal": torch.equal(xt, xe), "ext_equal": ext_equal,
+           "exchanges": exchange_counts(dh, th),
+           "x": xg.cpu().numpy() if ring.axis_index == 0 else None}
+    return rec, dh
 
 
 def phase_adist_ranks(dev, h4_cpu, one_rank_iters: int) -> dict:
@@ -2367,23 +2403,24 @@ def sharded_excess(rec: dict, shapes: list) -> None:
               f"{total:.4f} ms")
 
 
-def setup_four_rank_hierarchy(dev):
-    """The shuffled 96^3 hierarchy padded for ADIST_RANKS ranks, with its
-    unpadded level sizes checked against the reference's.  Every level is
-    built on the host (threshold 2**20): the reference builds a sharded
-    hierarchy's device levels with parallel/dist_setup.py, which is not
-    ported yet."""
+def setup_padded_hierarchy(dev, ranks: int = ADIST_RANKS):
+    """The shuffled 96^3 hierarchy padded for ``ranks`` ranks (1024 rows a
+    tile, a whole number of tiles a rank), with its unpadded level sizes
+    checked against the reference's.  Every level is built on the host
+    (threshold 2**20): a banded layout, the only route to K4's halo form
+    and K6's map_cols form, comes from the host-built levels."""
     from raptor_tpu_torch import AmgConfig, setup
 
     t0 = time.perf_counter()
+    pad = 1024 * ranks
     h = setup(shuffled_poisson(ADIST_N),
               AmgConfig(**ALG_CFG, host_setup_threshold=2**20,
-                        pad_multiple=ADIST_PAD), device=dev)
+                        pad_multiple=pad), device=dev)
     torch.cuda.synchronize()
     sizes = [lv.n for lv in h.levels]
-    print(f"[adist{ADIST_RANKS}] setup (pad_multiple {ADIST_PAD}) "
+    print(f"[adist{ranks}] setup (pad_multiple {pad}) "
           f"{time.perf_counter() - t0:.3f} s, sizes {sizes}")
-    _print_levels(f"adist{ADIST_RANKS}", h)
+    _print_levels(f"adist{ranks}", h)
     if sizes != ALG_SIZES[ADIST_N]:
         raise AssertionError(f"level sizes {sizes}, the reference's "
                              f"{ALG_SIZES[ADIST_N]}")
@@ -2500,7 +2537,8 @@ def phase_config4_device(dev, host_row: dict) -> dict:
     levels 0-1 equal phase 18's (they depend on A and B alone), the sizes
     equal CONFIG4_DEVICE_SIZES_PIN, and the iterations are within 3 of
     phase 18's (the reference's own fence, tests/unit/
-    test_aggregation.py:124-151)."""
+    test_aggregation.py:124-151).  Returns the row and the device-built
+    hierarchy moved to the host (phase 27a shards it)."""
     from raptor_tpu_torch import PRESETS
     from raptor_tpu_torch.setup.host_aggregation import host_build_sa_hierarchy
 
@@ -2511,7 +2549,6 @@ def phase_config4_device(dev, host_row: dict) -> dict:
     row, h = _config_row("config4 device", A, B, cfg, sc, dev, every_level=True)
     blocks = [lv.Abell is not None for lv in h.levels]
     row["block_levels"] = sum(blocks)
-    del h
     t1 = time.perf_counter()
     power = host_build_sa_hierarchy(A, cfg, B=B, gershgorin_rows=math.inf)
     row["host_power_sizes"] = [lv.n for lv in power.levels]
@@ -2540,7 +2577,7 @@ def phase_config4_device(dev, host_row: dict) -> dict:
                              f"{host_row['iters']}")
     if not row["relres"] <= MAX_RELRES:
         raise AssertionError(f"true relres {row['relres']} > {MAX_RELRES}")
-    return row
+    return row, h.to("cpu")
 
 
 def phase_config3_full(dev) -> dict:
@@ -3110,14 +3147,38 @@ def _cli(argv: list) -> dict:
     return json.loads(line)
 
 
+def cli_config5() -> dict:
+    """``bench --preset config5 --n SDIST_N`` through cli.main, as a user
+    runs it: on one card the single-device structured route (K2 on the
+    fine level, counted here), on several the CLI's multi-card branch (one
+    NCCL rank a card, every card when SDIST_N divides over them); its JSON
+    must name the device count that rule gives."""
+    from raptor_tpu_torch.cli import config5_ranks
+    from raptor_tpu_torch.ops.cuda import dia_kernel
+
+    ndev = config5_ranks(SDIST_N, torch.cuda.device_count())
+    dia_kernel.launches_by_shape.clear()
+    r = _cli(["bench", "--preset", "config5", "--n", str(SDIST_N)])
+    k2 = dia_kernel.launches_by_shape[("K2", SDIST_N ** 3, 7, "float32")]
+    print(f"[cli] bench config5: {ndev} device(s), K2 {k2} launches on the "
+          f"{SDIST_N}^3 fine level in this process")
+    want = f"poisson3d n={SDIST_N} (structured, {ndev} device(s))"
+    if (not r["relres"] <= SDIST_TOL or r["problem"] != want
+            or (ndev == 1 and k2 == 0)):
+        raise AssertionError(f"bench config5: {r}, K2 {k2} launches; "
+                             f"expected {want!r}")
+    return dict(r, k2_launches=k2, devices=ndev)
+
+
 def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
     """Phase 25: the user surface.  ``python -m raptor_tpu_torch info`` in
     a subprocess; shuffled SURFACE_N^3 written as .rbm and .mtx.gz and read
     back;
     the CLI's banded CLJP solve of the .rbm (K4 launched, the written x
-    checked by a host fp64 residual), bench config2 and bench config5 (one
-    card: the single-device structured route, K2 on the fine level); phase
-    23's hierarchy saved, loaded on the card and solved again (the same
+    checked by a host fp64 residual), bench config2 and bench config5
+    (``cli_config5``: on one card the single-device structured route, K2 on
+    the fine level; on several the multi-card branch); phase 23's
+    hierarchy saved, loaded on the card and solved again (the same
     iterations, x bit-equal)."""
     import os
     import sys
@@ -3125,7 +3186,6 @@ def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
     from raptor_tpu_torch import AmgConfig, SolveConfig, solve
     from raptor_tpu_torch.gallery import default_rhs
     from raptor_tpu_torch.ops.cuda import banded_kernel
-    from raptor_tpu_torch.ops.cuda import dia_kernel
     from raptor_tpu_torch.utils.checkpoint import load_hierarchy, save_hierarchy
     from raptor_tpu_torch.utils.io import read_matrix, read_vector, write_matrix
 
@@ -3173,14 +3233,7 @@ def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
     if not r["relres"] <= 1e-6:
         raise AssertionError(f"bench config2: relres {r['relres']}")
     out["config2"] = r
-    dia_kernel.launches_by_shape.clear()
-    r = _cli(["bench", "--preset", "config5"])
-    k2 = dia_kernel.launches_by_shape[("K2", 256 ** 3, 7, "float32")]
-    print(f"[cli] bench config5: K2 {k2} launches on the 256^3 fine level")
-    if (not r["relres"] <= 1e-6 or k2 == 0
-            or r["problem"] != "poisson3d n=256 (structured, 1 device(s))"):
-        raise AssertionError(f"bench config5: {r}, K2 {k2} launches")
-    out["config5"] = dict(r, k2_launches=k2)
+    out["config5"] = cli_config5()
 
     path = os.path.join(SMOKE_DIR, f"cljp{CLJP_N}")
     t0 = time.perf_counter()
@@ -3224,21 +3277,25 @@ def _dm_tensors(dm) -> list:
     return [dm.data, dm.cols, dm.row_nnz, *dm.halo.send_idx, *dm.halo.recv_tgt]
 
 
-def check_on_card(tag: str, dh) -> None:
+def check_on_card(tag: str, dh, dev) -> None:
     """Raise unless every tensor of the sharded levels (A and its halo
     plan, dinv, P, R, colours, lambda_max, the block inverses), of the
-    bridge and of the tail's operators lies on the card."""
+    bridge and of the tail's operators lies on the card ``dev``."""
+    dev = torch.device(dev)
+
+    def on_card(ts):
+        return all(isinstance(t, torch.Tensor) and t.device == dev for t in ts)
+
     for k, lv in enumerate(dh.levels):
         ts = (_dm_tensors(lv.A) + _dm_tensors(lv.Pmat) + _dm_tensors(lv.Rmat)
               + [t for t in (lv.dinv, lv.color, lv.cheb_lmax, lv.binv)
                  if t is not None])
-        if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in ts):
+        if not on_card(ts):
             raise AssertionError(f"[{tag}] sharded level {k} holds tensors "
-                                 "off the card")
-    rest = [dh.bridge_P.data, dh.bridge_R.data,
-            *(lv.A.data for lv in dh.tail.levels)]
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in rest):
-        raise AssertionError(f"[{tag}] the bridge or the tail is off the card")
+                                 f"off {dev}")
+    if not on_card([dh.bridge_P.data, dh.bridge_R.data,
+                    *(lv.A.data for lv in dh.tail.levels)]):
+        raise AssertionError(f"[{tag}] the bridge or the tail is off {dev}")
 
 
 def timed_dist_build(A, cfg, ring, dtype, dev, B=None) -> tuple:
@@ -3339,7 +3396,7 @@ def phase_dist_setup_one_rank(dev) -> dict:
         for _ in ("cold", "warm"):
             dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, dev)
             builds.append((s, peak))
-        check_on_card("dsetup1", dh)
+        check_on_card("dsetup1", dh, dev)
         sizes32 = dist_sizes(dh)
         tail32 = [lv.n for lv in dh.tail.levels]
         iters, relres, solve_s = dist_solve_checked("dsetup1", A, dh, ring,
@@ -3396,7 +3453,7 @@ def phase_dist_setup_one_rank(dev) -> dict:
                 ("config3", anisotropic_2d(CONFIG3_FULL_N), PRESETS["config3"])):
             tag = f"dsetup1 {name}"
             dh, s, peak = timed_dist_build(M, bcfg, ring, torch.float64, dev)
-            check_on_card(tag, dh)
+            check_on_card(tag, dh, dev)
             sizes = dist_sizes(dh)
             it, rel, _ = dist_solve_checked(tag, M, dh, ring, np.float64)
             del dh
@@ -3431,7 +3488,8 @@ def rank_dist_setup(ring, device, n: int) -> dict:
     del dh64
     torch.cuda.empty_cache()
     dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, device)
-    check_on_card(f"dsetup{ring.axis_size} rank {ring.axis_index}", dh)
+    check_on_card(f"dsetup{ring.axis_size} rank {ring.axis_index}", dh,
+                  device)
     iters, relres, solve_s = dist_solve_checked(
         f"dsetup{ring.axis_size}", A, dh, ring, np.float32)
     return {"sizes64": sizes64, "sizes32": dist_sizes(dh), "setup_s": s,
@@ -3488,7 +3546,7 @@ def phase_dist_setup(dev) -> dict:
 # Phase 27: the sharded smoothed-aggregation setup (parallel/dist_sa.py)
 # ---------------------------------------------------------------------------
 
-def phase_dist_sa_one_rank(dev) -> dict:
+def phase_dist_sa_one_rank(dev, single=None) -> dict:
     """Phase 27a, and 27b's one-rank builds, on one rank over NCCL:
     config 4's preset at elasticity_3d(DSA_N) built by
     dist_build_sa_hierarchy in fp32, cold and warm (seconds, peak memory,
@@ -3497,8 +3555,9 @@ def phase_dist_sa_one_rank(dev) -> dict:
     first coarse size equal); dist_solve (cg, tol 1e-6, certified <= 1e-6,
     host fp64 true <= 1e-5) within DSA_FENCE iterations of the single-
     device device-route hierarchy sharded by distribute_hierarchy on the
-    same ring.  Then elasticity_3d(DSA_N4) on the same ring: the sizes and
-    iterations 27b is held to."""
+    same ring: phase 19's (``single``: the hierarchy, on the host, and its
+    setup seconds), else built here.  Then elasticity_3d(DSA_N4) on the same
+    ring: the sizes and iterations 27b is held to."""
     import torch.distributed as dist
 
     from raptor_tpu_torch import PRESETS, setup
@@ -3518,7 +3577,7 @@ def phase_dist_sa_one_rank(dev) -> dict:
             torch.cuda.empty_cache()
             dh, s, peak = timed_dist_build(A, cfg, ring, torch.float32, dev, B=B)
             builds.append((s, peak))
-        check_on_card("dsa1", dh)
+        check_on_card("dsa1", dh, dev)
         sizes = dist_sizes(dh)
         tail = [lv.n for lv in dh.tail.levels]
         blocks = sum(lv.binv is not None for lv in dh.levels)
@@ -3527,11 +3586,14 @@ def phase_dist_sa_one_rank(dev) -> dict:
         del dh
         torch.cuda.empty_cache()
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        h1 = setup(A, cfg, B=B, device=dev)
-        torch.cuda.synchronize()
-        single_s = time.perf_counter() - t0
+        if single is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h1 = setup(A, cfg, B=B, device=dev)
+            torch.cuda.synchronize()
+            single = h1, time.perf_counter() - t0
+        h1, single_s = single
+        h1 = h1.to(dev)
         single_sizes = [lv.n for lv in h1.levels]
         dh1 = distribute_hierarchy(h1, ring, DSETUP_TAIL)
         it1, rel1, _ = dist_solve_checked("dsa1 single", A, dh1, ring,
@@ -3542,7 +3604,8 @@ def phase_dist_sa_one_rank(dev) -> dict:
               f"1 rank (NCCL), fp32: dist_build_sa_hierarchy "
               f"{builds[0][0]:.3f} s cold, {builds[1][0]:.3f} s warm, peak "
               f"device memory {builds[0][1]:.3f} / {builds[1][1]:.3f} GiB; "
-              f"single-device device SA (api.setup) {single_s:.3f} s")
+              f"single-device device SA (api.setup, phase 19's where the "
+              f"whole smoke runs) {single_s:.3f} s")
         print(f"[dsa1] sharded sizes and the real coarse size {sizes} (tail "
               f"{tail}, {blocks} sharded levels with block inverses); phase "
               f"19's device route {CONFIG4_DEVICE_SIZES_PIN}, this run's "
@@ -3600,7 +3663,7 @@ def rank_dist_sa(ring, device, n: int) -> dict:
     A, B, _ = elasticity_3d(n)
     dh, s, peak = timed_dist_build(A, PRESETS["config4"], ring, torch.float32,
                                    device, B=B)
-    check_on_card(f"dsa{ring.axis_size} rank {ring.axis_index}", dh)
+    check_on_card(f"dsa{ring.axis_size} rank {ring.axis_index}", dh, device)
     iters, relres, solve_s = dist_solve_checked(
         f"dsa{ring.axis_size}", A, dh, ring, np.float32)
     return {"sizes": dist_sizes(dh), "setup_s": s, "peak_mem_gib": peak,
@@ -3642,15 +3705,529 @@ def phase_dist_sa_ranks(dev, one: dict) -> dict:
             "sizes": o["sizes"], "iters": o["iters"], "relres": o["relres"]}
 
 
-def phase_dist_sa(dev) -> dict:
-    """Phase 27: 27a on one rank, then 27b on DSA_RANKS."""
+def phase_dist_sa(dev, single=None) -> dict:
+    """Phase 27: 27a on one rank (on phase 19's single-device hierarchy
+    where given), then 27b on DSA_RANKS."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    one = phase_dist_sa_one_rank(dev)
+    one = phase_dist_sa_one_rank(dev, single)
     out = {"one_rank": one, "ranks": phase_dist_sa_ranks(dev, one)}
     out["phase_s"] = time.perf_counter() - t0
     print(f"[dsa] phase 27: {out['phase_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the sharded engines on several cards, one NCCL rank a card
+# ---------------------------------------------------------------------------
+
+def _ring_tensor(q: int, dtype, shape, dev) -> torch.Tensor:
+    """Rank q's test tensor: multiples of 1/8 in [-1, 1] (integers for
+    int64), so a sum over a few ranks is exact in every dtype, bf16
+    included, and any reduction order gives the same bits."""
+    g = torch.Generator().manual_seed(1000 + q)
+    t = torch.randint(-8, 9, shape, generator=g)
+    return (t if dtype == torch.int64 else t.to(dtype) / 8).to(dev)
+
+
+def ring_checks(ring, gloo, mesh, grid, dev) -> int:
+    """Phase 28's first item on one rank: the NCCL ring's shifts by +-1,
+    +-2, 3 and its size (1-D, 2-D and empty), psum, pmax and all_gather in
+    each of MC_DTYPES, each equal to what every rank's inputs give and to
+    the gloo ring's result on the same inputs; TAPS's node and chip rings
+    (``mesh`` on ``grid``) with their global peer ranks, a shift on the
+    node ring and an all_gather and psum on the chip ring.  Returns the
+    number of results checked; raises on the first that differs."""
+    r, p = ring.axis_index, ring.axis_size
+    n_nodes, n_chips = grid
+    node, chip = divmod(r, n_chips)
+    node_peers = [N * n_chips + chip for N in range(n_nodes)]
+    chip_peers = [node * n_chips + c for c in range(n_chips)]
+    if dev.type == "cuda" and (ring.host_staged or not gloo.host_staged):
+        raise AssertionError(f"[ring] rank {r}: the NCCL ring stages through "
+                             "the host, or the gloo ring does not")
+    if mesh.node._peer != node_peers or mesh.chip._peer != chip_peers:
+        raise AssertionError(f"[ring] rank {r}: TAPS peers {mesh.node._peer} "
+                             f"and {mesh.chip._peer}, expected {node_peers} "
+                             f"and {chip_peers}")
+    checked = 0
+
+    def same(what, got, want):
+        nonlocal checked
+        if (got.device != want.device or got.dtype != want.dtype
+                or not torch.equal(got, want)):
+            raise AssertionError(f"[ring] rank {r}: {what} differs")
+        checked += 1
+
+    def exact_sum(ts):
+        return torch.stack([t.double() for t in ts]).sum(0).to(ts[0].dtype)
+
+    for dtype in MC_DTYPES:
+        for shape in ((1000,), (3, 257), (0,)):
+            t = [_ring_tensor(q, dtype, shape, dev) for q in range(p)]
+            tag = f"{dtype} {shape}"
+            for d in (1, -1, 2, -2, 3, p):
+                got = ring.shift(t[r], d)
+                same(f"shift {d} {tag}", got, t[(r - d) % p])
+                same(f"shift {d} {tag} (gloo)", got, gloo.shift(t[r], d))
+            if not t[r].numel():
+                continue
+            for what, fn, want in (
+                    ("psum", "psum", exact_sum(t)),
+                    ("pmax", "pmax", torch.stack(t).amax(0)),
+                    ("all_gather", "all_gather", torch.cat(t, dim=-1))):
+                got = getattr(ring, fn)(t[r])
+                same(f"{what} {tag}", got, want)
+                same(f"{what} {tag} (gloo)", got, getattr(gloo, fn)(t[r]))
+        t = [_ring_tensor(q, dtype, (1000,), dev) for q in range(p)]
+        for d in (1, -1):
+            same(f"TAPS node shift {d} {dtype}", mesh.node.shift(t[r], d),
+                 t[node_peers[(node - d) % n_nodes]])
+        same(f"TAPS chip all_gather {dtype}", mesh.chip.all_gather(t[r]),
+             torch.cat([t[q] for q in chip_peers]))
+        same(f"TAPS chip psum {dtype}", mesh.chip.psum(t[r]),
+             exact_sum([t[q] for q in chip_peers]))
+    return checked
+
+
+def ring_times(ring, dev, reps: int = 50) -> dict:
+    """Microseconds a call (host clock over ``reps`` calls, ending in a
+    synchronize) of the ring's shift by one of 4096 and 65536 fp32 words
+    (a small halo; a 256^2 plane, config 5's fine halo) and of a psum of
+    one word read on the host, as a Krylov dot is."""
+    out = {}
+    for what, fn in (
+            ("shift_4096", lambda x: ring.shift(x, 1)),
+            ("shift_65536", lambda x: ring.shift(x, 1)),
+            ("psum_read", lambda x: float(ring.psum(x)))):
+        n = int(what.split("_")[1]) if what.startswith("shift") else 1
+        x = torch.ones(n, device=dev).reshape(() if n == 1 else (n,))
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        torch.cuda.synchronize()
+        out[what] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def k3_equal(tag: str, dh, dev, shapes: list) -> float:
+    """K3 against its plain version, bit for bit, on every operator of a
+    rank's sharded config-5 levels (A, Rt, Pt; random x and halos of the
+    operator's reach); every K3 launch shape of the path (``shapes``) must
+    be among them.  Returns the largest difference (0)."""
+    from raptor_tpu_torch.ops.cuda.dia_kernel import (dia_spmv_halo,
+                                                      dia_spmv_halo_ref,
+                                                      halo_reach)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    err, compared = 0.0, set()
+    for k, lv in enumerate(dh.levels):
+        for name, m in (("A", lv.A), ("Rt", lv.Rt), ("Pt", lv.Pt)):
+            if m is None:
+                continue
+            lins = m.linear_offsets()
+            LP, RP = halo_reach(lins)
+            n_off, n = m.data.shape
+            x, hl, hr = (torch.randn(k_, generator=gen, device=dev)
+                         for k_ in (n, LP, RP))
+            err = max(err, _equal(
+                f"K3 {tag} L{k} {name} n={n} {n_off} offsets halos {LP}/{RP}",
+                dia_spmv_halo(m.data, lins, x, hl, hr),
+                dia_spmv_halo_ref(m.data, lins, x, hl, hr)))
+            compared.add(("K3", n, n_off,
+                          str(m.data.dtype).removeprefix("torch.")))
+    covered(tag, [s for s in shapes if s[0] == "K3"], compared)
+    return err
+
+
+def _cycles(cycle, profiled: bool) -> tuple:
+    """(V-cycle ms over N_CYCLES between syncs, the torch.profiler record
+    of N_PROFILED more or None): every rank runs the same cycles (their
+    collectives meet), ``profiled`` ones under the profiler."""
+    cycle()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_CYCLES):
+        cycle()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_CYCLES * 1e3
+    if profiled:
+        return ms, profile_cycles(cycle)
+    for _ in range(N_PROFILED):
+        cycle()
+    torch.cuda.synchronize()
+    return ms, None
+
+
+def _mc_sdist(ring, dev, n: int) -> dict:
+    """Phase 28's config 5 on one rank: sdist_config5 at n^3 on the counts
+    set to 0 just before it, then V-cycles (rank 0's profiled); K3 at every
+    launch shape against its plain version after the counts are read."""
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import dia_kernel as dk
+    from raptor_tpu_torch.structured import dist as sd
+
+    dk.launches.clear()
+    dk.launches_by_shape.clear()
+    sd.cuda_calls.clear()
+    res = sd.sdist_config5(ring, dev, n=n)
+    dh, info = res["hier"], res["info"]
+    b = torch.from_numpy(default_rhs(n ** 3, dtype=np.float32)).to(dev)
+    b_loc = sd._block(b, ring, int(np.prod(dh.levels[0].dims_local)))
+    vc, prof = _cycles(lambda: sd.sdist_cycle(dh, ring, b_loc),
+                       ring.axis_index == 0)
+    out = {"iters": int(info.iterations), "certified": float(info.relres),
+           "setup_s": res["setup_s"], "solve_s": res["solve_s"],
+           "vcycle_ms": vc, "profile": prof, "k3": dk.launches["K3"],
+           "k1v1": dk.launches["K1v1"], "calls": sd.cuda_calls["halo_spmv"],
+           "shapes": sorted([*key, c] for key, c in dk.launches_by_shape.items()),
+           "dims_local": [lv.dims_local for lv in dh.levels]}
+    out["k3_err"] = k3_equal(f"sdist rank {ring.axis_index}", dh, dev,
+                             out["shapes"])
+    x = sd.gather(res["x"], ring)
+    out["x"] = x.cpu().numpy() if ring.axis_index == 0 else None
+    return out
+
+
+def _mc_adist(ring, dev, mesh, path: str, b_rcm) -> dict:
+    """Phase 28's algebraic sharded solve on one rank: the parent's
+    hierarchy through ``adist_body`` (flat, then TAPS against the flat
+    solve on the ELL route), V-cycles (rank 0's profiled), then K4's halo
+    form and K6's map_cols form on this rank's own tiles at every launch
+    shape, bit for bit."""
+    from raptor_tpu_torch.parallel import dist as pdist
+
+    h = torch.load(path, weights_only=False, map_location=dev)
+    b = torch.from_numpy(b_rcm).to(dev)
+    out, dh = adist_body(ring, dev, h, b, mesh)
+    ctx = pdist.CommCtx.flat(ring)
+    b_loc = pdist._rows(b, ring, dh.levels[0].n_local)
+    out["vcycle_ms"], out["profile"] = _cycles(
+        lambda: pdist.dist_cycle(dh, b_loc, ctx), ring.axis_index == 0)
+    rec = {k: {"err": 0.0} for k in ("K4-halo", "K6-map_cols")}
+    sharded_equal(dev, f"adist{ring.axis_size} rank {ring.axis_index}", h,
+                  ring.axis_size, rec,
+                  [s for s in out["shapes"] if s[0] in rec],
+                  ranks=[ring.axis_index])
+    out["err"] = {k: v["err"] for k, v in rec.items()}
+    return out
+
+
+def rank_multicard(ring, device, path: str, b_rcm, sizes: dict) -> dict:
+    """One rank of phase 28 (a spawned process, one NCCL rank a card):
+    the ring's collectives, config 5, the algebraic sharded solve of the
+    parent's hierarchy (``path``), dist_build_hierarchy and
+    dist_build_sa_hierarchy, in turn, at ``sizes``; rank 0 returns the
+    gathered solutions.  Every check that needs only this rank raises
+    here; the parent compares the ranks."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.parallel import Ring, make_taps_mesh
+
+    out = {"device": str(device),
+           "current": torch.cuda.current_device() if device.type == "cuda"
+           else None}
+    wall = {}
+    t0 = time.perf_counter()
+    # every rank makes every group, in the same order
+    gloo = Ring(dist.new_group(backend="gloo"))
+    mesh = make_taps_mesh(*sizes["taps"])
+    out["ring_checked"] = ring_checks(ring, gloo, mesh, sizes["taps"], device)
+    out["ring_us"] = ring_times(ring, device)
+    wall["ring"] = time.perf_counter() - t0
+    for name, item in (
+            ("sdist", lambda: _mc_sdist(ring, device, sizes["sdist"])),
+            ("adist", lambda: _mc_adist(ring, device, mesh, path, b_rcm)),
+            ("dsetup", lambda: rank_dist_setup(ring, device, sizes["dsetup"])),
+            ("dsa", lambda: rank_dist_sa(ring, device, sizes["dsa"]))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = item()
+        wall[name] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    return out
+
+
+def one_rank_refs(dev, h_cpu, b_rcm, refs=None) -> dict:
+    """The one-rank runs phase 28 is held to, on one NCCL rank on ``dev``:
+    the algebraic sharded solve of ``h_cpu`` (always: the hierarchy the
+    ranks shard); and, where the whole smoke did not run them before
+    (``refs`` None), config 5 at SDIST_N^3 (phase 11's run, cold then
+    warm, V-cycles), shuffled DSETUP_N^3 by dist_build_hierarchy (phase
+    26b's rank body) and config 4 at DSA_N by dist_build_sa_hierarchy
+    (phase 27b's rank body)."""
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.parallel import Ring, dist_solve, distribute_hierarchy
+    from raptor_tpu_torch.parallel import dist as pdist
+    from raptor_tpu_torch.structured import dist as sd
+
+    refs = dict(refs or {})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        ring = Ring()
+        h = h_cpu.to(dev)
+        b = torch.from_numpy(b_rcm).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dh = distribute_hierarchy(h, ring, ADIST_TAIL)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, info = dist_solve(dh, b, ring, tol=ADIST_TOL, maxiter=200)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t1
+        ctx = pdist.CommCtx.flat(ring)
+        vc, _ = _cycles(lambda: pdist.dist_cycle(dh, b, ctx), False)
+        refs["adist"] = {"iters": int(info.iterations),
+                         "distribute_s": t1 - t0, "solve_s": solve_s,
+                         "vcycle_ms": vc}
+        del h, dh
+        torch.cuda.empty_cache()
+        if "sdist" not in refs:
+            sd.sdist_config5(ring, dev, n=SDIST_N)
+            res = sd.sdist_config5(ring, dev, n=SDIST_N)
+            b5 = torch.from_numpy(default_rhs(SDIST_N ** 3,
+                                              dtype=np.float32)).to(dev)
+            dh5 = res["hier"]
+            vc5, _ = _cycles(lambda: sd.sdist_cycle(dh5, ring, b5), False)
+            refs["sdist"] = {"iters": int(res["info"].iterations),
+                             "setup_s": res["setup_s"],
+                             "solve_s": res["solve_s"], "vcycle_ms": vc5}
+            del res, dh5, b5
+            torch.cuda.empty_cache()
+        if "dsetup" not in refs:
+            refs["dsetup"] = rank_dist_setup(ring, dev, DSETUP_N)
+            torch.cuda.empty_cache()
+        if "dsa" not in refs:
+            refs["dsa"] = rank_dist_sa(ring, dev, DSA_N)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return refs
+
+
+def phase_multicard(dev, refs=None, h_cpu=None, cli=None) -> dict:
+    """Phase 28: the sharded engines on N NCCL ranks, one a card (N = 4
+    where four cards are visible, else 2), in one spawn: the ring's
+    collectives against gloo's; config 5 at SDIST_N^3 (every K3 call a
+    launch, no K1v1, iterations one rank's +- 1, rank 0's gathered x true
+    <= SDIST_MAX_TRUE); the algebraic sharded solve of shuffled
+    ADIST_N^3 padded for N ranks (``h_cpu`` where given for N), flat and
+    TAPS on a (2, N / 2) grid (K4-halo and K6-map_cols on every rank,
+    iterations one rank's +- 1 on the same hierarchy and phase 15's where
+    given, TAPS equal to the flat solve); dist_build_hierarchy at
+    DSETUP_N^3 (fp64 sizes equal to one rank's, iterations +- 1) and
+    dist_build_sa_hierarchy at elasticity_3d(DSA_N) (sizes equal, iterations
+    within DSA_FENCE); every launch shape of K3, K4-halo and K6-map_cols
+    bit-equal to its plain version on every rank.  Then ``bench --preset
+    config5`` (``cli``: phase 25's run, else run here) must report the
+    cards.  ``h_cpu``: phase 14's hierarchy, padded for ADIST_RANKS;
+    ``refs``: one rank's results from phases 11, 15, 26a and 27a; what is
+    missing is run here (``one_rank_refs``).  On one card it runs nothing
+    and says so."""
+    import tempfile
+
+    from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.parallel import spawn
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[multicard] {cards} card visible: phase 28 needs 2 or more")
+        return {"cards": cards, "ran": False}
+    t_phase = time.perf_counter()
+    ranks = 4 if cards >= 4 else 2
+    grid = (2, ranks // 2)
+    torch.cuda.empty_cache()
+    if h_cpu is None or ranks != ADIST_RANKS:
+        h = setup_padded_hierarchy(dev, ranks)
+        h_cpu = h.to("cpu")
+        del h
+        torch.cuda.empty_cache()
+    A = shuffled_poisson(ADIST_N)
+    n = A.shape[0]
+    pm = h_cpu.perm[:n].numpy()
+    b = default_rhs(n)
+    b_rcm = np.zeros(h_cpu.levels[0].A.n_rows_pad, np.float32)
+    b_rcm[:n] = b[pm]
+    one = one_rank_refs(dev, h_cpu, b_rcm, refs)
+    sizes = {"sdist": SDIST_N, "dsetup": DSETUP_N, "dsa": DSA_N, "taps": grid}
+    with tempfile.TemporaryDirectory(prefix="raptor_multicard_") as tmp:
+        path = f"{tmp}/hier.pt"
+        torch.save(h_cpu, path)
+        t0 = time.perf_counter()
+        outs = spawn(rank_multicard, ranks, "nccl", "cuda", path, b_rcm,
+                     sizes, timeout=900.0)
+        wall_ranks = time.perf_counter() - t0
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    cards_line = "; ".join(sorted(set(smi.strip().splitlines())))
+    tag = f"multicard{ranks}"
+    print(f"[{tag}] {ranks} NCCL ranks, one a card, of {cards} visible "
+          f"({cards_line}); ranks {wall_ranks:.1f} s with their start")
+
+    # placement and the ring
+    for r, o in enumerate(outs):
+        print(f"[{tag}] rank {r}: {o['device']} (current {o['current']}), "
+              f"{o['ring_checked']} ring results equal; us a call: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in o["ring_us"].items())
+              + "; seconds by item "
+              + ", ".join(f"{k} {v:.2f}" for k, v in o["wall_s"].items()))
+        if o["device"] != f"cuda:{r}" or o["current"] != r:
+            raise AssertionError(f"[{tag}] rank {r} on {o['device']}, current "
+                                 f"device {o['current']}")
+
+    # config 5
+    s1 = one["sdist"]
+    sd_ = [o["sdist"] for o in outs]
+    for r, o in enumerate(sd_):
+        print(f"[{tag}] config 5 {SDIST_N}^3 rank {r}: blocks "
+              f"{o['dims_local'][0]}..{o['dims_local'][-1]}; setup "
+              f"{o['setup_s']:.3f} s, solve {o['solve_s']:.3f} s, V-cycle "
+              f"{o['vcycle_ms']:.3f} ms; {o['calls']} CUDA halo SpMVs, "
+              f"{o['k3']} K3 launches, {o['k1v1']} K1v1")
+        if o["k3"] == 0 or o["k3"] != o["calls"]:
+            raise AssertionError(f"[{tag}] rank {r} did not run through K3")
+        if o["k1v1"]:
+            raise AssertionError(f"[{tag}] rank {r} launched K1v1")
+    iters5 = sd_[0]["iters"]
+    x5 = sd_[0]["x"]
+    b5 = default_rhs(SDIST_N ** 3, dtype=np.float32).astype(np.float64)
+    rel5 = float(np.linalg.norm(poisson7_residual(x5.astype(np.float64), b5,
+                                                  SDIST_N)) / np.linalg.norm(b5))
+    prof = sd_[0]["profile"]
+    print(f"[{tag}] config 5 {SDIST_N}^3 on {ranks} cards: {iters5} "
+          f"iterations (one rank: {s1['iters']}), certified "
+          f"{sd_[0]['certified']:.3e}, true fp64 relres {rel5:.3e}; one rank: "
+          f"setup {s1['setup_s']:.3f} s, solve {s1['solve_s']:.3f} s, "
+          f"V-cycle {s1['vcycle_ms']:.3f} ms")
+    print(f"[profile] sharded {SDIST_N}^3 config-5 V-cycle, rank 0 of "
+          f"{ranks} cards, {N_PROFILED} cycles under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"{prof['device_events']:g} device events, busy share "
+          f"{prof['busy_share'] * 100:.1f}% (per cycle)")
+    by_shape(f"{tag} config 5, rank 0",
+             {tuple(s[:-1]): s[-1] for s in sd_[0]["shapes"]}, ("K1", "K2", "K3"))
+    if any(o["iters"] != iters5 for o in sd_):
+        raise AssertionError(f"[{tag}] the ranks disagree on config 5's "
+                             "iterations")
+    if x5.shape != (SDIST_N ** 3,) or not np.isfinite(x5).all():
+        raise AssertionError(f"[{tag}] config 5's x not finite or misshapen")
+    if not (sd_[0]["certified"] <= SDIST_TOL and rel5 <= SDIST_MAX_TRUE):
+        raise AssertionError(f"[{tag}] config 5: certified "
+                             f"{sd_[0]['certified']}, true {rel5}")
+    if abs(iters5 - s1["iters"]) > 1:
+        raise AssertionError(f"[{tag}] config 5: {iters5} iterations, one "
+                             f"rank {s1['iters']}")
+
+    # the algebraic sharded solve
+    a1 = one["adist"]
+    ad = [o["adist"] for o in outs]
+    for r, o in enumerate(ad):
+        c, ex = o["counts"], o["exchanges"]
+        print(f"[{tag}] adist {ADIST_N}^3 rank {r}: {o['iters']} iterations, "
+              f"distribute {o['distribute_s']:.3f} s, solve {o['solve_s']:.3f} "
+              f"s, TAPS solve {o['taps_s']:.3f} s, V-cycle {o['vcycle_ms']:.3f} "
+              f"ms; launches {c}; per V-cycle from the host plans: flat "
+              f"{ex['flat'][0]} messages, {ex['flat'][1]} words; TAPS "
+              f"{ex['taps_inter'][0]} inter-node messages, {ex['taps_inter'][1]} "
+              f"words, {ex['taps_gathers']} intra-node all-gathers; comm_report "
+              f"{ex['comm_report_bytes']} halo bytes")
+        if (c["K4-halo"] == 0 or c["K6-map_cols"] == 0
+                or c["K4-halo"] != o["calls"].get("dist_banded_spmv")
+                or c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv")):
+            raise AssertionError(f"[{tag}] rank {r} did not run through both "
+                                 "sharded forms")
+        if not (o["taps_equal"] and all(o["ext_equal"])
+                and o["taps_iters"] == o["ell_iters"] == o["iters"]):
+            raise AssertionError(f"[{tag}] rank {r}: TAPS {o['taps_iters']} "
+                                 f"iterations, flat {o['iters']}, flat on the "
+                                 f"ELL route {o['ell_iters']}; x equal "
+                                 f"{o['taps_equal']}")
+    itA = ad[0]["iters"]
+    xa = ad[0]["x"].astype(np.float64)
+    relA = caller_relres(A, xa, pm, b)
+    prof = ad[0]["profile"]
+    print(f"[{tag}] adist {ADIST_N}^3 on {ranks} cards (pad_multiple "
+          f"{1024 * ranks}): {itA} iterations, TAPS "
+          f"{grid[0]} x {grid[1]} {ad[0]['taps_iters']} (x equal to the flat "
+          f"ELL-route solve's); true fp64 relres {relA:.3e}; one rank on the "
+          f"same hierarchy: {a1['iters']} iterations, solve "
+          f"{a1['solve_s']:.3f} s, V-cycle {a1['vcycle_ms']:.3f} ms"
+          + (f"; phase 15: {one['adist_phase15']} iterations"
+             if "adist_phase15" in one else ""))
+    print(f"[profile] sharded {ADIST_N}^3 algebraic V-cycle, rank 0 of "
+          f"{ranks} cards, {N_PROFILED} cycles under torch.profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+          f"{prof['device_events']:g} device events, busy share "
+          f"{prof['busy_share'] * 100:.1f}% (per cycle)")
+    by_shape(f"{tag} adist, rank 0",
+             {tuple(s[:-1]): s[-1] for s in ad[0]["shapes"]},
+             ("K4-halo", "K6-map_cols", "K4", "K6"))
+    if any(o["iters"] != itA for o in ad):
+        raise AssertionError(f"[{tag}] the ranks disagree on the algebraic "
+                             "solve's iterations")
+    if xa.shape != (h_cpu.levels[0].A.n_rows_pad,) or not np.isfinite(xa).all():
+        raise AssertionError(f"[{tag}] the algebraic x not finite or misshapen")
+    if not relA <= ADIST_MAX_TRUE:
+        raise AssertionError(f"[{tag}] algebraic true relres {relA}")
+    for what, ref in (("one rank", a1["iters"]),
+                      ("phase 15", one.get("adist_phase15", itA))):
+        if abs(itA - ref) > 1:
+            raise AssertionError(f"[{tag}] algebraic solve {itA} iterations, "
+                                 f"{what} {ref}")
+
+    # the sharded setups
+    for key, what, ref_sizes, fence in (
+            ("dsetup", f"dist_build_hierarchy shuffled {DSETUP_N}^3", "sizes64", 1),
+            ("dsa", f"dist_build_sa_hierarchy elasticity_3d({DSA_N})", "sizes",
+             DSA_FENCE)):
+        o1, rs = one[key], [o[key] for o in outs]
+        for r, o in enumerate(rs):
+            print(f"[{tag}] {what} rank {r}: fp32 build {o['setup_s']:.3f} s"
+                  + (f", fp64 {o['setup64_s']:.3f} s" if "setup64_s" in o else "")
+                  + f" (peak {o['peak_mem_gib']:.3f} GiB); {o['iters']} "
+                  f"iterations in {o['solve_s']:.3f} s, true relres "
+                  f"{o['relres']:.3e}")
+        print(f"[{tag}] {what} on {ranks} cards: sizes {rs[0][ref_sizes]}"
+              + (f" (fp32 {rs[0]['sizes32']})" if key == "dsetup" else "")
+              + f"; one rank: sizes {o1[ref_sizes]}, {o1['iters']} iterations, "
+              f"build {o1['setup_s']:.3f} s")
+        if any(o[ref_sizes] != o1[ref_sizes] for o in rs):
+            raise AssertionError(f"[{tag}] {what}: sizes differ from one "
+                                 f"rank's {o1[ref_sizes]}")
+        if any(o["iters"] != rs[0]["iters"] for o in rs):
+            raise AssertionError(f"[{tag}] {what}: the ranks disagree on the "
+                                 "iterations")
+        if abs(rs[0]["iters"] - o1["iters"]) > fence:
+            raise AssertionError(f"[{tag}] {what}: {rs[0]['iters']} "
+                                 f"iterations, one rank {o1['iters']}")
+
+    # the CLI's multi-card branch (cli_config5 holds its device count to
+    # the CLI's rule)
+    cli = cli_config5() if cli is None else cli
+    if abs(cli["iterations"] - s1["iters"]) > 1:
+        raise AssertionError(f"[{tag}] bench config5: {cli}, one rank "
+                             f"{s1['iters']} iterations")
+    wall = time.perf_counter() - t_phase
+    print(f"[{tag}] phase 28: {wall:.1f} s")
+    strip = {"x", "shapes", "profile"}
+    return {"cards": cards, "ranks": ranks, "ran": True, "card": cards_line,
+            "wall_s": wall, "ranks_s": wall_ranks, "one_rank": one,
+            "cli": cli, "sdist_true_relres": rel5, "adist_true_relres": relA,
+            "sdist_profile": sd_[0]["profile"], "adist_profile": prof,
+            "sdist_shapes": sd_[0]["shapes"], "adist_shapes": ad[0]["shapes"],
+            "launches": {"K3": sd_[0]["k3"],
+                         "K4-halo": ad[0]["counts"]["K4-halo"],
+                         "K6-map_cols": ad[0]["counts"]["K6-map_cols"]},
+            "per_rank": [{k: ({kk: vv for kk, vv in v.items() if kk not in strip}
+                              if isinstance(v, dict) else v)
+                          for k, v in o.items()} for o in outs]}
 
 
 def main() -> None:
@@ -3736,7 +4313,7 @@ def main() -> None:
 
     # the algebraic sharded solve: the sharded forms' launches are rank 0's
     # of the four-rank run, the one path that runs both
-    h4 = setup_four_rank_hierarchy(dev)
+    h4 = setup_padded_hierarchy(dev)
     rec.update(phase_sharded_kernels(dev, h4))
     h4_cpu = h4.to("cpu")
     del h4
@@ -3752,7 +4329,8 @@ def main() -> None:
     # the acceptance configurations; the mcgs paths' launches are added to
     # the kernels line, each read on its own counts
     configs = phase_configs(dev)
-    configs["config4_device"] = phase_config4_device(dev, configs["config4"])
+    configs["config4_device"], h_config4 = phase_config4_device(
+        dev, configs["config4"])
     configs["config3_full"] = phase_config3_full(dev)
     torch.cuda.empty_cache()
     mcgs96 = phase_mcgs96(dev, rec)
@@ -3788,15 +4366,32 @@ def main() -> None:
     # phase 26: the sharded setup launches no kernel of its own (its levels
     # take the ELL halo route, as the reference's do)
     dsetup = phase_dist_setup(dev)
-    # phase 27: the sharded SA setup, likewise on the ELL halo route
-    dsa = phase_dist_sa(dev)
+    # phase 27: the sharded SA setup, likewise on the ELL halo route; 27a
+    # shards phase 19's single-device hierarchy
+    dsa = phase_dist_sa(dev, (h_config4, configs["config4_device"]["setup_s"]))
+    del h_config4
+    # phase 28: the sharded engines on several cards, held to the one-rank
+    # runs above; rank 0's launches join the kernels line (on one card it
+    # runs nothing)
+    one26, one27 = dsetup["one_rank"], dsa["one_rank"]
+    multicard = phase_multicard(dev, {
+        "sdist": {"iters": sdist["iters"], "setup_s": sdist["setup_warm_s"],
+                  "solve_s": sdist["solve_s"], "vcycle_ms": sdist["vcycle_ms"]},
+        "adist_phase15": adist["iters"],
+        "dsetup": dict(one26, setup_s=one26["setup_warm_s"]),
+        "dsa": dict(one27, setup_s=one27["setup_warm_s"])},
+        h4_cpu, surface["config5"])
+    if multicard["ran"]:
+        for k, c in multicard["launches"].items():
+            launch_counts[k] += c
 
     print(json.dumps({"main": main_rec, "alg48": alg48, "alg96": alg96,
                       "alg128": alg128, "devsetup": devsetup, "sdist": sdist, "sdist_ranks": sdist4, "adist": adist,
                       "adist_ranks": adist4, "configs": configs,
                       "mcgs96": mcgs96, "mcgs_ranks": mcgs4, "cljp": cljp,
                       "full": full, "surface": surface,
-                      "dist_setup": dsetup, "dist_sa": dsa}))
+                      "dist_setup": dsetup, "dist_sa": dsa,
+                      "multicard": multicard}))
     replaces = {"K1": "raptor_tpu/ops/pallas/dia_kernel.py:186",
                 "K1v1": "raptor_tpu/ops/pallas/dia_kernel.py:46",
                 "K2": "raptor_tpu/ops/pallas/dia_kernel.py:278",
@@ -3827,9 +4422,9 @@ def main() -> None:
 
 
 def main_alone(name: str, phase) -> None:
-    """``--dist-setup-only`` and ``--dist-sa-only``: the device, the
-    kernels' build and phase 26 or 27 alone (no kernels line and no final
-    ok line: not the smoke's result)."""
+    """``--dist-setup-only``, ``--dist-sa-only`` and ``--multi-card-only``:
+    the device, the kernels' build and phase 26, 27 or 28 alone (no kernels
+    line and no final ok line: not the smoke's result)."""
     dev = phase_device()
     phase_build()
     print(json.dumps({name: phase(dev)}))
@@ -3842,5 +4437,7 @@ if __name__ == "__main__":
         main_alone("dist_setup", phase_dist_setup)
     elif sys.argv[1:] == ["--dist-sa-only"]:
         main_alone("dist_sa", phase_dist_sa)
+    elif sys.argv[1:] == ["--multi-card-only"]:
+        main_alone("multicard", phase_multicard)
     else:
         main()

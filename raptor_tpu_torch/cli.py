@@ -190,17 +190,15 @@ def cmd_bench(args):
 
 
 def config5_rank(ring, device, n: int, maxiter: int) -> dict:
-    """One rank of the sharded config-5 bench: rank r on card r (or the
-    given CPU device), ``sdist_build_hierarchy`` then ``sdist_solve`` to
-    1e-6.  Returns the rank's iterations, relres and seconds."""
+    """One rank of the sharded config-5 bench on the device ``spawn`` gave
+    it (under NCCL, card r for rank r): ``sdist_build_hierarchy`` then
+    ``sdist_solve`` to 1e-6.  Returns the rank's iterations, relres and
+    seconds."""
     from raptor_tpu_torch.structured.dist import (CONFIG5, config5_problem,
                                                   sdist_solve)
     from raptor_tpu_torch.structured.dist_setup import sdist_build_hierarchy
 
     dev = torch.device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", ring.axis_index)
-        torch.cuda.set_device(dev)
     A, b = config5_problem(n, dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -214,22 +212,29 @@ def config5_rank(ring, device, n: int, maxiter: int) -> dict:
             "iterations": int(info.iterations), "relres": float(info.relres)}
 
 
+def config5_ranks(n: int, n_cards: int) -> int:
+    """The ranks of ``bench --preset config5`` at n^3 with ``n_cards``
+    visible: every card when n divides over them (the reference's rule,
+    one mesh device a card), else one."""
+    return n_cards if n_cards > 1 and n % n_cards == 0 else 1
+
+
 def _bench_config5(n, args, dev):
     from raptor_tpu_torch.structured import (build_structured_hierarchy,
                                              structured_solve)
     from raptor_tpu_torch.structured.dist import CONFIG5, config5_problem
 
-    ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if ndev > 1 and n % ndev == 0:
-        # untested: the port has been run on one card only
+    ndev = config5_ranks(n, torch.cuda.device_count() if dev.type == "cuda"
+                         else 1)
+    if ndev > 1:
         from raptor_tpu_torch.parallel.comm import spawn
 
+        # one NCCL rank a card, rank r on cuda:r
         res = spawn(config5_rank, ndev, "nccl", "cuda", n, args.maxiter,
                     timeout=3600.0)[0]
         setup_s, solve_s = res["setup_s"], res["solve_s"]
         iters, relres = res["iterations"], res["relres"]
     else:
-        ndev = 1
         A, b = config5_problem(n, dev)
         _sync(dev)
         t0 = time.perf_counter()

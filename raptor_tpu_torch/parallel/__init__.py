@@ -1,4 +1,4 @@
-from raptor_tpu_torch.parallel.comm import Ring, spawn
+from raptor_tpu_torch.parallel.comm import Ring, rank_devices, spawn
 from raptor_tpu_torch.parallel.partition import (
     HaloPlan,
     DistMatrix,
@@ -24,6 +24,7 @@ from raptor_tpu_torch.parallel.dist_taps import (
 
 __all__ = [
     "Ring",
+    "rank_devices",
     "spawn",
     "TapsDistHierarchy",
     "distribute_hierarchy_taps",

@@ -110,7 +110,7 @@ def pmis_splitting(A: EllMatrix, smask: torch.Tensor,
 def rs_splitting_host(S_csr) -> np.ndarray:
     """Serial classical Ruge-Stüben first-pass splitting (host).
 
-    Runs the native C++ kernel (``native/host_kernels.cpp``) when it builds,
+    Runs the native C++ kernel (``csrc/host_kernels.cpp``) when it builds,
     else the interpreted loop below, which gives the same splitting."""
     from raptor_tpu_torch.utils.native import rs_splitting_native
 

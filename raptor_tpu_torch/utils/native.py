@@ -1,9 +1,11 @@
-"""ctypes loader for the repository's native host kernels
-(``native/host_kernels.cpp``: RS splitting, PMIS rounds, greedy coloring).
+"""ctypes loader for the port's native host kernels
+(``raptor_tpu_torch/csrc/host_kernels.cpp``: RS splitting, PMIS rounds,
+greedy coloring).
 
-Counterpart of ``raptor_tpu/utils/native.py``.  g++ builds the unchanged
-source on first use into ``build/raptor_tpu_torch/`` at the root of the
-checkout, under a name keyed by the source's hash.  Where no compiler is
+Counterpart of ``raptor_tpu/utils/native.py``.  The source is the port's
+own copy of the reference's ``native/host_kernels.cpp``, byte for byte.
+g++ builds it on first use into ``build/raptor_tpu_torch/`` at the root of
+the checkout, under a name keyed by the source's hash.  Where no compiler is
 available, ``load()`` returns None and every caller runs its NumPy or
 Python version instead, which gives the same results bit for bit (integer
 weights, no ties).  All of this is host code: it hides no device.
@@ -24,7 +26,7 @@ __all__ = ["load", "status", "rs_splitting_native", "pmis_splitting_native",
            "greedy_coloring_native"]
 
 _ROOT = Path(__file__).resolve().parents[2]
-SRC = _ROOT / "native" / "host_kernels.cpp"
+SRC = Path(__file__).resolve().parents[1] / "csrc" / "host_kernels.cpp"
 BUILD_DIR = _ROOT / "build" / "raptor_tpu_torch"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 

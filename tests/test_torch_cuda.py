@@ -1172,3 +1172,59 @@ def test_dist_sa_one_rank_on_card_matches_cpu(case):
         assert _close_to(xg, xc, 1e-8)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# several cards: one NCCL rank a card (skipped below two cards)
+# ---------------------------------------------------------------------------
+
+def _two_cards() -> None:
+    cuda_device()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA cards (one NCCL rank a card): "
+                    f"torch.cuda.device_count() is {n}")
+
+
+def test_ring_over_nccl_equals_gloo_on_two_cards():
+    """Two NCCL ranks, spawned with the device "cuda": rank r runs on
+    cuda:r, its current device, and every shift, psum, pmax and all_gather
+    in fp32, fp64, int64 and bf16 (1-D, 2-D and empty shifts) equals the
+    gloo ring's result on the same inputs and what the inputs give."""
+    from raptor_tpu_torch.parallel import spawn
+    from tests import _torch_multicard_spmd as mc
+
+    _two_cards()
+    out = spawn(mc.ring_against_gloo, 2, "nccl", "cuda", timeout=120.0)
+    assert [o["device"] for o in out] == ["cuda:0", "cuda:1"]
+    assert [o["current"] for o in out] == [0, 1]
+    assert not any(o["host_staged"] for o in out)
+    for o in out:
+        assert o["differ"] == [] and o["equal"] > 0
+
+
+def test_sdist_config5_on_two_cards_takes_one_ranks_iterations():
+    """``sdist_config5`` at 32^3 on two NCCL ranks, one a card: both ranks
+    agree, within one iteration of the single-device solve on the one-rank
+    plan, certified relres <= 1e-6, the gathered x finite."""
+    from raptor_tpu_torch.parallel import spawn
+    from raptor_tpu_torch.structured.dist import (CONFIG5, CONFIG5_MAXITER,
+                                                  CONFIG5_TOL, config5_problem,
+                                                  plan_coarsening_dist)
+    from raptor_tpu_torch.structured.solver import (_build_hierarchy_planned,
+                                                    structured_solve)
+    from tests import _torch_multicard_spmd as mc
+
+    _two_cards()
+    n = 32
+    out = spawn(mc.config5, 2, "nccl", "cuda", n, timeout=120.0)
+    A, b = config5_problem(n, cuda_device())
+    plan, _ = plan_coarsening_dist(A, CONFIG5, 1, "size")
+    _, info = structured_solve(_build_hierarchy_planned(A, CONFIG5, plan), b,
+                               tol=CONFIG5_TOL, maxiter=CONFIG5_MAXITER)
+    assert [o["device"] for o in out] == ["cuda:0", "cuda:1"]
+    assert out[0]["iters"] == out[1]["iters"]
+    assert abs(out[0]["iters"] - int(info.iterations)) <= 1
+    assert max(o["relres"] for o in out) <= CONFIG5_TOL
+    x = out[0]["x"]
+    assert x.shape == (n ** 3,) and np.isfinite(x).all()

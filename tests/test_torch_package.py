@@ -147,3 +147,13 @@ def test_dist_build_hierarchy_exported_without_jax():
             "assert not bad, bad\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_host_kernels_source_is_the_ports_own_copy():
+    """The host splitting kernels build from the port's copy of the
+    reference's ``native/host_kernels.cpp``, which lies under
+    ``raptor_tpu_torch/`` and equals the reference's byte for byte."""
+    from raptor_tpu_torch.utils.native import SRC
+
+    assert SRC.resolve().is_relative_to(PKG.resolve())
+    assert SRC.read_bytes() == (ROOT / "native" / "host_kernels.cpp").read_bytes()
