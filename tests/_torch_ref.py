@@ -6,7 +6,10 @@ between the packages as numpy."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
+import json
 
 import numpy as np
 import pytest
@@ -314,3 +317,24 @@ def dist_tree_from_jax(dh, rank: int) -> dict:
             "bridge_R": _ell_tree(dh.bridge_R),
             "tail": algebraic_tree_from_jax(dh.tail),
             "config": dataclasses.asdict(dh.config), "ndev": ndev}
+
+
+def strict_json(line: str) -> dict:
+    """One JSON object, refusing NaN and infinities (not JSON)."""
+    def refuse(c):
+        raise ValueError(f"{c} is not JSON")
+
+    return json.loads(line, parse_constant=refuse)
+
+
+def bench_rows(rows, *extra) -> tuple:
+    """bench_torch.main on the CPU at its CI sizes for ``rows``: (exit
+    code, the row lines by row, the last line), each line strict JSON."""
+    import bench_torch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_torch.main(["--device", "cpu", "--small", "--rows",
+                               ",".join(rows), *extra])
+    lines = [strict_json(ln) for ln in buf.getvalue().splitlines()]
+    return rc, {ln["row"]: ln for ln in lines[:-1]}, lines[-1]

@@ -1228,3 +1228,31 @@ def test_sdist_config5_on_two_cards_takes_one_ranks_iterations():
     assert max(o["relres"] for o in out) <= CONFIG5_TOL
     x = out[0]["x"]
     assert x.shape == (n ** 3,) and np.isfinite(x).all()
+
+
+def test_bench_kernel_check_and_headline_on_card():
+    """``bench_torch.py --rows kernels,structured128`` on the card, as a user
+    runs it: exit 0; every kernel equal to its plain version at the bench's
+    shapes (the last line's pass flags); the 128^3 structured row at the
+    reference's 7 PCG iterations, true relres <= 1e-8; the card named."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    cuda_device()
+    p = subprocess.run([sys.executable, "bench_torch.py", "--rows",
+                        "kernels,structured128"],
+                       cwd=Path(__file__).resolve().parents[1],
+                       capture_output=True, text=True, timeout=900)
+    assert p.returncode == 0, p.stderr[-3000:]
+    lines = [json.loads(ln) for ln in p.stdout.splitlines()]
+    last, rows = lines[-1], {ln["row"]: ln for ln in lines[:-1]}
+    assert last["ok"] and last["failed"] == []
+    assert last["detail"]["kcheck"] == dict.fromkeys(
+        ["K1", "K1v1", "K2", "K3", "K4", "K4-halo", "K5", "K6",
+         "K6-map_cols"], True)
+    assert last["detail"]["iters"] == rows["structured128"]["iters"] == 7
+    assert rows["structured128"]["relres"] <= 1e-8
+    assert last["card"]["name"] == torch.cuda.get_device_name(0)
+    assert all(c["ms"] > 0 for c in rows["kernels"]["cases"])
