@@ -23,7 +23,8 @@ Everything the JAX package does on one device is ported:
   sharded solve (``distribute_hierarchy``, ``dist_solve``, TAPS) over
   torch.distributed;
 * matrix and vector file I/O, hierarchy and solver-state checkpoints,
-  profiling hooks, and the command line (``python -m raptor_tpu_torch``);
+  spans over the solve and set-up paths (``utils/profiling.py``), and the
+  command line (``python -m raptor_tpu_torch``);
 * the JAX-free configuration and stencil gallery.
 
 The DIA (plain and halo-extended), banded and rectangular SpMVs and the

@@ -39,8 +39,10 @@ from raptor_tpu_torch.setup.hierarchy import (
 )
 from raptor_tpu_torch.solve.cycle import (apply_op, cycle, make_preconditioner,
                                           materialize_tail)
-from raptor_tpu_torch.solve.krylov import KrylovInfo, krylov_dispatch, pcg
+from raptor_tpu_torch.solve.krylov import (KrylovInfo, host_read,
+                                           krylov_dispatch, pcg)
 from raptor_tpu_torch.utils.df64 import df_add, df_from, two_prod
+from raptor_tpu_torch.utils.profiling import phase, spanned
 
 __all__ = ["setup", "solve", "solve_hier", "solve_hier_refined",
            "BANDED_MIN_N"]
@@ -52,6 +54,7 @@ _DTYPES = {"float32": np.float32, "float64": np.float64}
 BANDED_MIN_N = 2048
 
 
+@spanned("setup.algebraic", fence=True)
 def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, B=None, *,
           device) -> Hierarchy:
     """Build the AMG hierarchy on ``device``: levels with n above
@@ -69,7 +72,8 @@ def setup(A, config: AmgConfig = AmgConfig(), dtype=np.float32, B=None, *,
         hier = _setup_banded(A, config, dtype, device)
     else:
         hier = build_hierarchy(A, config, dtype=dtype, device=device)
-    hier = hier.to(device)
+    with phase("setup.to_device"):
+        hier = hier.to(device)
     if config.tail_max_n > 0:
         hier = materialize_tail(hier, config.tail_max_n)
     if not isinstance(A, EllMatrix) and np.dtype(dtype) == np.float32:
@@ -153,28 +157,27 @@ def _setup_banded(A, config: AmgConfig, dtype, device) -> Hierarchy:
     arrives with its planes and ``GeoTransfer`` from the chain."""
     import scipy.sparse as sp
 
-    from raptor_tpu_torch.core.hybrid import (banded_from_ell, hybrid_from_ell,
-                                              rect_banded_from_ell)
-
     if isinstance(A, EllMatrix):
         raise ValueError("fine_layout='banded' takes scipy input")
-    a = sp.csr_matrix(A)
-    n = a.shape[0]
-    coo = a.tocoo()
-    cov0, eff0 = _plane_stats(coo.col.astype(np.int64) - coo.row, n)
-    plane_mode = cov0 >= 0.9 and eff0 >= 0.5
-    if plane_mode:
-        # RCM would destroy the constant offsets
-        p = np.arange(n, dtype=np.int64)
-    else:
-        from scipy.sparse.csgraph import reverse_cuthill_mckee
+    with phase("setup.order"):
+        a = sp.csr_matrix(A)
+        n = a.shape[0]
+        coo = a.tocoo()
+        cov0, eff0 = _plane_stats(coo.col.astype(np.int64) - coo.row, n)
+        plane_mode = cov0 >= 0.9 and eff0 >= 0.5
+        if plane_mode:
+            # RCM would destroy the constant offsets
+            p = np.arange(n, dtype=np.int64)
+        else:
+            from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-        p = np.asarray(reverse_cuthill_mckee(
-            a + a.T, symmetric_mode=True)).astype(np.int64)
-    ar = a[p][:, p].tocsr()
+            p = np.asarray(reverse_cuthill_mckee(
+                a + a.T, symmetric_mode=True)).astype(np.int64)
+        ar = a[p][:, p].tocsr()
 
     pm_mult = int(np.lcm(config.pad_multiple, 1024))
-    E = ell_from_csr(ar, dtype=dtype, row_pad_multiple=pm_mult)
+    with phase("setup.ell"):
+        E = ell_from_csr(ar, dtype=dtype, row_pad_multiple=pm_mult)
     cfg = dataclasses.replace(config, pad_multiple=pm_mult)
     # geo levels carry no coloring (mcgs), and aggressive coarsening keeps
     # its own pipeline
@@ -186,38 +189,9 @@ def _setup_banded(A, config: AmgConfig, dtype, device) -> Hierarchy:
     hier = build_hierarchy(E, cfg, dtype=dtype, row_ids=p, geo=geo,
                            device=device)
 
-    levels = []
-    for lev in hier.levels:
-        if lev.n >= BANDED_MIN_N and lev.A.n_rows_pad % 1024 == 0:
-            attached = lev.Ahyb is not None
-            if not attached and plane_mode:
-                # Galerkin products of plane-structured operators stay
-                # plane-structured (offsets at doubled spacings)
-                cov, eff = _plane_stats_ell(lev.A)
-                if cov >= 0.9 and eff >= 0.5:
-                    H = hybrid_from_ell(lev.A, reorder=False, max_offsets=32,
-                                        pad_multiple=lev.A.n_rows_pad)
-                    if H.n_pad == lev.A.n_rows_pad:
-                        lev = dataclasses.replace(lev, Ahyb=H)
-                        attached = True
-            if not attached:
-                # reorder=True below level 0: coarse levels inherit the fine
-                # ordering compressed through the irregular PMIS C-set; an
-                # RCM re-banding of just that level can re-enter the plan
-                # bounds
-                B = banded_from_ell(lev.A, reorder=lev is not hier.levels[0])
-                if B is not None and B.n_pad == lev.A.n_rows_pad:
-                    lev = dataclasses.replace(lev, Aband=B)
-                    attached = True
-            if attached and lev.P is not None and lev.Tgeo is None:
-                # transfers follow the same grid-proportional band; a geo
-                # level's GeoTransfer needs no plan
-                Pb = rect_banded_from_ell(
-                    lev.P, pad_rows(lev.P.n_cols_pad, 1024))
-                Rb = rect_banded_from_ell(
-                    lev.R, pad_rows(lev.R.n_cols_pad, 1024))
-                lev = dataclasses.replace(lev, Pband=Pb, Rband=Rb)
-        levels.append(lev)
+    with phase("setup.layout"):
+        levels = [_attach_layouts(lev, lev is hier.levels[0], plane_mode)
+                  for lev in hier.levels]
 
     n_pad = hier.levels[0].A.n_rows_pad
     perm = np.arange(n_pad, dtype=np.int32)
@@ -228,6 +202,44 @@ def _setup_banded(A, config: AmgConfig, dtype, device) -> Hierarchy:
                                iperm=iperm)
 
 
+def _attach_layouts(lev, fine: bool, plane_mode: bool):
+    """A level of ``_setup_banded`` with its fast layouts attached: DIA
+    planes in plane mode where they cover the operator, else the banded
+    layout, and the transfers' rectangular banded layouts beside either."""
+    from raptor_tpu_torch.core.hybrid import (banded_from_ell, hybrid_from_ell,
+                                              rect_banded_from_ell)
+
+    if lev.n < BANDED_MIN_N or lev.A.n_rows_pad % 1024 != 0:
+        return lev
+    attached = lev.Ahyb is not None
+    if not attached and plane_mode:
+        # Galerkin products of plane-structured operators stay
+        # plane-structured (offsets at doubled spacings)
+        cov, eff = _plane_stats_ell(lev.A)
+        if cov >= 0.9 and eff >= 0.5:
+            H = hybrid_from_ell(lev.A, reorder=False, max_offsets=32,
+                                pad_multiple=lev.A.n_rows_pad)
+            if H.n_pad == lev.A.n_rows_pad:
+                lev = dataclasses.replace(lev, Ahyb=H)
+                attached = True
+    if not attached:
+        # reorder=True below level 0: coarse levels inherit the fine
+        # ordering compressed through the irregular PMIS C-set; an RCM
+        # re-banding of just that level can re-enter the plan bounds
+        B = banded_from_ell(lev.A, reorder=not fine)
+        if B is not None and B.n_pad == lev.A.n_rows_pad:
+            lev = dataclasses.replace(lev, Aband=B)
+            attached = True
+    if attached and lev.P is not None and lev.Tgeo is None:
+        # transfers follow the same grid-proportional band; a geo level's
+        # GeoTransfer needs no plan
+        Pb = rect_banded_from_ell(lev.P, pad_rows(lev.P.n_cols_pad, 1024))
+        Rb = rect_banded_from_ell(lev.R, pad_rows(lev.R.n_cols_pad, 1024))
+        lev = dataclasses.replace(lev, Pband=Pb, Rband=Rb)
+    return lev
+
+
+@spanned("solve")
 def solve_hier_refined(
     hier: Hierarchy,
     b: torch.Tensor,
@@ -248,7 +260,8 @@ def solve_hier_refined(
     ``cast_hierarchy_algebraic`` copy); the Krylov operator, residuals and
     the df64 certification stay on ``hier``.  ``restart`` is the GMRES
     restart length.  The outer loop reads the residual norm on the host once
-    per round."""
+    per round, and the round's iterations after it
+    (``host_reads["refine"]``)."""
     A = hier.levels[0].A
     lev0 = hier.levels[0]
     Mh = hier if M_hier is None else M_hier
@@ -272,6 +285,7 @@ def solve_hier_refined(
     use_hyb_resid = (not use_band_resid and hyb is not None
                      and hyb.spill is None and lo is None)
 
+    @spanned("refine.residual")
     def residual(xh, xl, bh, bl):
         # A @ x_lo needs only fp32 accuracy (x_lo ~ 2^-24 x_hi): one
         # fast-layout apply
@@ -306,13 +320,13 @@ def solve_hier_refined(
     relres = torch.sqrt(torch.dot(rh, rh)) / bnorm
     total_it, k = 0, 0
     # residual-gated: stop as soon as a round certifies tol
-    while k < outer and bool(relres > tol):
+    while k < outer and host_read("refine", relres > tol):
         inner_tol = torch.clamp(tol / torch.clamp(relres, min=1e-30), 1e-5, 0.9)
         e, info = inner(apply_A, rh, apply_M, tol=inner_tol, maxiter=maxiter)
         xh, xl = df_add(xh, xl, e, torch.zeros_like(e))
         rh, rl = residual(xh, xl, bh, bl)
         relres = torch.sqrt(torch.dot(rh, rh)) / bnorm
-        total_it += int(info.iterations)
+        total_it += host_read("refine", info.iterations)
         k += 1
     iters = torch.tensor(total_it, dtype=torch.int32, device=b.device)
     return (xh, xl), relres, iters
@@ -355,7 +369,7 @@ def solve_hier(
         rr = torch.dot(r, r)
         it += 1
         hist[it] = torch.sqrt(rr / bnorm2)
-        if bool(rr <= tol2):
+        if host_read("stationary", rr <= tol2):
             status = 0
             break
     return x, KrylovInfo(

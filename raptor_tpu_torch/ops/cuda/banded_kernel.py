@@ -30,7 +30,8 @@ A wrapper given CPU tensors returns its plain version; given CUDA tensors it
 launches its kernel or raises; there is no fallback.  ``launches`` counts
 kernel launches (plain-version calls are not counted) under "K4", "K5",
 "K6" and, for the two sharded forms, "K4-halo" and "K6-map_cols";
-``launches_by_shape`` counts them by (that key, n, K, vals dtype).
+``launches_by_shape`` counts them by (that key, n, K, vals dtype), and
+each launch is a span of that name (``utils/profiling.py``).
 
 The three kernels share K4's design and its host-side launch plan
 (``banded_launch_plan``: x from a shared-memory window or straight from
@@ -52,6 +53,7 @@ import torch
 
 from raptor_tpu_torch.ops.banded_plan import PAGE
 from raptor_tpu_torch.utils.df64 import df_add, two_prod
+from raptor_tpu_torch.utils.profiling import phase
 
 __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_halo",
            "banded_spmv_halo_ref", "banded_spmv_rect",
@@ -651,7 +653,7 @@ def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = Non
     lib = _lib()
     fn = lib.raptor_banded_bf16 if vals.dtype == torch.bfloat16 else lib.raptor_banded_f32
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with phase(name, (n, K, vals.dtype)), torch.cuda.device(x.device):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
                 y.data_ptr(), n, K, plan["tile"], plan["Wp"], x_off,
                 x.shape[0], _live_mask(live), len(live), int(launch.staged),
@@ -701,7 +703,8 @@ def _launch_k6(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = Non
     fn = (lib.raptor_banded_rect_bf16 if vals.dtype == torch.bfloat16
           else lib.raptor_banded_rect_f32)
     y = torch.empty(plan["n"], dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with (phase(name, (plan["n"], plan["K"], vals.dtype)),
+          torch.cuda.device(x.device)):
         rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
                 y.data_ptr(), plan["n"], plan["K"], plan["tile"],
                 x.shape[0], map_cols, plan["WpP"], plan["npage"],
@@ -752,7 +755,7 @@ def _launch_k5(plan: dict, vals_lo, xh, bh, bl, v,
     launch = _launch_for(plan, "K5", xh.device, launch)
     rh = torch.empty_like(xh)
     rl = torch.empty_like(xh)
-    with torch.cuda.device(xh.device):
+    with phase("K5", (n, plan["K"], vals.dtype)), torch.cuda.device(xh.device):
         rc = _lib().raptor_banded_df64_f32(
             vals.data_ptr(), lo_ptr, plan["pidx"].data_ptr(), xh.data_ptr(),
             bh.data_ptr(), bl.data_ptr(), v.data_ptr(), rh.data_ptr(),

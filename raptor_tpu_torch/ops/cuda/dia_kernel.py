@@ -21,7 +21,8 @@ returns its plain version (``dia_spmv_v2_ref``, ``dia_spmv_v1_ref``,
 launches its kernel or raises — there is no fallback.  ``launches`` counts
 kernel launches (plain-version calls are not counted), so a run can show
 that its path went through the kernels; ``launches_by_shape`` counts them
-by (kernel, n, n_off, plane dtype).
+by (kernel, n, n_off, plane dtype), and each launch is a span of that
+name (``utils/profiling.py``).
 
 K1, K1v1 and K3 launch one tiled kernel whose host-side plan
 (``tile_plan``: row tile, offset bands, window sizes, whether the planes
@@ -39,6 +40,8 @@ import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from raptor_tpu_torch.utils.profiling import phase
 
 __all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
            "dia_spmv_const", "dia_spmv_const_ref", "dia_spmv_halo",
@@ -425,7 +428,7 @@ def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     fn = (lib.raptor_dia_planes_bf16 if data.dtype == torch.bfloat16
           else lib.raptor_dia_planes_f32)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with phase(key, (n, n_off, data.dtype)), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch,
                 *_tiled_args(data, lins, x, batch), stream)
@@ -486,7 +489,7 @@ def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     fn = (lib.raptor_dia_halo_bf16 if data.dtype == torch.bfloat16
           else lib.raptor_dia_halo_f32)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with phase("K3", (nl, n_off, data.dtype)), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), hl.data_ptr(), hr.data_ptr(),
                 y.data_ptr(), nl, hl.shape[0], hr.shape[0],
@@ -542,7 +545,7 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
     args = _const_args(tuple(float(v) for v in consts), offsets, dims, batch,
                        _n_sm(x.device))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with phase("K2", (n, n_off, "float32")), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.raptor_dia_const_f32(x.data_ptr(), y.data_ptr(), n, batch,
                                       *args, stream)

@@ -30,6 +30,7 @@ import dataclasses
 import torch
 
 from raptor_tpu_torch.core.ell import EllMatrix
+from raptor_tpu_torch.utils.profiling import phase
 
 __all__ = ["spmv", "spmv_t", "spgemm", "spgemm_fixed", "rap",
            "ell_transpose", "ell_transpose_fixed", "ell_add", "ell_add_fixed",
@@ -53,8 +54,10 @@ def _slot_sum(x: torch.Tensor) -> torch.Tensor:
 def spmv(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x.  x has shape (..., n_cols_pad); y has (..., n_rows_pad):
     ``y[..., i] = sum_k data[k, i] * x[..., cols[k, i]]``.  Padding slots
-    hold value 0 with a valid gather index, so no mask is needed."""
-    return (A.data * x[..., A.cols]).sum(-2)
+    hold value 0 with a valid gather index, so no mask is needed.  A span
+    ``ell.spmv[n_rows_pad,K,dtype]``."""
+    with phase("ell.spmv", (A.data.shape[-1], A.K, A.data.dtype)):
+        return (A.data * x[..., A.cols]).sum(-2)
 
 
 def _drop(idx: torch.Tensor, valid: torch.Tensor, bound: int) -> torch.Tensor:

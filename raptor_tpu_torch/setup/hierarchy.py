@@ -43,6 +43,7 @@ import torch
 
 from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.core.ell import EllMatrix, _np, ell_from_csr, pad_rows, to_tensor
+from raptor_tpu_torch.utils.profiling import phase, spanned
 
 __all__ = ["Level", "Hierarchy", "build_hierarchy", "hierarchy_stats",
            "cast_hierarchy_algebraic", "attach_residual_lo"]
@@ -149,6 +150,7 @@ def _host_tail_takes(config: AmgConfig) -> bool:
     return config.splitting in ("rs", "pmis")
 
 
+@spanned("setup.residual_lo")
 def attach_residual_lo(hier: Hierarchy, A_sp) -> Hierarchy:
     """Attach Hierarchy.a0_lo: the fp32 truncation remainder of the level-0
     operator, laid out in exactly levels[0].A's ELL slots (and in
@@ -232,6 +234,7 @@ def cast_hierarchy_algebraic(hier: Hierarchy, dtype) -> Hierarchy:
 _CHEB_SMOOTHERS = ("chebyshev", "cheb4", "block_cheb")
 
 
+@spanned("setup.coarse_inverse")
 def _dense_inverse(A: EllMatrix, n_true: int | None = None) -> torch.Tensor:
     """Explicit dense inverse of the (identity-padded, SPD) coarsest
     operator on A's device.  Rows >= ``n_true`` are decoupled unit
@@ -312,25 +315,31 @@ def _level_phase1(A: EllMatrix, perm, *, theta, strength_kind, splitting,
     from raptor_tpu_torch.setup.strength import strength_mask
     from raptor_tpu_torch.solve.smoothers import estimate_lmax
 
-    smask = strength_mask(A, theta, strength_kind)
-    if splitting == "pmis":
-        cf = pmis_splitting(A, smask, perm)
-    elif splitting == "cljp":
-        from raptor_tpu_torch.setup.cljp import cljp_splitting
+    with phase("setup.strength"):
+        smask = strength_mask(A, theta, strength_kind)
+    with phase("setup.splitting"):
+        if splitting == "pmis":
+            cf = pmis_splitting(A, smask, perm)
+        elif splitting == "cljp":
+            from raptor_tpu_torch.setup.cljp import cljp_splitting
 
-        cf = cljp_splitting(A, smask, perm)
-    else:
-        raise ValueError(f"unfusable splitting: {splitting}")
-    P, nc = _interpolate(A, smask, cf, interp, p_max)
-    # w_P: the true max row width of P; the host slices P's slot axis to
-    # bucket8(w_P) before the SpGEMMs (the builders emit a static bound)
-    w_T = _transpose_col_counts(P).max()
-    w_P = P.row_nnz.max()
-    dinv = _dinv(A)
-    lmax = estimate_lmax(A, dinv) if want_lmax else None
+            cf = cljp_splitting(A, smask, perm)
+        else:
+            raise ValueError(f"unfusable splitting: {splitting}")
+    with phase("setup.interp"):
+        P, nc = _interpolate(A, smask, cf, interp, p_max)
+        # w_P: the true max row width of P; the host slices P's slot axis
+        # to bucket8(w_P) before the SpGEMMs (the interpolation routines
+        # emit a static bound)
+        w_T = _transpose_col_counts(P).max()
+        w_P = P.row_nnz.max()
+    with phase("setup.smoother"):
+        dinv = _dinv(A)
+        lmax = estimate_lmax(A, dinv) if want_lmax else None
     return P, dinv, lmax, cf, torch.stack([v.long() for v in (nc, w_T, w_P)])
 
 
+@spanned("setup.rap")
 def _level_phase2(A: EllMatrix, P: EllMatrix, *, k_T, k_AP, k_Ac, nc,
                   filter_tol):
     """Second half of one device level: R = P^T, AP, the Galerkin R(AP),
@@ -738,7 +747,9 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
     A_in = None
     if not isinstance(A, EllMatrix):
         A_in = A
-        A = ell_from_csr(A, dtype=dtype, row_pad_multiple=config.pad_multiple)
+        with phase("setup.ell"):
+            A = ell_from_csr(A, dtype=dtype,
+                             row_pad_multiple=config.pad_multiple)
     ids = None if row_ids is None else np.asarray(row_ids)
     geo = None if geo is None else list(geo)  # the live extents
     levels = []
@@ -750,20 +761,23 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
            and (n > config.host_setup_threshold or not host_tail)):
         if (geo is not None and n == int(np.prod(geo)) and max(geo) > 2
                 and n > config.host_setup_threshold):
-            out = _geo_levels(A, n, geo, levels, config, ids, device)
+            with phase("setup.level", len(levels)):
+                out = _geo_levels(A, n, geo, levels, config, ids, device)
             if out is None:
                 geo = None  # a weak dimension: rebuild through PMIS
                 continue
             new_levels, A, n, pending_hyb, geo, ids = out
             levels.extend(new_levels)
             continue
-        A = A.to(device)
+        with phase("setup.to_device"):
+            A = A.to(device)
         if config.splitting in ("pmis", "cljp") and not config.aggressive:
             seed = config.seed + len(levels)
-            perm = (None if ids is None else
-                    make_perm_ids(ids, A.n_rows_pad, seed, device=device))
-            P, R, Ac, nc, dinv, lmax, cf = _fused_level(A, n, config, seed,
-                                                        perm=perm)
+            with phase("setup.level", len(levels)):
+                perm = (None if ids is None else
+                        make_perm_ids(ids, A.n_rows_pad, seed, device=device))
+                P, R, Ac, nc, dinv, lmax, cf = _fused_level(
+                    A, n, config, seed, perm=perm)
             if nc == 0 or nc >= n:
                 break
             if ids is not None:
@@ -776,7 +790,8 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
             A, n = Ac, nc
             continue
         if config.aggressive:
-            out = _aggressive_level(A, config, config.seed + len(levels))
+            with phase("setup.level", len(levels)):
+                out = _aggressive_level(A, config, config.seed + len(levels))
             if out is None:
                 break
             lev, A, n, cf = out
@@ -784,15 +799,17 @@ def build_hierarchy(A, config: AmgConfig = AmgConfig(), dtype=np.float32,
                 ids = ids[_np(cf)[:lev.n] == C_PT]
             levels.append(lev)
             continue
-        out = _unfused_level(A, config)
+        with phase("setup.level", len(levels)):
+            out = _unfused_level(A, config)
         if out is None:
             break
         lev, A, n = out
         levels.append(lev)
 
     if n <= config.host_setup_threshold and host_tail:
-        hier = host_build_tail(A, levels, config, dtype, row_ids=ids, geo=geo,
-                               ahyb0=pending_hyb)
+        with phase("setup.host_tail"):
+            hier = host_build_tail(A, levels, config, dtype, row_ids=ids,
+                                   geo=geo, ahyb0=pending_hyb)
     else:  # the coarsest level, built on the device
         A = A.to(device)
         dinv, color, ncolors, lmax = _smoother_data(A, config, None)

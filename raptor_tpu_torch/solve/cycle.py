@@ -29,6 +29,7 @@ from raptor_tpu_torch.ops.sparse_ops import spmv
 from raptor_tpu_torch.solve.smoothers import (chebyshev, chebyshev4, jacobi,
                                               multicolor_gs, triangular_apply,
                                               two_stage_gs)
+from raptor_tpu_torch.utils.profiling import phase, spanned
 
 if TYPE_CHECKING:
     from raptor_tpu_torch.setup.hierarchy import Hierarchy, Level
@@ -191,31 +192,40 @@ def _level(hier: "Hierarchy", cfg: AmgConfig, k: int, b):
     if k == hier.tail_start and hier.tail_op is not None:
         # dense coarse tail: the materialized sub-cycle in one matvec (a
         # bf16 operator widens to b's dtype, as the reference promotes)
-        return hier.tail_op.to(b.dtype) @ b
+        with phase("vcycle.coarse"):
+            return hier.tail_op.to(b.dtype) @ b
     if k == len(hier.levels) - 1:
-        return hier.coarse_inv.to(b.dtype) @ b
-    x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False, x0_zero=True)
-    r = b - apply_op(lev, x) if cfg.nu1 else b
-    if lev.Tgeo is not None:
-        from raptor_tpu_torch.core.hybrid import geo_restrict
+        with phase("vcycle.coarse"):
+            return hier.coarse_inv.to(b.dtype) @ b
+    with phase("vcycle.smooth", k):
+        x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False,
+                    x0_zero=True)
+    with phase("vcycle.residual", k):
+        r = b - apply_op(lev, x) if cfg.nu1 else b
+    with phase("vcycle.restrict", k):
+        if lev.Tgeo is not None:
+            from raptor_tpu_torch.core.hybrid import geo_restrict
 
-        rc = geo_restrict(lev.Tgeo, r)
-    else:
-        rc = apply_transfer(lev.Rband, lev.R, r)
+            rc = geo_restrict(lev.Tgeo, r)
+        else:
+            rc = apply_transfer(lev.Rband, lev.R, r)
     ec = _level(hier, cfg, k + 1, rc)
     if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
         # second coarse visit on the updated coarse residual (gamma = 2)
         rc2 = rc - apply_op(hier.levels[k + 1], ec)
         ec = ec + _level(hier, cfg, k + 1, rc2)
-    if lev.Tgeo is not None:
-        from raptor_tpu_torch.core.hybrid import geo_prolong
+    with phase("vcycle.prolong", k):
+        if lev.Tgeo is not None:
+            from raptor_tpu_torch.core.hybrid import geo_prolong
 
-        x = x + geo_prolong(lev.Tgeo, ec)
-    else:
-        x = x + apply_transfer(lev.Pband, lev.P, ec)
-    return _smooth(lev, cfg, b, x, backward=True)
+            x = x + geo_prolong(lev.Tgeo, ec)
+        else:
+            x = x + apply_transfer(lev.Pband, lev.P, ec)
+    with phase("vcycle.smooth", k):
+        return _smooth(lev, cfg, b, x, backward=True)
 
 
+@spanned("vcycle")
 def cycle(hier: "Hierarchy", b, cfg: AmgConfig | None = None):
     """One V- or W-cycle applied to b (zero initial guess): the AMG
     preconditioner application M^{-1} b."""
@@ -227,7 +237,7 @@ def make_preconditioner(hier: "Hierarchy"):
     cfg = hier.config
 
     def M(r):
-        return _level(hier, cfg, 0, r)
+        return cycle(hier, r, cfg)
 
     return M
 
@@ -264,6 +274,7 @@ def _dense_ell(A) -> torch.Tensor:
     return spmv(A, eye).T
 
 
+@spanned("setup.tail")
 def materialize_tail(hier: "Hierarchy", max_n: int,
                      min_start: int = 1) -> "Hierarchy":
     """Fold the coarse tail of the cycle into one dense operator: every

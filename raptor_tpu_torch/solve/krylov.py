@@ -12,22 +12,40 @@ Every solver takes ``dot_fn``, the inner product.  The default ``vdot`` is
 (k, n) basis with one vector in a single call, which is how GMRES's
 classical Gram-Schmidt passes use it.  The sharded solve passes a dot that
 sums over the ring, so each of those passes is one collective.
+
+``host_reads`` counts, by site, the host's reads of device values on the
+solve path (each waits for the device's queue to drain): ``pcg``,
+``bicgstab`` and ``gmres`` here, ``refine`` in the df64-refined solves'
+outer loops, ``stationary`` in ``api.solve_hier``'s AMG iteration.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from functools import partial
 from typing import Callable
 
 import torch
 
+from raptor_tpu_torch.utils.profiling import spanned
+
 __all__ = ["KrylovInfo", "pcg", "bicgstab", "gmres", "krylov_dispatch",
-           "vdot", "STATUS_CONVERGED", "STATUS_MAXITER", "STATUS_BREAKDOWN"]
+           "vdot", "host_read", "host_reads", "STATUS_CONVERGED",
+           "STATUS_MAXITER", "STATUS_BREAKDOWN"]
 
 STATUS_CONVERGED = 0
 STATUS_MAXITER = 1
 STATUS_BREAKDOWN = 2
+
+# reads of device values by the host on the solve path, by site
+host_reads: collections.Counter = collections.Counter()
+
+
+def host_read(site: str, t: torch.Tensor):
+    """``t.tolist()``, counted in ``host_reads[site]``."""
+    host_reads[site] += 1
+    return t.tolist()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +93,7 @@ def krylov_dispatch(name: str, restart: int = 30) -> Callable:
     return table[name]
 
 
+@spanned("pcg")
 def pcg(
     apply_A: Callable,
     b: torch.Tensor,
@@ -112,7 +131,7 @@ def pcg(
         rr = dot_fn(r, r)
         it += 1
         hist[it] = torch.sqrt(rr / bnorm2)
-        flags = torch.stack([breakdown, rr <= tol2]).tolist()  # one host read
+        flags = host_read("pcg", torch.stack([breakdown, rr <= tol2]))
         if flags[0]:
             status = STATUS_BREAKDOWN
             break
@@ -129,6 +148,7 @@ def pcg(
     return x, _info(it, status, torch.sqrt(dot_fn(r, r) / bnorm2), hist, b.device)
 
 
+@spanned("bicgstab")
 def bicgstab(
     apply_A: Callable,
     b: torch.Tensor,
@@ -175,7 +195,8 @@ def bicgstab(
         beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
         p = r + beta * (p - omega * v)
         rho = rho_new
-        converged, broke = torch.stack([rr <= tol2, bd1 | bd2]).tolist()
+        converged, broke = host_read("bicgstab",
+                                     torch.stack([rr <= tol2, bd1 | bd2]))
         if converged:
             status = STATUS_CONVERGED
             break
@@ -185,6 +206,7 @@ def bicgstab(
     return x, _info(it, status, torch.sqrt(dot_fn(r, r) / bnorm2), hist, b.device)
 
 
+@spanned("gmres")
 def gmres(
     apply_A: Callable,
     b: torch.Tensor,
@@ -229,7 +251,7 @@ def gmres(
         sn = torch.zeros(m, dtype=dt, device=dev)
         g = torch.zeros(m + 1, dtype=dt, device=dev)
         g[0] = beta
-        done = bool(beta <= tol_r)
+        done = host_read("gmres", beta <= tol_r)
         j = 0
         while not done and j < m and it + j < maxiter:
             zj = apply_M(V[j])
@@ -262,7 +284,7 @@ def gmres(
             g[j + 1] = -s_new * gj
             g[j] = c_new * gj
             hist[it + j + 1] = res / bnorm
-            done = bool(res <= tol_r)  # one host read per step
+            done = host_read("gmres", res <= tol_r)  # one a step
             j += 1
         # y = R[:m,:m]^{-1} g[:m] over the j steps taken: the unused columns
         # get 1 on the diagonal and 0 in g, so their y_i = 0

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from raptor_tpu_torch.config import AmgConfig
-from raptor_tpu_torch.solve.krylov import krylov_dispatch, pcg
+from raptor_tpu_torch.solve.krylov import host_read, krylov_dispatch, pcg
 from raptor_tpu_torch.structured.dia import (
     DiaMatrix,
     _linear,
@@ -43,6 +43,7 @@ from raptor_tpu_torch.structured.dia import (
     dia_tri_spmv,
 )
 from raptor_tpu_torch.utils.df64 import df_add, df_from, two_prod
+from raptor_tpu_torch.utils.profiling import phase, spanned
 
 __all__ = ["SLevel", "SHierarchy", "plan_coarsening",
            "build_structured_hierarchy", "structured_solve",
@@ -330,6 +331,7 @@ def _estimate_lmax_dia(A: DiaMatrix, dinv):
     return LMAX_SAFETY * torch.dot(v, w) / torch.dot(v, v)
 
 
+@spanned("setup.plan")
 def plan_coarsening(
     A: DiaMatrix, config: AmgConfig, dim_policy: str = "operator",
     allow_full: bool | None = None,
@@ -400,27 +402,31 @@ def _build_hierarchy_planned(
     """The numeric setup for a fixed plan: transfers, Galerkin RAP and
     smoother data for every level."""
     levels = []
-    for d in plan:
-        if d == FULL_STEP:
-            Pt = _build_transfer_full(A)
+    for k, d in enumerate(plan):
+        with phase("setup.transfer", k):
+            Pt = (_build_transfer_full(A) if d == FULL_STEP
+                  else _build_transfer(A, d))
             Rt = dia_transpose(Pt)
-            Ac = _compact_dia_full(
-                dia_mult(Rt, dia_mult(A, Pt), keep=_all_even))
-        else:
-            Pt = _build_transfer(A, d)
-            Rt = dia_transpose(Pt)
-            Ac = _compact_dia(dia_mult(Rt, dia_mult(A, Pt)), d)
-        dinv, red, lmax = _smoother_data(A, config)
+        with phase("setup.rap", k):
+            if d == FULL_STEP:
+                Ac = _compact_dia_full(
+                    dia_mult(Rt, dia_mult(A, Pt), keep=_all_even))
+            else:
+                Ac = _compact_dia(dia_mult(Rt, dia_mult(A, Pt)), d)
+        with phase("setup.smoother", k):
+            dinv, red, lmax = _smoother_data(A, config)
         levels.append(SLevel(A=A, Pt=Pt, Rt=Rt, dinv=dinv, red=red,
                              cheb_lmax=lmax, dims=A.dims, cdim=d))
         A = Ac
-    dinv, red, lmax = _smoother_data(A, config)
+    with phase("setup.smoother", len(plan)):
+        dinv, red, lmax = _smoother_data(A, config)
     levels.append(SLevel(A=A, Pt=None, Rt=None, dinv=dinv, red=red,
                          cheb_lmax=lmax, dims=A.dims, cdim=-1))
     return SHierarchy(levels=tuple(levels), coarse_inv=_dia_dense_inverse(A),
                       config=config)
 
 
+@spanned("setup.structured", fence=True)
 def build_structured_hierarchy(
     A: DiaMatrix,
     config: AmgConfig = AmgConfig(smoother="mcgs"),
@@ -459,6 +465,7 @@ def _dense_op(A: DiaMatrix) -> torch.Tensor:
     return dia_spmv(A, eye).T
 
 
+@spanned("setup.tail")
 def materialize_tail(hier: SHierarchy, max_n: int,
                      min_start: int = 1) -> SHierarchy:
     """Fold the coarse tail of the cycle into one dense operator: the first
@@ -493,6 +500,7 @@ def materialize_tail(hier: SHierarchy, max_n: int,
     return dataclasses.replace(hier, tail_op=tail_op, tail_start=ts)
 
 
+@spanned("setup.cast", fence=True)
 def cast_hierarchy(hier: SHierarchy, dtype: torch.dtype) -> SHierarchy:
     """Store the level operators (A/Pt/Rt diagonals) in a narrower dtype;
     vectors and reductions stay in the solve dtype (the kernels widen each
@@ -511,6 +519,7 @@ def cast_hierarchy(hier: SHierarchy, dtype: torch.dtype) -> SHierarchy:
                       tail_start=hier.tail_start)
 
 
+@spanned("setup.coarse_inverse")
 def _dia_dense_inverse(A: DiaMatrix) -> torch.Tensor:
     """Explicit inverse of the coarsest operator, so the coarse solve is a
     single dense matvec.  Setup-only; accuracy is ample for a
@@ -603,20 +612,29 @@ def _slevel(hier: SHierarchy, cfg: AmgConfig, k: int, b):
     lev = hier.levels[k]
     if k == hier.tail_start and hier.tail_op is not None:
         # dense coarse tail: the materialized sub-cycle in one matvec
-        return hier.tail_op.to(b.dtype) @ b
+        with phase("vcycle.coarse"):
+            return hier.tail_op.to(b.dtype) @ b
     if k == len(hier.levels) - 1:
-        return hier.coarse_inv @ b
-    x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False, x0_zero=True)
-    r = b - dia_spmv(lev.A, x) if cfg.nu1 else b
-    rc = _restrict(dia_spmv(lev.Rt, r), lev)
+        with phase("vcycle.coarse"):
+            return hier.coarse_inv @ b
+    with phase("vcycle.smooth", k):
+        x = _smooth(lev, cfg, b, torch.zeros_like(b), backward=False,
+                    x0_zero=True)
+    with phase("vcycle.residual", k):
+        r = b - dia_spmv(lev.A, x) if cfg.nu1 else b
+    with phase("vcycle.restrict", k):
+        rc = _restrict(dia_spmv(lev.Rt, r), lev)
     ec = _slevel(hier, cfg, k + 1, rc)
     if cfg.cycle == "W" and k + 1 < len(hier.levels) - 1:
         Ac = hier.levels[k + 1].A
         ec = ec + _slevel(hier, cfg, k + 1, rc - dia_spmv(Ac, ec))
-    x = x + dia_spmv(lev.Pt, _prolong(ec, lev))
-    return _smooth(lev, cfg, b, x, backward=True)
+    with phase("vcycle.prolong", k):
+        x = x + dia_spmv(lev.Pt, _prolong(ec, lev))
+    with phase("vcycle.smooth", k):
+        return _smooth(lev, cfg, b, x, backward=True)
 
 
+@spanned("vcycle")
 def scycle(hier: SHierarchy, b, cfg: AmgConfig | None = None):
     """One structured V-/W-cycle (the preconditioner application)."""
     return _slevel(hier, cfg or hier.config, 0, b)
@@ -655,6 +673,7 @@ def structured_solve(
 # mixed-precision refinement (df64 residuals)
 # ---------------------------------------------------------------------------
 
+@spanned("refine.residual")
 def _df64_residual(A: DiaMatrix, xh, xl, bh, bl):
     """r = b - A x with compensated (double-float32) accumulation: exact to
     ~1e-14 relative, so it certifies 1e-8 without fp64.  Op by op on
@@ -670,6 +689,7 @@ def _df64_residual(A: DiaMatrix, xh, xl, bh, bl):
     return rh, rl
 
 
+@spanned("solve")
 def structured_solve_refined(
     hier: SHierarchy,
     b: torch.Tensor,
@@ -681,7 +701,8 @@ def structured_solve_refined(
     """Solve to a TRUE <= tol relative residual: fp32 AMG-PCG inner solves
     inside an iterative-refinement loop whose residuals are computed in
     compensated double-float32.  The outer loop reads the residual norm on
-    the host once per round.
+    the host once per round, and the round's iterations after it
+    (``host_reads["refine"]``).
 
     Returns ((x_hi, x_lo), true_relres, total_inner_iterations): the
     solution is a double-float32 pair — collapse with
@@ -705,7 +726,7 @@ def structured_solve_refined(
     relres = torch.sqrt(torch.dot(rh, rh)) / bnorm
     total_it, k = 0, 0
     # residual-gated: stop as soon as a round certifies tol
-    while k < outer and bool(relres > tol):
+    while k < outer and host_read("refine", relres > tol):
         # inner tolerance: enough progress that `outer` rounds certify tol,
         # floored at what fp32 recurrences can deliver
         inner_tol = torch.clamp(tol / torch.clamp(relres, min=1e-30), 1e-5, 0.9)
@@ -713,7 +734,7 @@ def structured_solve_refined(
         xh, xl = df_add(xh, xl, e, torch.zeros_like(e))
         rh, rl = _df64_residual(A, xh, xl, bh, bl)
         relres = torch.sqrt(torch.dot(rh, rh)) / bnorm
-        total_it += int(info.iterations)
+        total_it += host_read("refine", info.iterations)
         k += 1
     iters = torch.tensor(total_it, dtype=torch.int32, device=b.device)
     return (xh, xl), relres, iters

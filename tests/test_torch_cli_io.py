@@ -16,7 +16,8 @@ checkpoints (``utils/checkpoint.py``) and the profiling hooks
 * checkpoints: a banded algebraic hierarchy and a structured one saved and
   loaded give a bit-equal solve; solver state restarts warm; a file with
   any pickled global but tensors and plain containers is refused;
-* profiling: ``trace`` writes a Chrome trace, ``phase`` and ``timed`` run.
+* profiling: ``trace`` writes a Chrome trace holding the program's spans;
+  a fenced ``phase`` times a block on the host clock.
 """
 
 import gzip
@@ -343,16 +344,22 @@ def test_checkpoint_refuses_pickled_globals(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_profiling_hooks(tmp_path):
-    from raptor_tpu_torch.utils.profiling import phase, timed, trace
+    from raptor_tpu_torch.utils.profiling import PREFIX, phase, recording, trace
 
-    sink = {}
     with trace(str(tmp_path / "tr")):
-        with timed("setup", sink):
+        with phase("setup", fence=True):
             with phase("strength"):
                 _ = torch.ones(8) * 2
-    assert sink["setup"] >= 0
     files = os.listdir(tmp_path / "tr")
     assert len(files) == 1 and files[0].endswith(".json")
     events = json.loads((tmp_path / "tr" / files[0]).read_text())
-    assert any(e.get("name") == "strength"
-               for e in events.get("traceEvents", []))
+    names = {e.get("name") for e in events.get("traceEvents", [])}
+    assert {PREFIX + "setup", PREFIX + "strength"} <= names
+    # without a profiler the fenced span is timed on the host clock
+    with recording() as rec:
+        with phase("setup", fence=True):
+            with phase("strength"):
+                _ = torch.ones(8) * 2
+    setup, strength = rec.spans
+    assert setup.fenced and setup.seconds >= strength.seconds >= 0
+    assert strength.parent == 0

@@ -280,6 +280,42 @@ def test_tiled_launches_count_by_shape():
     assert tk.launches_by_shape[key] == before + 1
 
 
+def test_kernel_spans_hold_their_launches():
+    """With recording on under the profiler, a K1 and a K2 launch each sit
+    in a span named by kernel and shape, and the runtime call that launched
+    the kernel (the one with the kernel's correlation id) lies inside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raptor_tpu_torch.utils.profiling import PREFIX, recording
+
+    dev = cuda_device()
+    data, lins = _planes((8, 8, 16), OFFSETS[7], torch.bfloat16, dev)
+    A = tdia.dia_from_stencil(stencil_7pt(), (8, 8, 16), device=dev)
+    x = _x(data.shape[1], dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        with recording():
+            tk.dia_spmv_v2(data, lins, x)
+            tk.dia_spmv_const(A.const_planes, A.offsets, A.dims, x)
+        torch.cuda.synchronize()
+    evs = p.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {e.name()[len(PREFIX):]: (e.start_ns(), e.start_ns()
+                                      + e.duration_ns())
+             for e in evs if e.name().startswith(PREFIX)
+             and e.device_type() != cuda}
+    assert set(spans) == {"K1[1024,7,bfloat16]", "K2[1024,7,float32]"}
+    launch = {e.correlation_id(): e.start_ns() for e in evs
+              if e.device_type() != cuda and e.name().startswith("cu")}
+    kernels = sorted((e for e in evs if e.device_type() == cuda
+                      and not e.name().startswith(PREFIX)),
+                     key=lambda e: e.start_ns())
+    assert len(kernels) == 2
+    for k, (a, b) in zip(kernels, (spans["K1[1024,7,bfloat16]"],
+                                   spans["K2[1024,7,float32]"])):
+        assert a <= launch[k.correlation_id()] <= b
+
+
 def test_k3_refuses_what_it_does_not_take():
     dev = cuda_device()
     data = torch.zeros(3, 64, device=dev)
