@@ -12,8 +12,9 @@ gathers them.
 Rows, in order (``bench.py`` lines in parentheses):
 
 * ``kernels`` (83-140): every hand-written kernel (K1, K1v1, K2, K3, K4,
-  K4-halo, K5, K6, K6-map_cols) against its plain version at the bench's
-  shapes; a failure ends the run with a non-zero exit;
+  K4-halo, K5, K6, K6-map_cols, K7) against its plain version at the
+  bench's shapes (K7's plain version timed too); a failure ends the run
+  with a non-zero exit;
 * ``structured128``, ``structured256`` (571-658, 890-920): 7-point Poisson
   through ``dia_from_stencil`` -> ``build_structured_hierarchy``
   (semicoarsening, cheb4 degree 2, ``coarse_size`` 2048) -> bf16 planes ->
@@ -421,24 +422,27 @@ def cpu_yardstick(levels_csr) -> dict:
 def kernel_wrappers() -> dict:
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.ops.cuda import dia_kernel as dk
+    from raptor_tpu_torch.structured import dia as sd
 
     return {"K1": dk.dia_spmv_v2, "K1v1": dk.dia_spmv_v1,
             "K2": dk.dia_spmv_const, "K3": dk.dia_spmv_halo,
             "K4": bk.banded_spmv, "K4-halo": bk.banded_spmv_halo,
             "K5": bk.banded_df64_residual, "K6": bk.banded_spmv_rect,
-            "K6-map_cols": bk.banded_spmv_rect}
+            "K6-map_cols": bk.banded_spmv_rect, "K7": sd.dia_df64_residual}
 
 
 def plain_versions() -> dict:
     """Each kernel's plain PyTorch version, which the check holds it to."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.ops.cuda import dia_kernel as dk
+    from raptor_tpu_torch.structured import dia as sd
 
     return {"K1": dk.dia_spmv_v2_ref, "K1v1": dk.dia_spmv_v1_ref,
             "K2": dk.dia_spmv_const_ref, "K3": dk.dia_spmv_halo_ref,
             "K4": bk.banded_spmv_ref, "K4-halo": bk.banded_spmv_halo_ref,
             "K5": bk.banded_df64_residual_ref, "K6": bk.banded_spmv_rect_ref,
-            "K6-map_cols": bk.banded_spmv_rect_ref}
+            "K6-map_cols": bk.banded_spmv_rect_ref,
+            "K7": sd.dia_df64_residual_ref}
 
 
 def _planes(dims, offsets, dtype, gen, dev, zeroed=True):
@@ -457,10 +461,12 @@ def _dia_cases(dev, n: int, gen) -> list:
     """(kernel, label, args) of the DIA kernels at the structured rows'
     shapes: K2 on the n^3 and (2n)^3 fine levels, K1 on level 1 (bf16 and
     fp32), level 2 and a fine-level Pt, K1v1 on n^3 planes that are not
-    boundary-zeroed, K3 on a 4-rank (2n)^3 block and its halos."""
+    boundary-zeroed, K3 on a 4-rank (2n)^3 block and its halos, K7 on the
+    n^3 fine level (const form) and on random n^3 planes (planes form)."""
     import itertools
 
     from raptor_tpu_torch.ops.cuda.dia_kernel import halo_reach
+    from raptor_tpu_torch.structured.dia import DiaMatrix, dia_from_stencil
 
     cube = list(itertools.product((-1, 0, 1), repeat=3))
     off7 = [o for o in cube if sum(map(abs, o)) <= 1]
@@ -489,6 +495,17 @@ def _dia_cases(dev, n: int, gen) -> list:
     LP, RP = halo_reach(lins)
     cases.append(("K3", f"4-rank {2 * n}^3 block {dims}, halos {LP}/{RP}",
                   (data, lins, vec(data.shape[1]), vec(LP), vec(RP))))
+    data, _ = _planes((n,) * 3, off7, torch.float32, gen, dev)
+    for label, A in (
+            ("const", dia_from_stencil(st, (n,) * 3, device=dev)),
+            ("planes", DiaMatrix(data=data, offsets=tuple(off7),
+                                 dims=(n,) * 3))):
+        # (xh, xl, bh, bl): df64 pairs whose tails lie under half an ulp
+        xh, bh = vec(A.n), 30 * vec(A.n)
+        tails = [v * 2.0**-25 * torch.rand(A.n, generator=gen, device=dev)
+                 for v in (xh, bh)]
+        cases.append(("K7", f"{label} {(n,) * 3} 7 offsets",
+                      (A, xh, tails[0], bh, tails[1])))
     return cases
 
 
@@ -603,11 +620,16 @@ def row_kernels(dev, n: int, alg_n: int, profile: bool = False) -> dict:
                                               for a, b in zip(ys, refs)),
                 "ms": (graph_ms(lambda: kern[name](*args))
                        if dev.type == "cuda" else None)}
+        if name == "K7" and dev.type == "cuda":
+            # the op-by-op route the CPU takes, timed on the card beside K7
+            case["plain_ms"] = graph_ms(lambda: plain[name](*args))
         case["pass"] = bool(err <= TOL_KERNEL * scale)
         row["cases"].append(case)
         log(f"[kernels] {name} {label}: max_abs_err {err:.3e} (max|y_ref| "
             f"{scale:.3e}), bit-equal {case['bit_equal']}"
-            + ("" if case["ms"] is None else f", {case['ms'] * 1e3:.1f} us"))
+            + ("" if case["ms"] is None else f", {case['ms'] * 1e3:.1f} us")
+            + (f" (plain {case['plain_ms'] * 1e3:.1f} us)"
+               if "plain_ms" in case else ""))
     row["kernels"] = {}
     for name in kern:
         mine = [c for c in row["cases"] if c["kernel"] == name]

@@ -12,13 +12,17 @@ Phases, each of which raises on failure (there is no CPU path):
 2. build: nvcc compiles raptor_tpu_torch/csrc/*.cu into build/raptor_tpu_torch;
 3. kernel equality: K1 and K2 against their plain PyTorch versions on the
    same CUDA tensors, at the shapes the main path gives them (each timed
-   L2-warm and L2-cold; K2 also at 256^3), and one small V-cycle on the
-   card against the same cycle on the CPU;
+   L2-warm and L2-cold; K2 also at 256^3), K7 (the df64 residual) bit for
+   bit against its op-by-op plain version at the main path's 128^3 const
+   fine level, at 512^3 const and on 256^3 fp32 planes (each timed L2-warm
+   and L2-cold beside its plain version and its bound), and one small
+   V-cycle on the card against the same cycle on the CPU;
 4. main path: 3D 7-point Poisson at 128^3 -> build_structured_hierarchy
    (cheb4 degree 2, coarse_size 2048) -> cast_hierarchy(bf16) -> V-cycles
    -> structured_solve_refined, checked by a host fp64 residual;
-5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2; the
-   launches by shape (n, offsets, plane dtype);
+5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2, and
+   every CUDA dia_df64_residual call K7; the launches by shape (n, offsets,
+   plane dtype);
 6. banded kernel equality: the shuffled 48^3 algebraic hierarchy built on
    the host by raptor_tpu_torch.api.setup; K4 on every banded A (fp32, and
    bf16 on level 0), K6 on every banded P and R, K5 on level 0 without and
@@ -171,9 +175,10 @@ Phases, each of which raises on failure (there is no CPU path):
     cast_hierarchy, structured_solve_refined) at 128^3 and 64^3, on counts
     set to 0 just before each: the reference's plans, true relres <= 1e-8,
     at 64^3 the reference's iterations +- 1, every CUDA dia_spmv call
-    launching K1 or K2, then K1 (fp32, bf16; 27 offsets) and K2 bit for
-    bit at every launch shape of the path; V-cycle ms and solve seconds
-    beside phase 4's semicoarsening;
+    launching K1 or K2 and every CUDA dia_df64_residual call K7, then K1
+    (fp32, bf16; 27 offsets), K2 and K7 bit for bit at every launch shape
+    of the path; V-cycle ms and solve seconds beside phase 4's
+    semicoarsening;
 25. the user surface: ``python -m raptor_tpu_torch info`` in a subprocess
     (names the card); shuffled SURFACE_N^3 written as .rbm and .mtx.gz
     and read back equal; in process through cli.main: the banded CLJP solve of the
@@ -236,10 +241,10 @@ bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s (H100 SXM, NVIDIA's data sheet).
 
 The line before the last is the kernels' JSON record (K1, K1v1, K2, K3, K4,
-K5, K6, and the sharded forms K4-halo and K6-map_cols, each with the
+K5, K6, the sharded forms K4-halo and K6-map_cols, and K7, each with the
 launches of its own paths: K4, K5 and K6 those of the 48^3 row, of
-phase 21's refined solve and of phase 23's two refined solves, K1 and K2
-those of the 128^3 path and of phase 24's two paths, K4-halo those of
+phase 21's refined solve and of phase 23's two refined solves, K1, K2 and
+K7 those of the 128^3 path and of phase 24's two paths, K4-halo those of
 rank 0 of phase 17, of phase 21's two one-rank solves and of rank 0 of
 phase 22, K6-map_cols those of rank 0 of phases 17 and 22; where phase 28
 ran, rank 0's K3, K4-halo and K6-map_cols launches of it too); the last
@@ -324,6 +329,10 @@ FP32_OPS_PER_S = 67e12
 # fp32 operations per stored entry in banded_df64_kernel: two_prod 11 and
 # df_add 14, and with vals_lo its term, 2 more (csrc/banded_kernel.cu)
 K5_OPS_PER_ENTRY = {False: 25, True: 27}
+# K7's fp32 operations an offset a row (sign flips and bitmask splits not
+# counted): two_prod 11 (10 where the constant's split is made on the
+# host), plane * xl added 2, df_add 14
+K7_OPS_PER_OFFSET = {"const": 26, "planes": 27}
 # the acceptance rows (bench.py:394-470): the reference's refined-solve
 # iterations at these sizes, BENCH_r05.json's "cfg" (config3's fence is
 # its own, 32); config 3 at full width is anisotropic_2d(CONFIG3_FULL_N)
@@ -636,7 +645,73 @@ def phase_kernels(dev) -> dict:
               f"{r['library_ms'] * 1e3:.1f} us cuSPARSE CSR, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}) "
               f"(device time, graph replay, L2-warm){cold}")
+
+    # K7: the main path's 128^3 const fine level (the kernels line's
+    # numbers), 512^3 const (the structured cells' fine level) and 256^3
+    # fp32 planes, each timed beside its op-by-op plain version
+    from raptor_tpu_torch.structured.dia import DiaMatrix
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rec["K7"] = {"err": 0.0, "library_ms": None,  # no one PyTorch call
+                 "shapes": {}}
+    for form, dims in (("const", fine), ("const", (4 * SIZE,) * 3),
+                       ("planes", (2 * SIZE,) * 3)):
+        A = (dia_from_stencil(st, dims, device=dev) if form == "const" else
+             DiaMatrix(data=_random_planes(dims, off7, torch.float32, rng,
+                                           dev),
+                       offsets=tuple(off7), dims=dims))
+        r = _k7_case(f"K7 {form} {dims} 7 offsets", A, gen, plain=True)
+        rec["K7"]["err"] = max(rec["K7"]["err"], r.pop("err"))
+        rec["K7"]["shapes"][f"{form} {dims}"] = r
+        if dims == fine:
+            rec["K7"].update(r)
+        del A
+        torch.cuda.empty_cache()
     return rec
+
+
+def _k7_vectors(n: int, gen) -> tuple:
+    """(xh, xl, bh, bl): random fp32 heads on the card, each tail under
+    half an ulp of its head."""
+    dev = gen.device
+    xh = torch.randn(n, generator=gen, device=dev)
+    bh = 30 * torch.randn(n, generator=gen, device=dev)
+    tails = [v * 2.0**-25 * (2 * torch.rand(n, generator=gen, device=dev) - 1)
+             for v in (xh, bh)]
+    return xh, tails[0], bh, tails[1]
+
+
+def _k7_case(name: str, A, gen, plain: bool = False) -> dict:
+    """K7 (``dia_df64_residual`` on CUDA tensors) on operator ``A`` against
+    its op-by-op plain version on the same tensors, bit for bit, then timed
+    L2-warm and L2-cold beside its bound: xh, xl, bh, bl in and rh, rl out
+    (24 B a row), plus the fp32 planes in the planes form.  ``plain`` times
+    the plain version too."""
+    from raptor_tpu_torch.structured.dia import (dia_df64_residual,
+                                                 dia_df64_residual_ref)
+
+    form = "planes" if A.const_planes is None else "const"
+    args = (A, *_k7_vectors(A.n, gen))
+    got, want = dia_df64_residual(*args), dia_df64_residual_ref(*args)
+    err = max(_equal(f"{name} rh", got[0], want[0]),
+              _equal(f"{name} rl", got[1], want[1]))
+    del got, want
+    nbytes = 24 * A.n + (0 if form == "const" else 4 * A.n_off * A.n)
+    bms, by = bound(nbytes, K7_OPS_PER_OFFSET[form] * A.n_off * A.n)
+    r = {"err": err, "bytes": nbytes, "bound_ms": bms, "bound_by": by,
+         "ms": cuda_ms(lambda: dia_df64_residual(*args)),
+         "cold_ms": cuda_ms(lambda: dia_df64_residual(*args), flush_l2=True)}
+    if plain:
+        r["plain_ms"] = cuda_ms(lambda: dia_df64_residual_ref(*args), reps=5)
+        r["cold_plain_ms"] = cuda_ms(lambda: dia_df64_residual_ref(*args),
+                                     reps=5, flush_l2=True)
+    print(f"[kernel] {name}: {r['ms'] * 1e3:.1f} us L2-warm, "
+          f"{r['cold_ms'] * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
+          f"({by}, {nbytes / A.n:g} B a row)"
+          + (f", plain {r['plain_ms'] * 1e3:.1f} us L2-warm, "
+             f"{r['cold_plain_ms'] * 1e3:.1f} us L2-cold" if plain else "")
+          + " (device time, graph replay)")
+    return r
 
 
 def per_call(counter, before, calls: int) -> dict:
@@ -3010,8 +3085,9 @@ def phase_full(dev, krec, nx: int) -> dict:
     """Phase 24: the structured main path with full coarsening at nx^3
     (CFG, dim_policy 'size', bf16 cast_hierarchy, structured_solve_refined)
     on counts set to 0 just before it: the reference's plan, every CUDA
-    dia_spmv call launching K1 or K2; then K1 (fp32 and bf16) and K2 bit
-    for bit at every launch shape of the path."""
+    dia_spmv call launching K1 or K2 and every CUDA dia_df64_residual call
+    K7; then K1 (fp32 and bf16), K2 and K7 bit for bit at every launch
+    shape of the path."""
     from raptor_tpu_torch import (AmgConfig, build_structured_hierarchy,
                                   cast_hierarchy, dia_from_stencil, scycle,
                                   structured_solve_refined)
@@ -3066,10 +3142,12 @@ def phase_full(dev, krec, nx: int) -> dict:
     torch.cuda.synchronize()
     sol = time.perf_counter() - t0
     k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
-    rows = by_shape(tag, launches_by_shape, ("K1", "K2"))
+    k7, calls7 = launches["K7"], cuda_calls["dia_df64_residual"]
+    rows = by_shape(tag, launches_by_shape, ("K1", "K2", "K7"))
     print(f"[proof] {tag} path: {calls} CUDA dia_spmv calls, {k1} K1 launches, "
-          f"{k2} K2 launches")
-    if k1 + k2 != calls or k1 == 0 or k2 == 0:
+          f"{k2} K2 launches; {calls7} CUDA dia_df64_residual calls, {k7} K7 "
+          f"launches")
+    if k1 + k2 != calls or k1 == 0 or k2 == 0 or k7 != calls7 or k7 == 0:
         raise AssertionError(f"the {tag} path did not run through the kernels")
     x64 = xh.double().cpu().numpy() + xl.double().cpu().numpy()
     b64 = b.double().cpu().numpy()
@@ -3117,18 +3195,25 @@ def phase_full(dev, krec, nx: int) -> dict:
                 print(f"[kernel] {k} {tag} n={M.n} {n_off} offsets {key[3]}: "
                       f"{warm * 1e3:.2f} us L2-warm, bound {bms * 1e3:.2f} us "
                       f"({by}) (device time, graph replay)")
+    # K7 on the fine level, the refined solve's residual
+    A0 = h.levels[0].A
+    r7 = _k7_case(f"K7 {tag} {A0.dims} {A0.n_off} offsets", A0, gen)
+    krec["K7"]["err"] = max(krec["K7"]["err"], r7["err"])
+    timed[("K7", A0.n, A0.n_off, "float32")] = (r7["ms"], r7["bound_ms"])
     covered(tag, rows, set(timed))
     excess = {k: sum(c * (timed[(k, n, w, dt)][0] - timed[(k, n, w, dt)][1])
                      for k2, n, w, dt, c in rows if k2 == k)
-              for k in ("K1", "K2")}
+              for k in ("K1", "K2", "K7")}
     print(f"[kernel] {tag}: sum over the path's shapes of launches x (L2-warm "
-          f"- bound): K1 {excess['K1']:.4f} ms, K2 {excess['K2']:.4f} ms")
+          f"- bound): K1 {excess['K1']:.4f} ms, K2 {excess['K2']:.4f} ms, K7 "
+          f"{excess['K7']:.4f} ms")
     wall = time.perf_counter() - t_phase
     print(f"[{tag}] phase 24 at {nx}^3: {wall:.1f} s")
     return {"n": n, "plan": list(plan), "levels": len(h.levels),
             "setup_s": setup_s, "vcycle_bf16_ms": vc, "solve_s": sol,
             "iters": int(iters), "relres": relres,
-            "launches": {"K1": k1, "K2": k2}, "launches_by_shape": rows,
+            "launches": {"K1": k1, "K2": k2, "K7": k7},
+            "launches_by_shape": rows,
             "shapes": {" ".join(map(str, key)): v for key, v in timed.items()},
             "excess_ms": excess, "wall_s": wall}
 
@@ -4249,14 +4334,18 @@ def main() -> None:
     main_rec = phase_main(dev)
     k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
     v1_main = launches["K1v1"]
+    k7, calls7 = launches["K7"], cuda_calls["dia_df64_residual"]
     print(f"[proof] main path: {calls} CUDA dia_spmv calls, "
-          f"{k1} K1 launches, {k2} K2 launches, {v1_main} K1v1 launches")
+          f"{k1} K1 launches, {k2} K2 launches, {v1_main} K1v1 launches; "
+          f"{calls7} CUDA dia_df64_residual calls, {k7} K7 launches")
     if k1 + k2 != calls or k1 == 0 or k2 == 0:
         raise AssertionError("the main path did not run through the kernels")
+    if k7 != calls7 or k7 == 0:
+        raise AssertionError("the main path's residuals did not launch K7")
     if v1_main:
         raise AssertionError("the main path launched K1v1")
     main_rec["launches_by_shape"] = by_shape("main 128^3", launches_by_shape,
-                                             ("K1", "K2"))
+                                             ("K1", "K2", "K7"))
 
     from raptor_tpu_torch import AmgConfig, setup
 
@@ -4271,7 +4360,7 @@ def main() -> None:
     clear_banded_counts()
     alg48, _ = phase_algebraic(dev, 48, cold_and_warm=True)
     counts48, rows48 = banded_proof("alg48")
-    launch_counts = {"K1": k1, "K2": k2, **counts48}
+    launch_counts = {"K1": k1, "K2": k2, "K7": k7, **counts48}
     alg48["excess_ms"] = banded_excess("alg48", rec, rows48, "shapes_48")
     clear_banded_counts()
     alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False)
@@ -4361,7 +4450,7 @@ def main() -> None:
         for k in ("K4", "K5", "K6"):
             launch_counts[k] += r["launches"][k]
     for r in full.values():
-        for k in ("K1", "K2"):
+        for k in ("K1", "K2", "K7"):
             launch_counts[k] += r["launches"][k]
     # phase 26: the sharded setup launches no kernel of its own (its levels
     # take the ELL halo route, as the reference's do)
@@ -4405,12 +4494,15 @@ def main() -> None:
                 "K6-map_cols": "raptor_tpu/ops/pallas/banded_kernel.py:602 "
                                "(_banded_call_rect, map_cols) called from "
                                "raptor_tpu/parallel/dist.py:371 "
-                               "(dist_rect_banded_spmv)"}
+                               "(dist_rect_banded_spmv)",
+                "K7": "raptor_tpu/structured/solver.py:703 (_df64_residual, "
+                      "plain jnp; no TPU kernel)"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "raptor_tpu_torch/csrc/" + (
              "banded_kernel.cu" if k.startswith(("K4", "K5", "K6")) else
-             "dia_const_kernel.cu" if k == "K2" else "dia_kernel.cu"),
+             "dia_const_kernel.cu" if k == "K2" else
+             "dia_df64_kernel.cu" if k == "K7" else "dia_kernel.cu"),
          "replaces": replaces[k], "launches": launch_counts[k],
          "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],
          "plain_ms": rec[k]["plain_ms"], "bound_ms": rec[k]["bound_ms"],

@@ -33,6 +33,7 @@
 
 #include <type_traits>
 
+#include "df64.cuh"
 #include "hopper_copy.cuh"
 
 #define RAPTOR_BANDED_THREADS 256
@@ -597,41 +598,6 @@ banded_rect_row_kernel(const T* __restrict__ vals, const int* __restrict__ pidx,
 }
 
 // ---------------------------------------------------------------------------
-// Error-free transformations (raptor_tpu_torch/utils/df64.py), each step
-// rounded on its own.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
-
-// bitmask split: hi keeps sign, exponent and the top 11 mantissa bits
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  hi = __uint_as_float(__float_as_uint(a) & 0xFFFFF000u);
-  lo = __fsub_rn(a, hi);
-}
-
-__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
-  p = __fmul_rn(a, b);
-  float ah, al, bh, bl;
-  split(a, ah, al);
-  split(b, bh, bl);
-  e = __fadd_rn(__fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ah, bh), p),
-                                    __fmul_rn(ah, bl)),
-                          __fmul_rn(al, bh)),
-                __fmul_rn(al, bl));
-}
-
-__device__ __forceinline__ void df_add(float xh, float xl, float yh, float yl,
-                                       float& rh, float& rl) {
-  float sh, se;
-  two_sum(xh, yh, sh, se);
-  const float te = __fadd_rn(se, __fadd_rn(xl, yl));
-  two_sum(sh, te, rh, rl);
-}
-
-// ---------------------------------------------------------------------------
 // K5: fused df64 residual on the square banded layout.
 //
 // Replaces raptor_tpu/ops/pallas/banded_kernel.py::_banded_df64_resid_call.
@@ -639,7 +605,8 @@ __device__ __forceinline__ void df_add(float xh, float xl, float yh, float yl,
 // per row: (sh, se) = df_add(bh, bl, -v, 0); then for each live slot in
 // order (ph, pe) = two_prod(vals, gh), pe += vals_lo * gh when vals_lo is
 // given (the operator's fp32 truncation remainder), and
-// (sh, se) = df_add(sh, se, -ph, -pe).
+// (sh, se) = df_add(sh, se, -ph, -pe).  two_prod and df_add are df64.cuh's,
+// which K7 (dia_df64_kernel.cu) shares.
 //
 // Bound: device-memory bytes, live*n*(4 + 4 [+ 4 with vals_lo]) + 24n (xh,
 // bh, bl, v in; rh, rl out); 27 fp32 operations per entry, far under the

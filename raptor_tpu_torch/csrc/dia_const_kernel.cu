@@ -24,19 +24,7 @@
 #include "dia_tiles.cuh"
 #include "hopper_copy.cuh"
 
-#define RAPTOR_MAX_DIMS 4
-
 namespace {
-
-// K2's stencil.  The grid's dimensions fill the last entries of ``dims``
-// (the leading ones are 1, with offset 0), so the kernel always walks
-// RAPTOR_MAX_DIMS of them.
-struct ConstStencil {
-  int dims[RAPTOR_MAX_DIMS];
-  int share;  // a thread's rows share every coordinate but the last
-  short off[RAPTOR_MAX_OFF][RAPTOR_MAX_DIMS];
-  float c[RAPTOR_MAX_OFF];
-};
 
 // ---------------------------------------------------------------------------
 // K2: constant-coefficient DIA SpMV.
@@ -86,24 +74,6 @@ struct ConstStencil {
 //   * n_off is a template argument for 3, 5, 7 and 27, with a generic body
 //     up to 32; y takes 16-byte stores where its address allows.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ bool in_dim(int c, int d) {
-  return static_cast<unsigned>(c) < static_cast<unsigned>(d);
-}
-
-// grid coordinates of a row (32-bit: n < 2^31), last dimension fastest
-__device__ __forceinline__ void grid_coords(unsigned row,
-                                            const ConstStencil& st,
-                                            int (&c)[RAPTOR_MAX_DIMS]) {
-#pragma unroll
-  for (int a = RAPTOR_MAX_DIMS - 1; a > 0; --a) {
-    const unsigned d = static_cast<unsigned>(st.dims[a]);
-    const unsigned q = row / d;
-    c[a] = static_cast<int>(row - q * d);
-    row = q;
-  }
-  c[0] = static_cast<int>(row);
-}
 
 // K2's shared-memory layout.  A thread of R consecutive rows reads float4s
 // R / 4 apart from its neighbour's, so at R = 8 (16) the eight lanes of a
@@ -392,24 +362,9 @@ int raptor_dia_const_f32(const void* x, void* y, int64_t n, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ConstStencil st;
-  const int lead = RAPTOR_MAX_DIMS - nd;
-  int64_t cells = 1;
-  for (int a = 0; a < RAPTOR_MAX_DIMS; ++a) {
-    st.dims[a] = a < lead ? 1 : dims[a - lead];
-    if (st.dims[a] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    cells *= st.dims[a];
-    if (cells > n) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (cells != n) return static_cast<int>(cudaErrorInvalidValue);
-  st.share = st.dims[RAPTOR_MAX_DIMS - 1] % rows == 0;
-  if (rows != 4 && !st.share) return static_cast<int>(cudaErrorInvalidValue);
-  for (int k = 0; k < RAPTOR_MAX_OFF; ++k) {
-    st.c[k] = k < n_off ? consts[k] : 0.0f;
-    for (int a = 0; a < RAPTOR_MAX_DIMS; ++a) {
-      const int o = (k < n_off && a >= lead) ? offs[k * nd + a - lead] : 0;
-      if (o < -32768 || o > 32767) return static_cast<int>(cudaErrorInvalidValue);
-      st.off[k][a] = static_cast<short>(o);
-    }
+  if (make_stencil(&st, n, dims, nd, offs, consts, n_off, rows) != 0 ||
+      (rows != 4 && !st.share)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s_ = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);

@@ -87,42 +87,6 @@ __device__ __forceinline__ void stage_windows(
   }
 }
 
-// R consecutive window floats from w + so; w is 16-byte aligned.  Aligned
-// float4 reads (R / 4 + 1 of them) and a shift by so & 3, which is the same
-// for the whole block, so the switch does not diverge.
-template <int R>
-__device__ __forceinline__ void window_read(const float* w, int so,
-                                            float (&out)[R]) {
-  const float4* w4 = reinterpret_cast<const float4*>(w + (so & ~3));
-  float v[R + 4];
-#pragma unroll
-  for (int j = 0; j <= R / 4; ++j) {
-    const float4 q = w4[j];
-    v[4 * j] = q.x;
-    v[4 * j + 1] = q.y;
-    v[4 * j + 2] = q.z;
-    v[4 * j + 3] = q.w;
-  }
-  switch (so & 3) {
-    case 0:
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i] = v[i];
-      break;
-    case 1:
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i] = v[i + 1];
-      break;
-    case 2:
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i] = v[i + 2];
-      break;
-    default:
-#pragma unroll
-      for (int i = 0; i < R; ++i) out[i] = v[i + 3];
-      break;
-  }
-}
-
 // the R plane values of one 16-byte load, widened to fp32
 __device__ __forceinline__ void unpack(const uint4& q, float (&out)[4],
                                        const float*) {

@@ -137,4 +137,9 @@ def load_library() -> ctypes.CDLL:
                                            i32, i32, p, i32, i32, i32, i32,
                                            i32, p]
     lib.raptor_banded_df64_f32.restype = i32
+    # data, xh, xl, bh, bl, rh, rl, n, dims, nd, offs, consts, then the
+    # tiled plan, stream
+    lib.raptor_dia_df64_f32.argtypes = [p, p, p, p, p, p, p, i64, p, i32, p, p,
+                                        *plan, p]
+    lib.raptor_dia_df64_f32.restype = i32
     return lib

@@ -1,6 +1,6 @@
-"""DIA SpMV kernels K1, K1v1, K2 and K3: wrappers around
-``csrc/dia_kernel.cu`` (K2: ``csrc/dia_const_kernel.cu``) and their plain
-PyTorch versions.
+"""DIA SpMV kernels K1, K1v1, K2 and K3 and the df64 DIA residual K7:
+wrappers around ``csrc/dia_kernel.cu`` (K2: ``csrc/dia_const_kernel.cu``,
+K7: ``csrc/dia_df64_kernel.cu``) and their plain PyTorch versions.
 
 * K1 ``dia_spmv_v2``: ``y[i] = sum_k f32(data[k, i]) * x[i + lin_k]`` over
   boundary-zeroed planes (fp32 or bf16), fp32 x.  Counterpart of
@@ -14,11 +14,18 @@ PyTorch versions.
 * K3 ``dia_spmv_halo``: the sum over the window
   ``[halo_left | x | halo_right]`` of one plane-sharded block, zero beyond.
   Counterpart of ``dia_spmv_pallas_v2_halo``.
+* K7 ``dia_df64_residual_v2`` and ``dia_df64_residual_const``: the
+  compensated residual ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]`` over
+  boundary-zeroed fp32 planes, or over a constant stencil's synthesized
+  planes, in one pass (the structured engine's refinement residual; no
+  TPU kernel).
 
-x has shape (n,) or (B, n) (K3: (nl,)).  A wrapper given CPU tensors
-returns its plain version (``dia_spmv_v2_ref``, ``dia_spmv_v1_ref``,
-``dia_spmv_const_ref``, ``dia_spmv_halo_ref``); given CUDA tensors it
-launches its kernel or raises — there is no fallback.  ``launches`` counts
+x has shape (n,) or (B, n) (K3: (nl,)).  A wrapper of K1, K1v1, K2 or K3
+given CPU tensors returns its plain version (``dia_spmv_v2_ref``,
+``dia_spmv_v1_ref``, ``dia_spmv_const_ref``, ``dia_spmv_halo_ref``); given
+CUDA tensors it launches its kernel or raises — there is no fallback.  K7's
+wrappers take CUDA tensors alone: ``structured/dia.py::dia_df64_residual``
+routes, sending CPU tensors to the plain version ``dia_df64_residual_v2_ref``.  ``launches`` counts
 kernel launches (plain-version calls are not counted), so a run can show
 that its path went through the kernels; ``launches_by_shape`` counts them
 by (kernel, n, n_off, plane dtype), and each launch is a span of that
@@ -29,7 +36,8 @@ K1, K1v1 and K3 launch one tiled kernel whose host-side plan
 take 16-byte loads) is built here; ``dia_spmv_tiled_ref`` is a plain
 emulation of that kernel's algorithm, window by window, for the CPU tests.
 K2 walks the same tiles and windows (``tile_plan`` with four rows per
-thread) over planes it synthesizes (``const_planes``).
+thread) over planes it synthesizes (``const_planes``); K7 walks them with
+two vectors, xh and xl, staged side by side (``df64_tile_plan``).
 """
 
 from __future__ import annotations
@@ -41,12 +49,15 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from raptor_tpu_torch.utils.df64 import df_add, two_prod
 from raptor_tpu_torch.utils.profiling import phase
 
 __all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
            "dia_spmv_const", "dia_spmv_const_ref", "dia_spmv_halo",
            "dia_spmv_halo_ref", "dia_spmv_tiled_ref", "const_planes",
-           "const_tile_plan", "halo_reach",
+           "const_tile_plan", "halo_reach", "dia_df64_residual_v2",
+           "dia_df64_residual_v2_ref", "dia_df64_residual_const",
+           "df64_tile_plan",
            "in_grid_mask", "launches", "launches_by_shape", "tile_plan",
            "TilePlan"]
 
@@ -63,7 +74,7 @@ SMEM_BYTES = 232448
 WIN_SLACK = 7
 H100_SMS = 132
 
-# keys "K1", "K1v1", "K2", "K3"
+# keys "K1", "K1v1", "K2", "K3", "K7"
 launches: collections.Counter = collections.Counter()
 # keys (kernel, n, n_off, plane dtype name)
 launches_by_shape: collections.Counter = collections.Counter()
@@ -77,7 +88,7 @@ class TilePlan(NamedTuple):
     bands: Tuple[Tuple[int, int], ...]  # (lo, hi) linear offsets per band
     band_of: Tuple[int, ...]          # each offset's band, in offset order
     windows: Tuple[int, ...]          # floats staged per band and tile
-    smem_bytes: int                   # two stages of windows
+    smem_bytes: int                   # two stages of windows (each vector)
 
 
 def _bands(lins: Sequence[int], tile: int) -> Tuple[Tuple[int, int], ...]:
@@ -103,7 +114,7 @@ def _window(tile: int, lo: int, hi: int) -> int:
 def tile_plan(lins: Sequence[int], n: int, itemsize: int,
               planes_aligned: bool = True, batch: int = 1,
               n_sm: int = H100_SMS, rows: Optional[int] = None,
-              max_threads: int = TILE_THREADS) -> TilePlan:
+              max_threads: int = TILE_THREADS, vectors: int = 1) -> TilePlan:
     """The host-side plan of the tiled kernel for ``n`` rows, offsets
     ``lins``, planes of ``itemsize`` bytes (4 fp32, 2 bf16) and ``batch``
     vectors.
@@ -116,20 +127,22 @@ def tile_plan(lins: Sequence[int], n: int, itemsize: int,
     ``planes_aligned`` (their base address is) and n is a multiple of
     ``rows``, so that every plane's rows stay aligned.  ``rows`` given
     (a multiple of 4) sets the rows per thread, and ``max_threads`` the
-    largest block, for a kernel that loads no planes (K2)."""
+    largest block, for a kernel that loads no planes (K2).  ``vectors``
+    is the number of vectors whose windows a tile stages (K7: 2)."""
     return _tile_plan(tuple(int(o) for o in lins), int(n), int(itemsize),
                       bool(planes_aligned), int(batch), int(n_sm),
-                      None if rows is None else int(rows), int(max_threads))
+                      None if rows is None else int(rows), int(max_threads),
+                      int(vectors))
 
 
 @functools.lru_cache(maxsize=1024)
 def _tile_plan(lins: Tuple[int, ...], n: int, itemsize: int,
                planes_aligned: bool, batch: int, n_sm: int,
                rows: Optional[int] = None,
-               max_threads: int = TILE_THREADS) -> TilePlan:
+               max_threads: int = TILE_THREADS, vectors: int = 1) -> TilePlan:
     if (not 0 < len(lins) <= MAX_OFF or n < 1 or itemsize not in (2, 4)
             or (rows is not None and (rows < 4 or rows % 4))
-            or max_threads not in (32, 64, 128, 256)):
+            or max_threads not in (32, 64, 128, 256) or vectors not in (1, 2)):
         raise ValueError(f"no tile plan for {len(lins)} offsets, n={n}, "
                          f"itemsize {itemsize}, rows {rows}, at most "
                          f"{max_threads} threads")
@@ -139,7 +152,7 @@ def _tile_plan(lins: Tuple[int, ...], n: int, itemsize: int,
     while True:
         bands = _bands(lins, tile)
         windows = tuple(_window(tile, lo, hi) for lo, hi in bands)
-        smem = 2 * 4 * sum(windows)
+        smem = 2 * 4 * vectors * sum(windows)
         tiles = batch * -(-n // tile)
         if tile == rows * MIN_TILE_THREADS or (
                 smem <= SMEM_BYTES and tiles >= n_sm):
@@ -516,6 +529,28 @@ def _const_args(consts: tuple, offsets: tuple, dims: tuple, batch: int,
             _int_array(p.windows), _int_array(p.band_of))
 
 
+def _check_stencil(consts: Sequence[float], offsets, dims,
+                   key: str) -> Tuple[tuple, tuple, int]:
+    """Validate a constant stencil for K2 or K7; returns (dims, offsets, n)
+    as ints."""
+    dims = tuple(int(d) for d in dims)
+    n = 1
+    for d in dims:
+        n *= d
+    nd, n_off = len(dims), len(offsets)
+    if not 0 < nd <= MAX_DIMS:
+        raise ValueError(f"{nd} dims: {key} takes 1 to {MAX_DIMS}")
+    if not 0 < n_off <= MAX_OFF or len(consts) != n_off:
+        raise ValueError(f"{n_off} offsets, {len(consts)} consts (max {MAX_OFF})")
+    if any(len(o) != nd for o in offsets):
+        raise ValueError(f"offsets {offsets} do not match dims {dims}")
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    if any(abs(v) > MAX_CONST_REACH for o in offsets for v in o):
+        raise ValueError(f"offsets {offsets}: {key} takes steps of at most "
+                         f"{MAX_CONST_REACH} cells per dimension")
+    return dims, offsets, n
+
+
 def dia_spmv_const(consts: Sequence[float], offsets, dims,
                    x: torch.Tensor) -> torch.Tensor:
     """K2: constant-coefficient DIA SpMV on grid ``dims`` (1 to 4 dims);
@@ -523,22 +558,9 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
     grid.  x fp32 (n,) or (B, n)."""
     if x.device.type == "cpu":
         return dia_spmv_const_ref(consts, offsets, dims, x)
-    dims = tuple(int(d) for d in dims)
-    n = 1
-    for d in dims:
-        n *= d
+    dims, offsets, n = _check_stencil(consts, offsets, dims, "K2")
     batch = _check_x(x, n)
-    nd, n_off = len(dims), len(offsets)
-    if not 0 < nd <= MAX_DIMS:
-        raise ValueError(f"{nd} dims: K2 takes 1 to {MAX_DIMS}")
-    if not 0 < n_off <= MAX_OFF or len(consts) != n_off:
-        raise ValueError(f"{n_off} offsets, {len(consts)} consts (max {MAX_OFF})")
-    if any(len(o) != nd for o in offsets):
-        raise ValueError(f"offsets {offsets} do not match dims {dims}")
-    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
-    if any(abs(v) > MAX_CONST_REACH for o in offsets for v in o):
-        raise ValueError(f"offsets {offsets}: K2 takes steps of at most "
-                         f"{MAX_CONST_REACH} cells per dimension")
+    n_off = len(offsets)
     from raptor_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
@@ -554,3 +576,135 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
     launches["K2"] += 1
     launches_by_shape[("K2", n, n_off, "float32")] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# K7: the df64 DIA residual
+# ---------------------------------------------------------------------------
+
+DF64_ROWS = 4  # K7's rows per thread: one 16-byte load of each vector
+
+
+def dia_df64_residual_v2_ref(data: torch.Tensor, lins: Sequence[int], xh, xl,
+                             bh, bl) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]``
+    op by op, offset by offset in order: each plane's product with the
+    rolled xh split exactly by ``two_prod``, plus ``plane * xl``,
+    subtracted by ``df_add``.  Every product and sum is a torch op of its
+    own, so each is rounded apart, as the identities need
+    (``utils/df64.py``).  Exact to ~1e-14 relative."""
+    rh, rl = bh, bl
+    for k, o in enumerate(int(o) for o in lins):
+        sh = xh if o == 0 else torch.roll(xh, -o)
+        sl = xl if o == 0 else torch.roll(xl, -o)
+        ph, pe = two_prod(data[k], sh)
+        pe = pe + data[k] * sl
+        rh, rl = df_add(rh, rl, -ph, -pe)
+    return rh, rl
+
+
+def df64_tile_plan(lins: Sequence[int], n: int, planes_aligned: bool = True,
+                   n_sm: int = H100_SMS) -> TilePlan:
+    """K7's launch plan: the tiled kernel's for ``lins``, four rows a
+    thread, with xh's and xl's windows staged (two vectors)."""
+    return tile_plan(lins, n, 4, planes_aligned, 1, n_sm, DF64_ROWS,
+                     TILE_THREADS, 2)
+
+
+def _check_df64(n: int, xh, xl, bh, bl) -> None:
+    """Validate K7's vectors: fp32, (n,), contiguous, on one CUDA device.
+    The dtype and shape are checked first, on any device."""
+    vecs = (("xh", xh), ("xl", xl), ("bh", bh), ("bl", bl))
+    for name, v in vecs:
+        if v.dtype != torch.float32:
+            raise ValueError(f"{name} dtype {v.dtype}: K7 takes float32 "
+                             "vectors")
+        if v.dim() != 1 or v.shape[0] != n:
+            raise ValueError(f"{name} shape {tuple(v.shape)}: K7 takes "
+                             f"({n},)")
+    if not 0 < n < 2**31:
+        raise ValueError(f"n={n} outside (0, 2**31)")
+    for name, v in vecs:
+        if not v.is_cuda or v.device != xh.device:
+            raise ValueError(f"{name} on {v.device}: K7 takes CUDA tensors "
+                             "on one device")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=256)
+def _df64_args(lins: Tuple[int, ...], n: int, aligned: bool,
+               n_sm: int) -> tuple:
+    """The plan arguments of a K7 launch: lins, n_off, tile, n_band,
+    band_lo, band_win, band_of, vec."""
+    p = df64_tile_plan(lins, n, aligned, n_sm)
+    return (_int_array(lins), len(lins), p.tile, len(p.bands),
+            _int_array([lo for lo, _ in p.bands]), _int_array(p.windows),
+            _int_array(p.band_of), int(p.vec))
+
+
+@functools.lru_cache(maxsize=256)
+def _df64_stencil_args(consts: tuple, offsets: tuple, dims: tuple) -> tuple:
+    """The stencil arguments of a K7 const launch: dims, nd, offs, consts."""
+    return (_int_array(dims), len(dims),
+            _int_array([v for o in offsets for v in o]),
+            (ctypes.c_float * len(consts))(*consts))
+
+
+def _launch_df64(data: Optional[torch.Tensor], lins: Tuple[int, ...],
+                 stencil: tuple, xh, xl, bh, bl):
+    """K7 on CUDA tensors: the planes form given ``data``, the const form
+    given ``stencil`` (``_df64_stencil_args``) and ``data`` None."""
+    n = xh.shape[0]
+    from raptor_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    aligned = data is None or data.data_ptr() % 16 == 0
+    args = _df64_args(lins, n, aligned, _n_sm(xh.device))
+    rh, rl = torch.empty_like(xh), torch.empty_like(xh)
+    with phase("K7", (n, len(lins), "float32")), torch.cuda.device(xh.device):
+        stream = torch.cuda.current_stream(xh.device).cuda_stream
+        rc = lib.raptor_dia_df64_f32(
+            None if data is None else data.data_ptr(), xh.data_ptr(),
+            xl.data_ptr(), bh.data_ptr(), bl.data_ptr(), rh.data_ptr(),
+            rl.data_ptr(), n, *stencil, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"K7 launch failed: cudaError {rc}")
+    launches["K7"] += 1
+    launches_by_shape[("K7", n, len(lins), "float32")] += 1
+    return rh, rl
+
+
+def dia_df64_residual_v2(data: torch.Tensor, lins: Sequence[int], xh, xl, bh,
+                         bl) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7, planes form: ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]`` with
+    ``data`` (n_off, n) boundary-zeroed fp32 planes and ``lins`` the linear
+    offsets; xh, xl, bh, bl fp32 (n,).  Bit-equal to
+    ``dia_df64_residual_v2_ref`` but for the sign of a zero."""
+    n_off, n = data.shape
+    _check_df64(n, xh, xl, bh, bl)
+    if data.dtype != torch.float32:
+        raise ValueError(f"plane dtype {data.dtype}: K7 takes float32 planes")
+    if data.device != xh.device:
+        raise ValueError(f"data on {data.device}, xh on {xh.device}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    if not 0 < n_off <= MAX_OFF or len(lins) != n_off:
+        raise ValueError(f"{n_off} planes, {len(lins)} offsets (max {MAX_OFF})")
+    return _launch_df64(data, tuple(int(o) for o in lins), (None, 0, None, None),
+                        xh, xl, bh, bl)
+
+
+def dia_df64_residual_const(consts: Sequence[float], offsets, dims, xh, xl, bh,
+                            bl) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7, const form: the residual of the constant stencil ``consts`` at
+    ``offsets`` on grid ``dims`` (1 to 4 dims), its planes synthesized from
+    the rows' grid coordinates, so only xh, xl, bh and bl are read.
+    Bit-equal to ``dia_df64_residual_v2_ref`` over the planes
+    ``const_planes`` synthesizes, but for the sign of a zero."""
+    dims, offsets, n = _check_stencil(consts, offsets, dims, "K7")
+    _check_df64(n, xh, xl, bh, bl)
+    stencil = _df64_stencil_args(tuple(float(v) for v in consts), offsets,
+                                 dims)
+    return _launch_df64(None, tuple(_const_lins(offsets, dims)), stencil, xh,
+                        xl, bh, bl)

@@ -10,6 +10,9 @@ guarantee that out-of-grid reads meet zero coefficients.
 ``dia_spmv`` routes a CUDA tensor to a hand-written kernel (K2 for a
 constant-coefficient operator, K1 otherwise; see ``ops/cuda/dia_kernel.py``)
 and a CPU tensor to the plain roll sum ``dia_spmv_ref``.
+``dia_df64_residual``, the compensated residual of the refined solve,
+routes the same way: K7 on CUDA (its const form for a constant-coefficient
+operator, its planes form otherwise), ``dia_df64_residual_ref`` on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import torch
 
 from raptor_tpu_torch.ops.cuda.dia_kernel import (
     _strides,
+    dia_df64_residual_const,
+    dia_df64_residual_v2,
+    dia_df64_residual_v2_ref,
     dia_spmv_const,
     dia_spmv_const_ref,
     dia_spmv_v2,
@@ -32,13 +38,15 @@ from raptor_tpu_torch.ops.cuda.dia_kernel import (
 
 __all__ = ["DiaMatrix", "boundary_mask", "boundary_mask_traced",
            "dia_from_stencil", "dia_from_scipy", "dia_to_scipy", "dia_spmv",
-           "dia_spmv_ref", "dia_tri_spmv", "dia_mult", "dia_transpose",
+           "dia_spmv_ref", "dia_df64_residual", "dia_df64_residual_ref",
+           "dia_tri_spmv", "dia_mult", "dia_transpose",
            "dia_add", "dia_filter_offsets", "dia_prune", "dia_rap",
            "cuda_calls"]
 
 Vec = Tuple[int, ...]
 
-# dia_spmv calls on CUDA tensors (key "dia_spmv"); each one launches K1 or K2
+# calls on CUDA tensors: "dia_spmv" (each launches K1 or K2) and
+# "dia_df64_residual" (each launches K7)
 cuda_calls: collections.Counter = collections.Counter()
 
 
@@ -215,6 +223,32 @@ def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     if A.const_planes is not None:
         return dia_spmv_const(A.const_planes, A.offsets, A.dims, x)
     return dia_spmv_v2(A.data, A.linear_offsets(), x)
+
+
+def dia_df64_residual_ref(A: DiaMatrix, xh, xl, bh, bl):
+    """Plain ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]``: compensated
+    (double-float32) accumulation over the stored planes, op by op (exact
+    to ~1e-14 relative, so it certifies 1e-8 without fp64)."""
+    return dia_df64_residual_v2_ref(A.data, A.linear_offsets(), xh, xl, bh, bl)
+
+
+def dia_df64_residual(A: DiaMatrix, xh, xl, bh, bl):
+    """The compensated residual ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]``
+    for vectors of shape (n,).
+
+    CPU tensors take the plain version.  CUDA tensors launch K7, in its
+    const form (planes synthesized from ``const_planes``, which match the
+    stored planes) when the operator is constant-coefficient and in its
+    planes form otherwise; bit-equal to the plain version but for the sign
+    of a zero.  Anything K7 does not take (fp64 vectors, bf16 planes, a
+    batch) raises, as ``dia_spmv`` does."""
+    if xh.device.type == "cpu":
+        return dia_df64_residual_ref(A, xh, xl, bh, bl)
+    cuda_calls["dia_df64_residual"] += 1
+    if A.const_planes is not None:
+        return dia_df64_residual_const(A.const_planes, A.offsets, A.dims, xh,
+                                       xl, bh, bl)
+    return dia_df64_residual_v2(A.data, A.linear_offsets(), xh, xl, bh, bl)
 
 
 def _plane(A: DiaMatrix, k: int, like: torch.Tensor) -> torch.Tensor:

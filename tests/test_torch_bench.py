@@ -35,7 +35,8 @@ from tests._torch_ref import bench_rows, stencil_7pt, strict_json
 REPO = Path(__file__).resolve().parents[1]
 ROWS = ["kernels", "structured128", "structured256", "devsetup", "configs",
         "sdist256"]
-KERNELS = ["K1", "K1v1", "K2", "K3", "K4", "K4-halo", "K5", "K6", "K6-map_cols"]
+KERNELS = ["K1", "K1v1", "K2", "K3", "K4", "K4-halo", "K5", "K6", "K6-map_cols",
+           "K7"]
 RUN_TIMEOUT = 120
 
 

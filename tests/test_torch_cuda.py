@@ -270,6 +270,158 @@ def test_k2_refuses_what_it_does_not_take():
         tk.dia_spmv_const([1.0], [(0, 40000)], (8, 8), x)
 
 
+# ---------------------------------------------------------------------------
+# K7: the df64 DIA residual, bit for bit against the op-by-op version
+# ---------------------------------------------------------------------------
+
+def _stencil_27pt() -> np.ndarray:
+    st = -np.ones((3, 3, 3))
+    st[1, 1, 1] = 26.0
+    return st
+
+
+# (stencil, dims, diagonal shift): the const form at the structured
+# engine's shapes, a last dimension no multiple of four (each row's own
+# grid test), a grid shorter than a tile, 27 points and a 2D stencil
+K7_CONST = {
+    "64^3": (stencil_7pt, (64,) * 3, 0.0),
+    "64^3 shifted": (stencil_7pt, (64,) * 3, 0.0371),
+    "128^3": (stencil_7pt, (128,) * 3, 0.0),
+    "128^3 shifted": (stencil_7pt, (128,) * 3, 0.0123),
+    "33x17x9": (stencil_7pt, (33, 17, 9), 0.0),
+    "5x7x3 shifted": (stencil_7pt, (5, 7, 3), 0.5),
+    "27 points 20x24x28": (_stencil_27pt, (20, 24, 28), 0.0),
+    "27 points 33x17x9": (_stencil_27pt, (33, 17, 9), 0.25),
+    "2D 64x48": (stencil_5pt, (64, 48), 0.0),
+}
+
+# (offsets, dims) of variable-coefficient operators for the planes form:
+# 7 and 27 points (their own kernels), 15 and 32 offsets (the generic
+# body), odd n (planes loaded one value at a time)
+K7_PLANES = {
+    "7 points 64^3": (7, (64,) * 3),
+    "27 points 32x40x48": (27, (32, 40, 48)),
+    "7 points 33x17x9": (7, (33, 17, 9)),
+    "27 points 5x7x3": (27, (5, 7, 3)),
+    "15 offsets 16x32x64": (15, (16, 32, 64)),
+    "32 offsets 16^3": (32, (16,) * 3),
+}
+
+
+def _df_vectors(n, dev, seed=1):
+    """(xh, xl, bh, bl) on the card: random heads, tails under half an ulp,
+    and one head in twenty scaled into fp32's subnormal range, so a
+    flush to zero anywhere would show."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for scale in (1.0, 30.0):
+        h = rng.standard_normal(n) * scale
+        h[rng.random(n) < 0.05] *= 2.0**-130
+        h = h.astype(np.float32)
+        lo = (h * rng.uniform(-1, 1, n) * 2.0**-25).astype(np.float32)
+        out += [torch.from_numpy(h).to(dev), torch.from_numpy(lo).to(dev)]
+    return out
+
+
+def _k7_equal(A, vecs):
+    """K7 through ``dia_df64_residual`` (one call, one launch) against the
+    plain version over the stored planes, on the card and on the CPU."""
+    calls, k7 = tdia.cuda_calls["dia_df64_residual"], tk.launches["K7"]
+    rh, rl = tdia.dia_df64_residual(A, *vecs)
+    assert tdia.cuda_calls["dia_df64_residual"] == calls + 1
+    assert tk.launches["K7"] == k7 + 1
+    want = tdia.dia_df64_residual_ref(A, *vecs)
+    assert torch.equal(rh, want[0]) and torch.equal(rl, want[1])
+    want = tdia.dia_df64_residual_ref(A.to("cpu"), *(v.cpu() for v in vecs))
+    assert torch.equal(rh.cpu(), want[0]) and torch.equal(rl.cpu(), want[1])
+
+
+@pytest.mark.parametrize("case", sorted(K7_CONST))
+def test_k7_const_form_bit_for_bit(case):
+    dev = cuda_device()
+    stencil, dims, shift = K7_CONST[case]
+    st = stencil()
+    st[(1,) * st.ndim] += shift
+    A = tdia.dia_from_stencil(st, dims, device=dev)
+    assert A.const_planes is not None
+    _k7_equal(A, _df_vectors(A.n, dev))
+
+
+@pytest.mark.parametrize("case", sorted(K7_PLANES))
+def test_k7_planes_form_bit_for_bit(case):
+    dev = cuda_device()
+    n_off, dims = K7_PLANES[case]
+    data, _ = _planes(dims, OFFSETS[n_off], torch.float32, dev, seed=n_off)
+    A = tdia.DiaMatrix(data=data, offsets=tuple(OFFSETS[n_off]), dims=dims)
+    _k7_equal(A, _df_vectors(A.n, dev, seed=2))
+
+
+@pytest.mark.parametrize("form", ["const", "planes"])
+def test_k7_views_off_16_bytes(form):
+    """xh, xl, bh and bl each start at another 16-byte remainder (the
+    windows' round-down, element-wise loads and stores of the rows)."""
+    dev = cuda_device()
+    dims = (24, 20, 16)
+    A = tdia.dia_from_stencil(stencil_7pt(), dims, device=dev)
+    if form == "planes":
+        A = tdia.DiaMatrix(data=_view_at(A.data, 1), offsets=A.offsets,
+                           dims=dims)
+    vecs = [_view_at(v, skip) for v, skip in
+            zip(_df_vectors(A.n, dev, seed=3), (1, 2, 3, 0))]
+    _k7_equal(A, vecs)
+
+
+def test_k7_refuses_what_it_does_not_take():
+    dev = cuda_device()
+    A = tdia.dia_from_stencil(stencil_7pt(), (8, 8, 8), device=dev)
+    v = torch.zeros(512, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        tdia.dia_df64_residual(A, *(v.double(),) * 4)
+    with pytest.raises(ValueError, match="shape"):
+        tdia.dia_df64_residual(A, *(v[None],) * 4)
+    with pytest.raises(ValueError, match="plane dtype"):
+        tdia.dia_df64_residual(tdia.DiaMatrix(data=A.data.bfloat16(),
+                                              offsets=A.offsets, dims=A.dims),
+                               v, v, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdia.dia_df64_residual(A, v, v, v.cpu(), v)
+
+
+def test_k7_span_inside_the_refinement_residual():
+    """The solver's residual is a ``refine.residual`` span holding one
+    ``K7[n,offsets,dtype]`` span, as K1-K6 are spans of their launches."""
+    from raptor_tpu_torch.utils.profiling import recording
+
+    dev = cuda_device()
+    A = tdia.dia_from_stencil(stencil_7pt(), (8, 8, 8), device=dev)
+    with recording() as rec:
+        ts._df64_residual(A, *_df_vectors(A.n, dev))
+    names = [s.name for s in rec.spans]
+    assert names == ["refine.residual", "K7[512,7,float32]"]
+    assert rec.spans[1].parent == 0
+
+
+def test_refined_solve_with_k7_equals_the_op_by_op_route(monkeypatch):
+    """A refined solve at 64^3: three K7 launches or fewer (one a round and
+    the first), the same iterations, relres and (xh, xl), bit for bit, as
+    the route that computes every residual op by op on the card."""
+    dev = cuda_device()
+    A = tdia.dia_from_stencil(stencil_7pt(), (64,) * 3, device=dev)
+    h = ts.build_structured_hierarchy(A, AmgConfig(**CFG), dim_policy="size")
+    hb = ts.cast_hierarchy(h, torch.bfloat16)
+    b = torch.from_numpy(default_rhs(A.n, dtype=np.float32)).to(dev)
+    k7 = tk.launches["K7"]
+    (xh, xl), rel, it = ts.structured_solve_refined(h, b, tol=1e-8, M_hier=hb)
+    launched = tk.launches["K7"] - k7
+    monkeypatch.setattr(ts, "dia_df64_residual", tdia.dia_df64_residual_ref)
+    (xh0, xl0), rel0, it0 = ts.structured_solve_refined(h, b, tol=1e-8,
+                                                        M_hier=hb)
+    assert tk.launches["K7"] - k7 == launched and 2 <= launched <= 4
+    assert int(it) == int(it0) and float(rel) <= 1e-8
+    assert torch.equal(rel, rel0)
+    assert torch.equal(xh, xh0) and torch.equal(xl, xl0)
+
+
 def test_tiled_launches_count_by_shape():
     dev = cuda_device()
     data, lins = _planes((8, 8, 16), OFFSETS[7], torch.bfloat16, dev)
@@ -1287,7 +1439,7 @@ def test_bench_kernel_check_and_headline_on_card():
     assert last["ok"] and last["failed"] == []
     assert last["detail"]["kcheck"] == dict.fromkeys(
         ["K1", "K1v1", "K2", "K3", "K4", "K4-halo", "K5", "K6",
-         "K6-map_cols"], True)
+         "K6-map_cols", "K7"], True)
     assert last["detail"]["iters"] == rows["structured128"]["iters"] == 7
     assert rows["structured128"]["relres"] <= 1e-8
     assert last["card"]["name"] == torch.cuda.get_device_name(0)

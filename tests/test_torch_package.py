@@ -58,7 +58,8 @@ def test_bound_symbols_exist_in_cuda_source():
                      "raptor_dia_const_f32", "raptor_dia_halo_f32",
                      "raptor_dia_halo_bf16", "raptor_banded_f32",
                      "raptor_banded_bf16", "raptor_banded_rect_f32",
-                     "raptor_banded_rect_bf16", "raptor_banded_df64_f32"}
+                     "raptor_banded_rect_bf16", "raptor_banded_df64_f32",
+                     "raptor_dia_df64_f32"}
     for name in bound:
         assert re.search(rf"\bint {name}\(", src), name
 
