@@ -52,6 +52,9 @@ _DTYPES = {"float32": np.float32, "float64": np.float64}
 # levels below this stay on the scalar ELL path: with 1024-aligned level
 # padding every level down to two kernel tiles takes the banded layout
 BANDED_MIN_N = 2048
+# the gather-chain df64 residual's slot groups: at most this many elements
+# (256 MiB of fp32) in each of a group's temporaries
+RESIDUAL_GROUP_ELEMS = 1 << 26
 
 
 @spanned("setup.algebraic", fence=True)
@@ -298,15 +301,7 @@ def solve_hier_refined(
             from raptor_tpu_torch.core.hybrid import hybrid_df64_residual
 
             return hybrid_df64_residual(hyb, xh, bh, bl, v)
-        rh, rl = df_add(bh, bl, -v, torch.zeros_like(v))
-        for k in range(A.K):
-            gh = xh[A.cols[k]]
-            ph, pe = two_prod(A.data[k], gh)
-            if lo is not None:
-                # a0_lo * x_hi: certify against the unrounded operator
-                pe = pe + lo[k] * gh
-            rh, rl = df_add(rh, rl, -ph, -pe)
-        return rh, rl
+        return _gather_df64_residual(A, lo, xh, bh, bl, v)
 
     bh, bl = (b, b_lo) if b_lo is not None else df_from(b)
     bnorm = torch.sqrt(torch.dot(b, b))
@@ -330,6 +325,27 @@ def solve_hier_refined(
         k += 1
     iters = torch.tensor(total_it, dtype=torch.int32, device=b.device)
     return (xh, xl), relres, iters
+
+
+def _gather_df64_residual(A: EllMatrix, lo, xh, bh, bl, v):
+    """(bh, bl) - A (xh + x_lo) as a df64 pair by ELL gathers, given v =
+    A @ x_lo in fp32: each slot's exact product a_k * xh (plus lo_k * xh,
+    the fp32 remainder of the operator, when ``lo`` is given) is added in
+    compensated arithmetic, slot by slot in slot order.  The slots'
+    products are independent, so a group of slots is gathered and
+    multiplied at once (elementwise: bit for bit the slot-by-slot ops)."""
+    rh, rl = df_add(bh, bl, -v, torch.zeros_like(v))
+    group = max(1, RESIDUAL_GROUP_ELEMS // A.n_rows_pad)
+    for k0 in range(0, A.K, group):
+        gh = xh[A.cols[k0:k0 + group]]
+        ph, pe = two_prod(A.data[k0:k0 + group], gh)
+        if lo is not None:
+            # a0_lo * x_hi: certify against the unrounded operator
+            pe = pe + lo[k0:k0 + group] * gh
+        ph, pe = -ph, -pe
+        for k in range(ph.shape[0]):
+            rh, rl = df_add(rh, rl, ph[k], pe[k])
+    return rh, rl
 
 
 def solve_hier(

@@ -10,10 +10,16 @@ Vectors may carry a leading batch dimension (B, n), as the scalar
 smoothers' do (``solve/cycle.materialize_tail``).  The leaves are NumPy
 arrays while a hierarchy is built on the host; ``BlockEllMatrix.to``
 moves them to a device.
+
+The two block applies are the launch sites: ``bell_spmv`` is a span
+``bell.spmv[nb_pad,K,b,dtype]`` and ``_block_prec`` a span
+``bell.prec[nb_pad,b,dtype]`` (``utils/profiling.py``), and ``launches``
+counts their calls, as the kernels' counters do.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Tuple
 
@@ -21,10 +27,14 @@ import numpy as np
 import torch
 
 from raptor_tpu_torch.core.ell import _np, pad_rows, to_tensor
+from raptor_tpu_torch.utils.profiling import phase
+
+# keys "bell_spmv", "bell_prec"
+launches: collections.Counter = collections.Counter()
 
 __all__ = ["BlockEllMatrix", "bell_from_bsr", "bell_to_bsr", "bell_spmv",
            "block_diag_inv", "block_jacobi", "ell_to_bell",
-           "block_chebyshev4", "estimate_lmax_bell"]
+           "block_chebyshev4", "estimate_lmax_bell", "launches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,14 +125,19 @@ def _blocks(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
 def bell_spmv(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x, x of length nb_pad * bs (a padded vector, or a batch of
     them)."""
-    xg = _blocks(A, x)[..., A.cols.long(), :]  # (..., K, nb_pad, b)
-    y = torch.einsum("knij,...knj->...ni", A.data, xg)
-    return y.reshape(x.shape)
+    launches["bell_spmv"] += 1
+    with phase("bell.spmv", (A.nb_pad, A.K, A.bs, A.data.dtype)):
+        xg = _blocks(A, x)[..., A.cols.long(), :]  # (..., K, nb_pad, b)
+        y = torch.einsum("knij,...knj->...ni", A.data, xg)
+        return y.reshape(x.shape)
 
 
 def _block_prec(binv, A: BlockEllMatrix, r: torch.Tensor) -> torch.Tensor:
     """Dblk^{-1} r, block row by block row."""
-    return torch.einsum("nij,...nj->...ni", binv, _blocks(A, r)).reshape(r.shape)
+    launches["bell_prec"] += 1
+    with phase("bell.prec", (A.nb_pad, A.bs, binv.dtype)):
+        return torch.einsum("nij,...nj->...ni", binv,
+                            _blocks(A, r)).reshape(r.shape)
 
 
 def block_diag_inv(A: BlockEllMatrix) -> torch.Tensor:
@@ -147,17 +162,54 @@ def block_jacobi(A: BlockEllMatrix, dinv_blocks, b, x,
 
 
 def ell_to_bell(E, bs: int) -> BlockEllMatrix:
-    """Scalar EllMatrix -> BlockEllMatrix with ``bs x bs`` blocks (host
-    pass, setup only), padded to exactly n_rows_pad / bs block rows so
-    block vectors are the scalar path's padded vectors."""
-    from raptor_tpu_torch.core.ell import ell_to_csr
-
-    a = ell_to_csr(E)
-    assert a.shape[0] % bs == 0, (a.shape, bs)
+    """Scalar EllMatrix -> BlockEllMatrix with ``bs x bs`` blocks on E's
+    device (NumPy leaves give NumPy leaves), padded to exactly
+    n_rows_pad / bs block rows so block vectors are the scalar path's
+    padded vectors; identity blocks pad the block rows beyond the logical
+    size.  A block row's blocks come in the order of their first entry,
+    scalar row by scalar row and by column within a row: SciPy's CSR ->
+    BSR order (``bell_from_bsr(ell_to_csr(E))``), so the two give the same
+    arrays.  One host read, for the width."""
+    n, m = E.shape
+    assert n % bs == 0, (E.shape, bs)
     assert E.n_rows_pad % bs == 0, (E.n_rows_pad, bs)
-    dtype = _np(E.data[:1, :1]).dtype
-    return bell_from_bsr(a, bs=bs, dtype=dtype,
-                         row_pad_multiple=E.n_rows_pad // bs)
+    host = not isinstance(E.data, torch.Tensor)
+    data, cols, row_nnz = (torch.from_numpy(np.asarray(t)) if host else t
+                           for t in (E.data, E.cols, E.row_nnz))
+    dev = data.device
+    K, n_pad = data.shape
+    nb, nb_pad, nbc = n // bs, E.n_rows_pad // bs, -(-m // bs)
+    rows = torch.arange(n_pad, device=dev).expand(K, -1)
+    keep = ((torch.arange(K, device=dev)[:, None] < row_nnz[None, :])
+            & (rows < n) & (cols < m))
+    r, c, v = rows[keep], cols[keep].long(), data[keep]
+    bi, bj = torch.div(r, bs, rounding_mode="floor"), torch.div(
+        c, bs, rounding_mode="floor")
+    # the distinct blocks, and the scalar row of each one's first entry
+    blk, which = torch.unique(bi * nbc + bj, return_inverse=True)
+    first = torch.full_like(blk, bs).scatter_reduce_(0, which, r - bi * bs,
+                                                     "amin")
+    ub, uj = torch.div(blk, nbc, rounding_mode="floor"), blk % nbc
+    order = torch.sort((ub * bs + first) * nbc + uj).indices
+    per_row = torch.bincount(ub, minlength=nb)
+    start = torch.cumsum(per_row, 0) - per_row
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(order.numel(), device=dev) - start[ub[order]]
+    Kb = max(int(per_row.max()) if nb else 0, 1)
+    out = torch.zeros(Kb, nb_pad, bs, bs, dtype=data.dtype, device=dev)
+    out_cols = torch.zeros(Kb, nb_pad, dtype=torch.int32, device=dev)
+    out_nnz = torch.ones(nb_pad, dtype=torch.int32, device=dev)
+    out[slot[which], bi, r - bi * bs, c - bj * bs] = v
+    out_cols[slot, ub] = uj.to(torch.int32)
+    out_nnz[:nb] = per_row.to(torch.int32)
+    if nb_pad > nb:
+        out[0, nb:] = torch.eye(bs, dtype=data.dtype, device=dev)
+        out_cols[0, nb:] = torch.arange(nb, nb_pad, dtype=torch.int32,
+                                        device=dev)
+    if host:
+        out, out_cols, out_nnz = out.numpy(), out_cols.numpy(), out_nnz.numpy()
+    return BlockEllMatrix(data=out, cols=out_cols, row_nnz=out_nnz,
+                          shape=(n, m), bs=bs, nb_pad=nb_pad)
 
 
 def block_chebyshev4(A: BlockEllMatrix, binv, b, x, lmax, degree: int = 3,

@@ -320,38 +320,28 @@ def _transpose_col_counts(A: EllMatrix) -> torch.Tensor:
 def ell_transpose_fixed(A: EllMatrix, k_out: int) -> EllMatrix:
     """A.T at static output width ``k_out``.
 
-    Round-based counting placement: each round, every output row (= A
-    column) takes its smallest-source-row pending entry, found by a
-    scatter-min; it is unique per column because a row's columns are
-    distinct.  Output rows come out column-sorted."""
+    One sort of the real entries by (column, source row): output row c (=
+    A's column c) holds A's entries in column c in ascending source row,
+    the first ``k_out`` of them (a wider column truncates silently; its
+    ``row_nnz`` keeps the full count).  Output rows come out
+    column-sorted, as the reference's rounds of per-column minimum
+    placement leave them; values are moved, never summed."""
     m = A.n_cols_pad
-    sent = A.n_rows_pad  # source rows are < n_rows_pad
     dev = A.data.device
-    valid = A.slot_mask()
-    src = A.row_index().to(torch.int32)  # becomes the output column
-    tgt = _drop(A.cols, valid, m)
-    tgt_c = tgt.clamp(max=m - 1)
-    flat_tgt = tgt.reshape(-1)
-    data_flat, src_flat = A.data.reshape(-1), src.reshape(-1)
+    keep = A.slot_mask() & (A.cols < m)
+    cols = A.cols[keep].long()
+    src = torch.arange(A.n_rows_pad, device=dev).expand(A.K, -1)[keep]
+    key, order = torch.sort(cols * A.n_rows_pad + src)
+    col = torch.div(key, A.n_rows_pad, rounding_mode="floor")
+    row_nnz = _transpose_col_counts(A)
+    start = torch.cumsum(row_nnz.long(), 0) - row_nnz.long()
+    slot = torch.arange(key.numel(), device=dev) - start[col]
+    fit = slot < k_out
     out_data = torch.zeros(k_out, m, dtype=A.dtype, device=dev)
     out_cols = torch.zeros(k_out, m, dtype=torch.int32, device=dev)
-    active = valid.clone()
-    for r in range(k_out):
-        key = torch.where(active, src, sent)
-        minv = torch.full((m + 1,), sent, dtype=torch.int32, device=dev)
-        minv.scatter_reduce_(0, flat_tgt, key.reshape(-1), "amin")
-        minv = minv[:m]
-        sel = active & (key == minv[tgt_c])
-        dst = torch.where(sel, tgt, m).reshape(-1)
-        vbuf = torch.zeros(m + 1, dtype=A.dtype, device=dev).scatter_(
-            0, dst, data_flat)
-        cbuf = torch.zeros(m + 1, dtype=torch.int32, device=dev).scatter_(
-            0, dst, src_flat)
-        placed = minv < sent
-        out_data[r] = torch.where(placed, vbuf[:m], 0)
-        out_cols[r] = torch.where(placed, cbuf[:m], 0)
-        active &= ~sel
-    row_nnz = _transpose_col_counts(A)
+    out_data[slot[fit], col[fit]] = A.data[keep][order][fit]
+    out_cols[slot[fit], col[fit]] = (key - col * A.n_rows_pad)[fit].to(
+        torch.int32)
     return EllMatrix(data=out_data, cols=_fix_padding_cols(out_cols, row_nnz),
                      row_nnz=row_nnz, shape=(A.shape[1], A.shape[0]),
                      n_rows_pad=A.n_cols_pad, n_cols_pad=A.n_rows_pad)

@@ -18,6 +18,17 @@ when the input has at most ``host_setup_threshold`` rows, else here, as
 the reference does.  Aggregation keys on exact integer weights
 ``min(lam, 63) * nn_pad + perm`` (int64 above ``_MAX_INT32_ROWS`` rows),
 with ``perm`` from NumPy's ``default_rng``.
+
+The device route's spans (``utils/profiling.py``, no-ops unless
+recording): ``setup.ell`` (the ELL on the card, and an fp32 build's
+fp32 remainder), then ``setup.sa.level[k]`` a level, holding the
+stages ``setup.sa.condense``, ``.strength``, ``.aggregate``,
+``.tentative``, ``.smooth_p`` (the ``D^{-1} A P_t`` product and the
+sum), ``.transpose``, ``.rap``, ``.smoother`` and ``.block_layout``
+(``ell_to_bell``, the block inverses, the block lmax); the coarsest
+level's ``setup.sa.level[k]`` holds the last two, then
+``setup.coarse_inverse``.  The stages are fenced: with no profiler
+active, each is timed between device syncs on the host clock.
 """
 
 from __future__ import annotations
@@ -36,7 +47,9 @@ from raptor_tpu_torch.setup.interp import add_identity_padding
 from raptor_tpu_torch.setup.splitting import (C_PT, make_perm,
                                               pmis_splitting,
                                               splitting_weights)
+from raptor_tpu_torch.solve.krylov import host_read
 from raptor_tpu_torch.solve.smoothers import estimate_lmax
+from raptor_tpu_torch.utils.profiling import phase
 
 __all__ = ["build_sa_hierarchy", "nodal_condense", "sa_strength_mask",
            "aggregate", "tentative_prolongator", "AGG_SIZE_CAP"]
@@ -190,8 +203,8 @@ def aggregate(C: EllMatrix, smask, seed: int):
     agg = _assign_rounds(G, G.slot_mask(), agg, w)
     agg = torch.where(is_real, _join_smallest(C, agg), agg)
     strag = is_real & (agg < 0)
-    n_so_far, n_strag = (int(v) for v in torch.stack(
-        [root_like.sum(), strag.sum()]).cpu())
+    n_so_far, n_strag = host_read("sa.aggregate", torch.stack(
+        [root_like.sum(), strag.sum()]))
     extra = torch.cumsum(strag, 0, dtype=torch.int32) - 1
     agg = torch.where(strag, n_so_far + extra, agg).to(torch.int32)
     return agg, n_so_far + n_strag
@@ -305,7 +318,7 @@ def _block_layout(A: EllMatrix, config: AmgConfig, bs: int, lmax_s):
     from raptor_tpu_torch.core.bell import (block_diag_inv, ell_to_bell,
                                             estimate_lmax_bell)
 
-    Abell = ell_to_bell(A, bs).to(A.data.device)
+    Abell = ell_to_bell(A, bs)
     binv = block_diag_inv(Abell)
     if config.smoother == "block_cheb":
         lmax_s = estimate_lmax_bell(Abell, binv)
@@ -345,11 +358,25 @@ def build_sa_hierarchy(A, config: AmgConfig, dtype=np.float32, B=None,
     nc = B.shape[1]
     bs = block_size or (3 if (nc >= 3 and n_in % 3 == 0) else 1)
     A_in = None if isinstance(A, EllMatrix) else A
-    if A_in is not None:
-        # the padded size divides by pad_multiple and by the block size
-        mult = config.pad_multiple * bs // int(np.gcd(config.pad_multiple, bs))
-        A = ell_from_csr(A, dtype=dtype, row_pad_multiple=mult)
-    A = A.to(device)
+    # an fp32 build keeps the operator's fp32 truncation remainder in the
+    # ELL slots for the refined solve's certified residual (what
+    # ``attach_residual_lo`` computes on the host): here from one fp64 ELL
+    # on the card, which the fp32 level-0 operator is cast from
+    lo = None
+    with phase("setup.ell"):
+        if A_in is not None:
+            # the padded size divides by pad_multiple and by the block size
+            mult = config.pad_multiple * bs // int(np.gcd(config.pad_multiple,
+                                                          bs))
+            split = np.dtype(dtype) == np.float32
+            A = ell_from_csr(A, dtype=np.float64 if split else dtype,
+                             row_pad_multiple=mult).to(device)
+            if split:
+                hi = A.data.to(torch.float32)
+                lo = (A.data - hi.double()).to(torch.float32)
+                A = dataclasses.replace(A, data=hi)
+        else:
+            A = A.to(device)
     assert A.n_rows_pad % bs == 0, (A.n_rows_pad, bs)
     n = A.shape[0]
     tdt = A.data.dtype
@@ -359,43 +386,60 @@ def build_sa_hierarchy(A, config: AmgConfig, dtype=np.float32, B=None,
         Bd[: vals.shape[0]] = torch.as_tensor(vals, device=A.data.device).to(tdt)
         return Bd
 
+    def stage(name):
+        return phase("setup.sa." + name, fence=True)
+
     Bd = candidates(A.n_rows_pad, B)
     levels = []
     while len(levels) + 1 < config.max_levels and n > config.coarse_size:
-        C = nodal_condense(A, bs) if bs > 1 else A
-        smask = sa_strength_mask(C, config.theta)
-        agg, n_agg = aggregate(C, smask, config.seed + len(levels))
-        # stop when coarsening stalls
-        if n_agg == 0 or n_agg * nc >= 0.7 * n:
-            break
-        P_t, Bc, ncoarse = tentative_prolongator(agg, n_agg, Bd, bs, n,
-                                                 config.pad_multiple)
-        dA = A.diagonal()
-        dinv = 1.0 / torch.where(dA != 0, dA, 1.0)
-        omega = config.sa_omega / float(estimate_lmax(A, dinv))
-        A_sm = (_lumped_filter(A, config.sa_filter, bs)
-                if config.sa_filter > 0 else A)
-        DA_P = spgemm(dataclasses.replace(
-            A_sm, data=A_sm.data * (dinv * omega)[None, :]), P_t)
-        P = ell_add(P_t, DA_P, alpha=1.0, beta=-1.0)
-        R = ell_transpose(P)
-        Ac = add_identity_padding(spgemm(R, spgemm(A, P)), ncoarse)
-        dinv_s, color, ncolors, lmax_s = _smoother_data(A, config, smask)
-        Abell, binv, lmax_s = _block_layout(A, config, bs, lmax_s)
-        levels.append(Level(A=A, dinv=dinv_s, P=P, R=R, color=color,
-                            cheb_lmax=lmax_s, n=n, ncolors=ncolors,
-                            Abell=Abell, binv=binv))
-        # next level: block size nc, candidates Bc
-        A, n, bs = Ac, ncoarse, nc
-        Bd = candidates(A.n_rows_pad, Bc)
+        with phase("setup.sa.level", len(levels), fence=True):
+            with stage("condense"):
+                C = nodal_condense(A, bs) if bs > 1 else A
+            with stage("strength"):
+                smask = sa_strength_mask(C, config.theta)
+            with stage("aggregate"):
+                agg, n_agg = aggregate(C, smask, config.seed + len(levels))
+            # stop when coarsening stalls
+            if n_agg == 0 or n_agg * nc >= 0.7 * n:
+                break
+            with stage("tentative"):
+                P_t, Bc, ncoarse = tentative_prolongator(
+                    agg, n_agg, Bd, bs, n, config.pad_multiple)
+            with stage("smooth_p"):
+                dA = A.diagonal()
+                dinv = 1.0 / torch.where(dA != 0, dA, 1.0)
+                omega = config.sa_omega / float(estimate_lmax(A, dinv))
+                A_sm = (_lumped_filter(A, config.sa_filter, bs)
+                        if config.sa_filter > 0 else A)
+                DA_P = spgemm(dataclasses.replace(
+                    A_sm, data=A_sm.data * (dinv * omega)[None, :]), P_t)
+                P = ell_add(P_t, DA_P, alpha=1.0, beta=-1.0)
+            with stage("transpose"):
+                R = ell_transpose(P)
+            with stage("rap"):
+                Ac = add_identity_padding(spgemm(R, spgemm(A, P)), ncoarse)
+            with stage("smoother"):
+                dinv_s, color, ncolors, lmax_s = _smoother_data(A, config,
+                                                                smask)
+            with stage("block_layout"):
+                Abell, binv, lmax_s = _block_layout(A, config, bs, lmax_s)
+            levels.append(Level(A=A, dinv=dinv_s, P=P, R=R, color=color,
+                                cheb_lmax=lmax_s, n=n, ncolors=ncolors,
+                                Abell=Abell, binv=binv))
+            # next level: block size nc, candidates Bc
+            A, n, bs = Ac, ncoarse, nc
+            Bd = candidates(A.n_rows_pad, Bc)
 
-    dinv_s, color, ncolors, lmax_s = _smoother_data(A, config, None)
-    Abell, binv, lmax_s = _block_layout(A, config, bs, lmax_s)
+    with phase("setup.sa.level", len(levels), fence=True):
+        with stage("smoother"):
+            dinv_s, color, ncolors, lmax_s = _smoother_data(A, config, None)
+        with stage("block_layout"):
+            Abell, binv, lmax_s = _block_layout(A, config, bs, lmax_s)
     levels.append(Level(A=A, dinv=dinv_s, P=None, R=None, color=color,
                         cheb_lmax=lmax_s, n=n, ncolors=ncolors, Abell=Abell,
                         binv=binv))
     hier = Hierarchy(levels=tuple(levels),
                      coarse_inv=_dense_inverse(A, n_true=n), config=config)
-    if A_in is not None:
-        hier = attach_residual_lo(hier, A_in)
+    if lo is not None and bool(lo.any()):
+        hier = dataclasses.replace(hier, a0_lo=lo)
     return hier
