@@ -119,8 +119,11 @@ Phases, each of which raises on failure (there is no CPU path):
     with b = ones; n, level sizes, iterations, true fp64 relres, setup and
     solve seconds; checked: true relres <= 1e-8 and iterations <= the
     reference's count + 1 (CONFIG_ITERS, BENCH_r05.json "cfg"; config3
-    against its fence, 32).  The rows use the ELL layout, as the
-    reference's do, and launch no hand-written kernel;
+    against its fence, 32); each solve's K8 launches equal its BlockELL
+    applies (bell.launches; both counts set to 0 just before the solve),
+    more than 0 for config 4 and 0 for the other rows.  The operators and
+    transfers use the ELL layout, as the reference's do, and launch no
+    hand-written kernel; config 4's block smoother applies launch K8;
 19. config 4's preset, unchanged, at 324,864 rows: the default threshold
     sends it through the device SA route, every level checked to hold CUDA
     tensors before Hierarchy.to, peak device memory printed; checked: every
@@ -131,7 +134,12 @@ Phases, each of which raises on failure (there is no CPU path):
     test_torch_sa_routes.py shows the reference's two routes split so),
     levels 0-1 equal to phase 18's, the sizes equal to the regression pin
     CONFIG4_DEVICE_SIZES_PIN, iterations within 3 of phase 18's (the
-    reference's fence, tests/unit/test_aggregation.py:124-151);
+    reference's fence, tests/unit/test_aggregation.py:124-151), K8's
+    launches as in phase 18; then K8 on every BlockELL level of that
+    hierarchy, the general form on the level's blocks and the diagonal form
+    on its block inverses, bit for bit against their plain versions, each
+    timed L2-warm and L2-cold beside the einsum route it replaced, its
+    bound (live blocks, x and y) and cuSPARSE;
 20. config 3's preset at full width, anisotropic_2d(768) (589,824 rows):
     level 0 aggressive on the card, the rest on the host; beside it the
     host route; checked: equal level sizes, iterations within 1 of each
@@ -241,14 +249,14 @@ bound: the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s (H100 SXM, NVIDIA's data sheet).
 
 The line before the last is the kernels' JSON record (K1, K1v1, K2, K3, K4,
-K5, K6, the sharded forms K4-halo and K6-map_cols, and K7, each with the
-launches of its own paths: K4, K5 and K6 those of the 48^3 row, of
+K5, K6, the sharded forms K4-halo and K6-map_cols, K7, and K8 at phase
+19's level 0, each with the launches of its own paths: K4, K5 and K6 those of the 48^3 row, of
 phase 21's refined solve and of phase 23's two refined solves, K1, K2 and
 K7 those of the 128^3 path and of phase 24's two paths, K4-halo those of
 rank 0 of phase 17, of phase 21's two one-rank solves and of rank 0 of
 phase 22, K6-map_cols those of rank 0 of phases 17 and 22; where phase 28
-ran, rank 0's K3, K4-halo and K6-map_cols launches of it too); the last
-line is
+ran, rank 0's K3, K4-halo and K6-map_cols launches of it too; K8 those of
+the config-4 solves of phases 18 and 19); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2542,27 +2550,39 @@ def _config_row(tag: str, A, B, cfg, sc, dev, every_level=False) -> tuple:
     """api.setup (timed under device_route) and api.solve of one row with
     b = ones, as the reference bench: (record, hierarchy)."""
     from raptor_tpu_torch import solve
+    from raptor_tpu_torch.core import bell
+    from raptor_tpu_torch.ops.cuda import bell_kernel as k8
 
     h, rec = timed_setup(tag, A, cfg, dev, B=B, every_level=every_level)
     b = np.ones(A.shape[0])
     torch.cuda.synchronize()
+    bell.launches.clear()
+    k8.launches.clear()
     t0 = time.perf_counter()
     x, info = solve(A, b, cfg, sc, hier=h)
     solve_s = time.perf_counter() - t0
+    launches = {"K8": k8.launches["K8"], "block_applies": (
+        bell.launches["bell_spmv"] + bell.launches["bell_prec"])}
     relres = _true_relres(A, x, b)
     if x.shape != (A.shape[0],) or not np.isfinite(x).all():
         raise AssertionError(f"[{tag}] solution not finite or misshapen")
+    if launches["K8"] != launches["block_applies"]:
+        raise AssertionError(f"[{tag}] {launches['K8']} K8 launches for "
+                             f"{launches['block_applies']} block applies")
     out = {"n": int(A.shape[0]), "sizes": [lv.n for lv in h.levels],
            "iters": int(info["iterations"]), "relres": relres,
            "certified": float(info["relres"]), "setup_s": rec["s"],
-           "solve_s": solve_s, "device_levels": rec["device_levels"],
+           "solve_s": solve_s, "launches": launches,
+           "device_levels": rec["device_levels"],
            "peak_mem_gib": rec["peak_mem_gib"],
            "operator_complexity": info["stats"]["operator_complexity"]}
     print(f"[{tag}] n {out['n']}, levels {out['sizes']}, {out['iters']} "
           f"{sc.krylov} iterations, true fp64 relres {relres:.3e} (certified "
           f"{out['certified']:.3e}), operator complexity "
           f"{out['operator_complexity']:.3f}; setup {rec['s']:.3f} s "
-          f"({rec['device_levels']} levels on the card), solve {solve_s:.3f} s")
+          f"({rec['device_levels']} levels on the card), solve {solve_s:.3f} s"
+          f"; {launches['block_applies']} block applies, {launches['K8']} K8 "
+          "launches")
     return out, h
 
 
@@ -2575,8 +2595,11 @@ def phase_configs(dev) -> dict:
     Jacobi and refined GMRES; each api.setup + api.solve (refined, tol
     1e-8), true fp64 relres <= 1e-8 and iterations <= the reference's
     BENCH_r05 count + 1 (config3: its fence, 32).  These rows use the ELL
-    layout, as the reference's do: they launch no hand-written kernel
-    (their operators, smoothers and transfers are plain torch)."""
+    layout, as the reference's do: their operators and transfers launch no
+    hand-written kernel (plain torch).  Config 4's block smoothers apply
+    its BlockELL levels through K8: each solve's K8 launches equal its
+    block applies (_config_row), more than 0 for config 4 and 0 for the
+    other rows."""
     out = {}
     t_all = time.perf_counter()
     for name, ref in CONFIG_ITERS.items():
@@ -2594,9 +2617,68 @@ def phase_configs(dev) -> dict:
         if not row["iters"] <= limit:
             raise AssertionError(f"[{name}] {row['iters']} iterations "
                                  f"(max {limit})")
+        if (row["launches"]["K8"] > 0) != (name == "config4"):
+            raise AssertionError(f"[{name}] {row['launches']['K8']} K8 "
+                                 "launches")
         out[name] = row
     out["phase_s"] = time.perf_counter() - t_all
     print(f"[configs] phase 18: {out['phase_s']:.1f} s")
+    return out
+
+
+def k8_levels(tag: str, h, dev) -> list:
+    """K8 on every BlockELL level of ``h``, on the level's own blocks and
+    block inverses: the general form (A x) and the diagonal form (Binv x)
+    bit for bit against their plain versions, then each timed L2-warm and
+    L2-cold beside the einsum route it replaced, its bound (the live
+    blocks, x and y) and one cuSPARSE matvec of the level's operator.
+    Returns one record a level."""
+    from raptor_tpu_torch.core import bell
+    from raptor_tpu_torch.ops.cuda import bell_kernel as k8
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for i, lv in enumerate(h.levels):
+        E, binv = lv.Abell, lv.binv
+        if E is None:
+            continue
+        nb, K, b = E.nb_pad, E.K, E.bs
+        n = nb * b
+        x = torch.randn(n, generator=gen, device=dev)
+        name = f"K8 {tag} L{i} nb {nb} K {K} b {b}"
+
+        def spmv():
+            return k8.bell_spmv(E.data, E.cols, E.row_nnz, x)
+
+        def diag():
+            return k8.bell_diag(binv, x)
+
+        err = max(_equal(f"{name} A x", spmv(),
+                         k8.bell_spmv_ref(E.data, E.cols, E.row_nnz, x)),
+                  _equal(f"{name} Binv x", diag(), k8.bell_diag_ref(binv, x)))
+        live = int(E.row_nnz.sum())
+        vec = 2 * n * x.element_size()
+        nbytes = live * b * b * E.data.element_size() + vec
+        r = {"level": i, "nb": nb, "K": K, "b": b, "live_blocks": live,
+             "err": err, "bytes": nbytes, "ms": cuda_ms(spmv),
+             "cold_ms": cuda_ms(spmv, flush_l2=True),
+             "plain_ms": cuda_ms(lambda: bell._spmv_einsum(E.data, E.cols, x)),
+             "diag_ms": cuda_ms(diag), "diag_cold_ms": cuda_ms(diag,
+                                                               flush_l2=True),
+             "diag_plain_ms": cuda_ms(lambda: bell._prec_einsum(binv, x))}
+        yardsticks(r, host_csr(bell.bell_to_bsr(E), (n, n), dev), x, nbytes,
+                   ops=2 * live * b * b)
+        r["diag_bound_ms"], _ = bound(nb * b * b * binv.element_size() + vec,
+                                      2 * nb * b * b)
+        print(f"[kernel] {name}: A x {r['ms'] * 1e3:.1f} us L2-warm, "
+              f"{r['cold_ms'] * 1e3:.1f} us L2-cold, bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}, {live} live "
+              f"blocks), einsum route {r['plain_ms'] * 1e3:.1f} us, cuSPARSE "
+              f"{r['library_ms'] * 1e3:.1f} us; Binv x {r['diag_ms'] * 1e3:.1f} "
+              f"us L2-warm, {r['diag_cold_ms'] * 1e3:.1f} us L2-cold, bound "
+              f"{r['diag_bound_ms'] * 1e3:.1f} us, einsum route "
+              f"{r['diag_plain_ms'] * 1e3:.1f} us (device time, graph replay)")
+        out.append(r)
     return out
 
 
@@ -2612,8 +2694,10 @@ def phase_config4_device(dev, host_row: dict) -> dict:
     levels 0-1 equal phase 18's (they depend on A and B alone), the sizes
     equal CONFIG4_DEVICE_SIZES_PIN, and the iterations are within 3 of
     phase 18's (the reference's own fence, tests/unit/
-    test_aggregation.py:124-151).  Returns the row and the device-built
-    hierarchy moved to the host (phase 27a shards it)."""
+    test_aggregation.py:124-151).  Its solve's block applies launch K8, as
+    phase 18's; then K8 on every BlockELL level of the hierarchy
+    (k8_levels).  Returns the row and the device-built hierarchy moved to
+    the host (phase 27a shards it)."""
     from raptor_tpu_torch import PRESETS
     from raptor_tpu_torch.setup.host_aggregation import host_build_sa_hierarchy
 
@@ -2652,6 +2736,11 @@ def phase_config4_device(dev, host_row: dict) -> dict:
                              f"{host_row['iters']}")
     if not row["relres"] <= MAX_RELRES:
         raise AssertionError(f"true relres {row['relres']} > {MAX_RELRES}")
+    if row["launches"]["K8"] == 0:
+        raise AssertionError("the device SA solve launched no K8")
+    row["k8"] = k8_levels("config4 device", h, dev)
+    if not row["k8"]:
+        raise AssertionError("no BlockELL level")
     return row, h.to("cpu")
 
 
@@ -4420,6 +4509,9 @@ def main() -> None:
     configs = phase_configs(dev)
     configs["config4_device"], h_config4 = phase_config4_device(
         dev, configs["config4"])
+    rec["K8"] = configs["config4_device"]["k8"][0]
+    launch_counts["K8"] = sum(configs[k]["launches"]["K8"]
+                              for k in ("config4", "config4_device"))
     configs["config3_full"] = phase_config3_full(dev)
     torch.cuda.empty_cache()
     mcgs96 = phase_mcgs96(dev, rec)
@@ -4496,16 +4588,21 @@ def main() -> None:
                                "raptor_tpu/parallel/dist.py:371 "
                                "(dist_rect_banded_spmv)",
                 "K7": "raptor_tpu/structured/solver.py:703 (_df64_residual, "
-                      "plain jnp; no TPU kernel)"}
+                      "plain jnp; no TPU kernel)",
+                "K8": "raptor_tpu/core/bell.py:118 (bell_spmv) and :182 "
+                      "(the block smoothers' Binv r), plain jnp einsums; no "
+                      "TPU kernel"}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda",
          "source": "raptor_tpu_torch/csrc/" + (
              "banded_kernel.cu" if k.startswith(("K4", "K5", "K6")) else
              "dia_const_kernel.cu" if k == "K2" else
-             "dia_df64_kernel.cu" if k == "K7" else "dia_kernel.cu"),
+             "dia_df64_kernel.cu" if k == "K7" else
+             "bell_kernel.cu" if k == "K8" else "dia_kernel.cu"),
          "replaces": replaces[k], "launches": launch_counts[k],
          "max_abs_err": rec[k]["err"], "ms": rec[k]["ms"],
-         "plain_ms": rec[k]["plain_ms"], "bound_ms": rec[k]["bound_ms"],
+         "cold_ms": rec[k].get("cold_ms"), "plain_ms": rec[k]["plain_ms"],
+         "bound_ms": rec[k]["bound_ms"],
          "bound_by": rec[k]["bound_by"], "library_ms": rec[k]["library_ms"]}
         for k in replaces]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Counterpart of ``raptor_tpu/core/bell.py``.  Layout: block-entry-major
 ``data (K, nb_pad, b, b)`` / ``cols (K, nb_pad)``, the block-row axis the
-long one, so block products batch as (nb_pad, b, b) x (nb_pad, b)
-contractions (``torch.einsum``).  The reference computes these outside
-any Pallas kernel, so the plain version is the port.
+long one.  The two block applies launch the hand-written kernel K8
+(``ops/cuda/bell_kernel.py``) on CUDA tensors, which reads each block
+once; on CPU tensors they are the reference's (nb_pad, b, b) x (nb_pad, b)
+contractions (``torch.einsum``).  The two differ only in the order of a
+row's sum.
 
 Vectors may carry a leading batch dimension (B, n), as the scalar
 smoothers' do (``solve/cycle.materialize_tail``).  The leaves are NumPy
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from raptor_tpu_torch.core.ell import _np, pad_rows, to_tensor
+from raptor_tpu_torch.ops.cuda import bell_kernel as k8
 from raptor_tpu_torch.utils.profiling import phase
 
 # keys "bell_spmv", "bell_prec"
@@ -118,8 +121,19 @@ def bell_to_bsr(A: BlockEllMatrix):
     return sp.bsr_matrix((blks[order], colv[order], indptr), shape=A.shape)
 
 
-def _blocks(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], A.nb_pad, A.bs)
+def _spmv_einsum(data, cols, x: torch.Tensor) -> torch.Tensor:
+    """The reference's y = A @ x: a gather of x, then one contraction."""
+    _, nb, b, _ = data.shape
+    # (..., K, nb, b)
+    xg = x.reshape(*x.shape[:-1], nb, b)[..., cols.long(), :]
+    return torch.einsum("knij,...knj->...ni", data, xg).reshape(x.shape)
+
+
+def _prec_einsum(binv, r: torch.Tensor) -> torch.Tensor:
+    """The reference's Dblk^{-1} r: one contraction."""
+    nb, b, _ = binv.shape
+    return torch.einsum("nij,...nj->...ni", binv,
+                        r.reshape(*r.shape[:-1], nb, b)).reshape(r.shape)
 
 
 def bell_spmv(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -127,17 +141,18 @@ def bell_spmv(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     them)."""
     launches["bell_spmv"] += 1
     with phase("bell.spmv", (A.nb_pad, A.K, A.bs, A.data.dtype)):
-        xg = _blocks(A, x)[..., A.cols.long(), :]  # (..., K, nb_pad, b)
-        y = torch.einsum("knij,...knj->...ni", A.data, xg)
-        return y.reshape(x.shape)
+        if x.is_cuda:
+            return k8.bell_spmv(A.data, A.cols, A.row_nnz, x.contiguous())
+        return _spmv_einsum(A.data, A.cols, x)
 
 
 def _block_prec(binv, A: BlockEllMatrix, r: torch.Tensor) -> torch.Tensor:
     """Dblk^{-1} r, block row by block row."""
     launches["bell_prec"] += 1
     with phase("bell.prec", (A.nb_pad, A.bs, binv.dtype)):
-        return torch.einsum("nij,...nj->...ni", binv,
-                            _blocks(A, r)).reshape(r.shape)
+        if r.is_cuda:
+            return k8.bell_diag(binv, r.contiguous())
+        return _prec_einsum(binv, r)
 
 
 def block_diag_inv(A: BlockEllMatrix) -> torch.Tensor:

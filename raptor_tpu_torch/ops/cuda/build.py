@@ -142,4 +142,11 @@ def load_library() -> ctypes.CDLL:
     lib.raptor_dia_df64_f32.argtypes = [p, p, p, p, p, p, p, i64, p, i32, p, p,
                                         *plan, p]
     lib.raptor_dia_df64_f32.restype = i32
+    for name in ("raptor_bell_f32", "raptor_bell_bf16", "raptor_bell_f64"):
+        fn = getattr(lib, name)
+        # form, data, cols, row_nnz, x, y, nb, K, b, batch, the diagonal
+        # form's block strides sn, si, sj, stream
+        fn.argtypes = [i32, p, p, p, p, p, i32, i32, i32, i32, i64, i64, i64,
+                       p]
+        fn.restype = i32
     return lib

@@ -4,7 +4,7 @@ Counterpart of ``raptor_tpu/solve/cycle.py``.  The V-/W-cycle recursion is
 plain Python over the levels; the coarsest level is a dense inverse (one
 matvec) and the coarse tail below ``tail_start`` can be folded into one
 dense operator (``materialize_tail``).  A level's operator runs through
-its BlockELL layout (``Abell``, torch einsums), K1 on its DIA planes
+its BlockELL layout (``Abell``, K8 on the card), K1 on its DIA planes
 (``Ahyb``) or K4 on its banded layout, and its transfers through the
 geo-split reshapes (``Tgeo``) or K6 (``core/hybrid.py``); the others use
 the gather ELL SpMV.  On a fast layout the smoothers take their operator
@@ -14,7 +14,7 @@ applies from it, the two-stage GS's inner triangular series excepted
 The reference folds the tail by ``vmap`` over identity columns; here the
 columns are a batch dimension (B, n) on the ELL path.  As in the
 reference, the fast layouts are stripped for that, so the kernels only
-ever see 1-D vectors.
+ever see 1-D vectors; the BlockELL layout is kept, and K8 takes the batch.
 """
 
 from __future__ import annotations

@@ -192,6 +192,28 @@ def clamped_rect_plan(device="cpu") -> dict:
                 ranges=((0, 0), (2, 2), (4, 4)))
 
 
+def random_bell(nb: int, b: int, per_row: int, seed: int = 0,
+                pad: int = 8):
+    """(BlockEllMatrix with NumPy fp64 leaves, the scipy BSR matrix): nb
+    block rows of random b x b blocks, each the diagonal block and 0 to
+    per_row - 1 others, so rows differ in length and the shorter ones hold
+    zero blocks in their padded slots; identity blocks pad nb up to a
+    multiple of ``pad``."""
+    import scipy.sparse as sp
+
+    from raptor_tpu_torch.core.bell import bell_from_bsr
+
+    rng = np.random.default_rng(seed)
+    cols = [np.union1d(rng.choice(nb, size=min(int(rng.integers(0, per_row)),
+                                               nb), replace=False), [i])
+            for i in range(nb)]
+    indptr = np.cumsum([0] + [len(c) for c in cols])
+    blocks = rng.standard_normal((int(indptr[-1]), b, b))
+    a = sp.bsr_matrix((blocks, np.concatenate(cols), indptr),
+                      shape=(nb * b, nb * b))
+    return bell_from_bsr(a, bs=b, dtype=np.float64, row_pad_multiple=pad), a
+
+
 def star(nd: int) -> list:
     """The 2 * nd + 1 point star's offsets, in C order."""
     import itertools

@@ -53,13 +53,14 @@ def test_bound_symbols_exist_in_cuda_source():
     """Every C entry point load_library binds is defined in csrc."""
     src = "".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     build = (PKG / "ops" / "cuda" / "build.py").read_text()
-    bound = set(re.findall(r"raptor_(?:dia|banded)_\w+", build))
+    bound = set(re.findall(r"raptor_(?:dia|banded|bell)_\w+", build))
     assert bound == {"raptor_dia_planes_f32", "raptor_dia_planes_bf16",
                      "raptor_dia_const_f32", "raptor_dia_halo_f32",
                      "raptor_dia_halo_bf16", "raptor_banded_f32",
                      "raptor_banded_bf16", "raptor_banded_rect_f32",
                      "raptor_banded_rect_bf16", "raptor_banded_df64_f32",
-                     "raptor_dia_df64_f32"}
+                     "raptor_dia_df64_f32", "raptor_bell_f32",
+                     "raptor_bell_bf16", "raptor_bell_f64"}
     for name in bound:
         assert re.search(rf"\bint {name}\(", src), name
 
