@@ -63,6 +63,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from port_common import (ALG128_CFG, ALG_CFG, ALG_MAX_ITERS, ALG_SIZES,
+                         CONFIG3_FENCE, CONFIG4_DEVICE_SIZES_PIN, CONFIG_ITERS,
+                         CONFIG_SIZES, HOST_ROUTE_THRESHOLD, N_PROFILED, TOL,
+                         TOL_KERNEL, config_problem, config_settings, graph_ms,
+                         poisson7_residual, profile_cycles, shuffled_poisson,
+                         stencil_7pt, true_relres)
+
 ROWS = ("kernels", "structured128", "structured256", "alg48", "alg96",
         "alg128", "devsetup", "configs", "sdist256", "adist96")
 SHARDED_ROWS = ("sdist256", "adist96")
@@ -79,9 +86,7 @@ FULL = {
     "alg96": dict(n=96),
     "alg128": dict(n=128),
     "devsetup": dict(n=96, threshold=None),
-    "configs": dict(sizes={"config1": 64, "config2": 32, "config3": 96,
-                           "config4": 48, "config5": 64, "nonsym_gmres": 128},
-                    device_sa_threshold=None),
+    "configs": dict(sizes=CONFIG_SIZES, device_sa_threshold=None),
     "sdist256": dict(n=256),
     "adist96": dict(n=96, tail=4096),
 }
@@ -100,32 +105,15 @@ SMALL = {
     "adist96": dict(n=16, tail=1024),
 }
 
-TOL_KERNEL = 1e-6  # max|y - y_ref| <= TOL_KERNEL * max|y_ref|
-TOL = 1e-8  # the refined solves' tolerance and their true-relres limit
-CYCLES, REPS, SOLVE_REPS, N_PROFILED = 20, 3, 3, 10
+CYCLES, REPS, SOLVE_REPS = 20, 3, 3
 # PERF.md section 2, at the bench's sizes: PCG iteration limits (the
 # reference's count + 1), the reference's level sizes
 STRUCTURED_MAX_ITERS = {128: 8, 256: 8}
-ALG_MAX_ITERS = {48: 13}
-ALG_SIZES = {48: [110592, 55296, 6462, 881, 147, 46],
-             96: [884736, 442368, 50059, 6323, 939, 189, 56]}
 ALG128_SIZES = {128: [2**k for k in range(21, 5, -1)]}
 ALG128_MAX_ITERS = {128: 10}
-# BENCH_r05.json "cfg": the reference's iterations at the bench's sizes;
-# config 3 is held to its own fence
-CONFIG_ITERS = {"config1": 10, "config2": 11, "config3": 30, "config4": 23,
-                "config5": 14, "nonsym_gmres": 45}
-CONFIG3_FENCE = 32
-CONFIG4_DEVICE_SIZES_PIN = [324864, 17646, 960, 66, 6]
 CONFIG4_FENCE = 3  # device SA against host SA iterations
 # the sharded solves: fp32 PCG to 1e-6, no df64 refinement
 SHARD_TOL, SHARD_MAX_TRUE = 1e-6, 1e-5
-HOST_ROUTE_THRESHOLD = 2**22  # above every level: the host route
-ALG_CFG = dict(splitting="pmis", interp="direct", fine_layout="banded",
-               smoother="cheb4", cheb_degree=2)
-ALG128_CFG = dict(splitting="pmis", interp="extended", fine_layout="banded",
-                  smoother="cheb4", cheb_degree=3,
-                  operator_store_dtype="bfloat16")
 
 
 class RowFailed(Exception):
@@ -232,47 +220,6 @@ def cycle_ms(cycle, dev, cycles: int = CYCLES, reps: int = REPS) -> tuple:
     return float(np.median(out)), out
 
 
-def kernel_counts() -> collections.Counter:
-    """Every hand-written kernel's launches so far (the wrappers count a
-    launch where they launch, never a plain-version call)."""
-    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
-    from raptor_tpu_torch.ops.cuda import dia_kernel as dk
-
-    return collections.Counter(dk.launches) + collections.Counter(bk.launches)
-
-
-def profile_cycles(cycle, dev, reps: int = N_PROFILED) -> dict:
-    """torch.profiler over ``reps`` calls of ``cycle()``, per call: wall
-    (host clock ending in a synchronize), device busy (the union of the
-    device events' intervals), device events, busy share, and each
-    hand-written kernel's launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    before = kernel_counts()
-    sync(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            cycle()
-        sync(dev)
-        wall = time.perf_counter() - t0
-    launches = kernel_counts() - before
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        raise RuntimeError("the profiler recorded no device events")
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    out = {"cycles": reps, "wall_ms": wall * 1e3 / reps,
-           "busy_ms": busy * 1e-3 / reps, "device_events": len(spans) / reps,
-           "launches": {k: c / reps for k, c in sorted(launches.items())}}
-    out["busy_share"] = out["busy_ms"] / out["wall_ms"]
-    return out
-
-
 class Checks:
     """A row's correctness checks: each is recorded, and ``close`` raises
     ``RowFailed`` if any failed."""
@@ -298,47 +245,6 @@ class Checks:
         if bad:
             raise RowFailed(f"checks failed: {bad}", self.row)
         return self.row
-
-
-def stencil_7pt() -> np.ndarray:
-    st = np.zeros((3, 3, 3))
-    st[1, 1, 1] = 6.0
-    for d in range(3):
-        i = [1, 1, 1]
-        for s in (0, 2):
-            i[d] = s
-            st[tuple(i)] = -1.0
-    return st
-
-
-def shuffled_poisson(nx: int) -> sp.csr_matrix:
-    """3D 7-point Poisson on nx^3, symmetrically permuted by
-    default_rng(0): the reference bench's shuffled input."""
-    from raptor_tpu_torch.gallery import poisson_3d
-
-    A = sp.csr_matrix(poisson_3d(nx))
-    p = np.random.default_rng(0).permutation(A.shape[0])
-    return A[p][:, p].tocsr()
-
-
-def poisson7_residual(x64: np.ndarray, b64: np.ndarray, n: int) -> np.ndarray:
-    """b - A x in fp64 on the host for the 7-point Poisson operator on n^3
-    (Dirichlet truncation, as gallery.stencil_grid builds it), without
-    assembling the matrix."""
-    X = x64.reshape(n, n, n)
-    Y = 6.0 * X
-    for ax in range(3):
-        lo = [slice(None)] * 3
-        hi = [slice(None)] * 3
-        lo[ax], hi[ax] = slice(1, None), slice(None, -1)
-        Y[tuple(lo)] -= X[tuple(hi)]
-        Y[tuple(hi)] -= X[tuple(lo)]
-    return b64 - Y.ravel()
-
-
-def true_relres(A, x, b) -> float:
-    a64 = sp.csr_matrix(A).astype(np.float64)
-    return float(np.linalg.norm(b - a64 @ x) / np.linalg.norm(b))
 
 
 def scipy_vcycle_time(levels_csr, b, nu=2, reps=5):
@@ -419,16 +325,23 @@ def cpu_yardstick(levels_csr) -> dict:
 # row: the kernel-equality check (bench.py:83-140)
 # ---------------------------------------------------------------------------
 
-def kernel_wrappers() -> dict:
+def kernel_wrappers(dev) -> dict:
+    """Each kernel's wrapper on the card; on another device, where the
+    wrappers take no tensor, the plain version that its caller routes to
+    there (the wrapper's name with ``_ref``)."""
     from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.ops.cuda import dia_kernel as dk
     from raptor_tpu_torch.structured import dia as sd
 
-    return {"K1": dk.dia_spmv_v2, "K1v1": dk.dia_spmv_v1,
-            "K2": dk.dia_spmv_const, "K3": dk.dia_spmv_halo,
-            "K4": bk.banded_spmv, "K4-halo": bk.banded_spmv_halo,
-            "K5": bk.banded_df64_residual, "K6": bk.banded_spmv_rect,
-            "K6-map_cols": bk.banded_spmv_rect, "K7": sd.dia_df64_residual}
+    wrappers = {"K1": dk.dia_spmv_v2, "K1v1": dk.dia_spmv_v1,
+                "K2": dk.dia_spmv_const, "K3": dk.dia_spmv_halo,
+                "K4": bk.banded_spmv, "K4-halo": bk.banded_spmv_halo,
+                "K5": bk.banded_df64_residual, "K6": bk.banded_spmv_rect,
+                "K6-map_cols": bk.banded_spmv_rect, "K7": sd.dia_df64_residual}
+    if torch.device(dev).type == "cuda":
+        return wrappers
+    return {k: getattr(sys.modules[f.__module__], f.__name__ + "_ref")
+            for k, f in wrappers.items()}
 
 
 def plain_versions() -> dict:
@@ -570,29 +483,6 @@ def _banded_cases(dev, alg_n: int, gen, ranks: int = 4) -> list:
     return cases
 
 
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` on the card: captured once in a CUDA
-    graph and replayed ``reps`` times between two CUDA events (L2-warm)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def row_kernels(dev, n: int, alg_n: int, profile: bool = False) -> dict:
     """Every hand-written kernel against its plain version on the same
     tensors, at the shapes of the structured and algebraic rows; times each
@@ -600,7 +490,7 @@ def row_kernels(dev, n: int, alg_n: int, profile: bool = False) -> dict:
     TOL_KERNEL * max|y_ref| fails the row."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    kern, plain = kernel_wrappers(), plain_versions()
+    kern, plain = kernel_wrappers(dev), plain_versions()
     cases = _dia_cases(dev, n, gen) + _banded_cases(dev, alg_n, gen)
     row = {"row": "kernels", "n": n, "alg_n": alg_n, "tol": TOL_KERNEL,
            "cases": []}
@@ -696,7 +586,7 @@ def row_structured(dev, n: int, coarse_size: int, yardstick: bool,
         y = cpu_yardstick(structured_csr(h))
         row.update(y, vs_baseline=row["dof_per_s"] / (10.0 * y["cpu_core_dof_per_s"]))
     if profile:
-        row["profile"] = profile_cycles(lambda: scycle(hM, b), dev)
+        row["profile"] = profile_cycles(lambda: scycle(hM, b))
     log(f"[structured {n}^3] setup {warm:.3f} s warm ({cold:.3f} s cold), "
         f"{len(h.levels)} levels; V-cycle bf16 {vc:.3f} ms, fp32 {vc32:.3f} "
         f"ms; solve {sol:.3f} s, {int(iters)} iterations, true relres "
@@ -765,7 +655,7 @@ def _precision_pair(h, dev, b_np, profile: bool) -> dict:
         out[f"solve_{tag}_device_s"], out[f"solve_{tag}_device_s_reps"] = s, reps
         out[f"iterations_{tag}"] = it
         if profile:
-            out[f"profile_{tag}"] = profile_cycles(lambda: cycle(hh, bd), dev)
+            out[f"profile_{tag}"] = profile_cycles(lambda: cycle(hh, bd))
     return out
 
 
@@ -921,34 +811,6 @@ def row_devsetup(dev, n: int, threshold=None, profile: bool = False) -> dict:
     return check.close()
 
 
-def _config_problem(name: str, size: int):
-    from raptor_tpu_torch.gallery import (anisotropic_2d, convection_diffusion_2d,
-                                          elasticity_3d, poisson_2d, poisson_3d)
-
-    gens = {"config1": lambda: (poisson_2d(size), None),
-            "config2": lambda: (poisson_3d(size), None),
-            "config3": lambda: (anisotropic_2d(size), None),
-            "config4": lambda: elasticity_3d(size)[:2],
-            "config5": lambda: (poisson_3d(size), None),
-            "nonsym_gmres": lambda: (convection_diffusion_2d(size), None)}
-    return gens[name]()
-
-
-def config_settings(name: str):
-    """(AmgConfig, SolveConfig) of an acceptance row (bench.py:423-433):
-    config 4 with the bench's host_setup_threshold (its host SA route),
-    nonsym_gmres PMIS + Jacobi under refined GMRES, the rest their
-    presets."""
-    from raptor_tpu_torch import PRESETS, AmgConfig, SolveConfig
-
-    cfgs = {"config4": dataclasses.replace(PRESETS["config4"],
-                                           host_setup_threshold=400000),
-            "nonsym_gmres": AmgConfig(splitting="pmis", smoother="jacobi")}
-    krylov = "gmres" if name == "nonsym_gmres" else "cg"
-    return (cfgs.get(name) or PRESETS[name],
-            SolveConfig(tol=TOL, refine=True, krylov=krylov))
-
-
 def _config_run(A, B, cfg, sc, dev) -> dict:
     from raptor_tpu_torch import solve
 
@@ -971,7 +833,7 @@ def row_configs(dev, sizes: dict, device_sa_threshold=None,
     check = Checks(row)
     full = sizes == FULL["configs"]["sizes"]
     for name, size in sizes.items():
-        A, B = _config_problem(name, size)
+        A, B = config_problem(name, size)
         cfg, sc = config_settings(name)
         r = _config_run(A, B, cfg, sc, dev)
         r["size"] = size
@@ -1022,14 +884,15 @@ def _sdist_body(ring, dev, profile: bool, n: int) -> dict:
     rank 0 also the fp64 relres of the gathered x and the single-device
     solve on the same plan."""
     from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import launch
     from raptor_tpu_torch.structured import dist as sd
     from raptor_tpu_torch.structured.solver import (_build_hierarchy_planned,
                                                     structured_solve)
 
-    before = kernel_counts()
+    before = collections.Counter(launch.launches)
     cold = sd.sdist_config5(ring, dev, n=n)
     warm = sd.sdist_config5(ring, dev, n=n)
-    launches = kernel_counts() - before
+    launches = launch.launches - before
     dh, info = warm["hier"], warm["info"]
     b = torch.from_numpy(default_rhs(n ** 3, dtype=np.float32)).to(dev)
     b_loc = sd._block(b, ring, int(np.prod(dh.levels[0].dims_local)))
@@ -1069,6 +932,7 @@ def _adist_body(ring, dev, profile: bool, n: int, tail: int) -> dict:
     from raptor_tpu_torch.api import solve_hier
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.gallery import default_rhs
+    from raptor_tpu_torch.ops.cuda import launch
     from raptor_tpu_torch.parallel import (dist_solve, dist_solve_taps,
                                            distribute_hierarchy,
                                            distribute_hierarchy_taps,
@@ -1089,14 +953,14 @@ def _adist_body(ring, dev, profile: bool, n: int, tail: int) -> dict:
     if ring.axis_index == 0:
         _, info1 = solve_hier(h, bd, tol=SHARD_TOL, maxiter=200)
         out["single_device_iters"] = int(info1.iterations)
-    before = kernel_counts()
+    before = collections.Counter(launch.launches)
     runs = []
     for _ in ("cold", "warm"):
         dh, dist_s = timed(lambda: distribute_hierarchy(h, ring, tail), dev)
         (x, info), sol = timed(lambda: dist_solve(dh, bd, ring, tol=SHARD_TOL,
                                                   maxiter=200), dev)
         runs.append((dist_s, sol, int(info.iterations), float(info.relres)))
-    launches = kernel_counts() - before
+    launches = launch.launches - before
     ctx = pdist.CommCtx.flat(ring)
     b_loc = pdist._rows(bd, ring, dh.levels[0].n_local)
     vc, vc_reps = cycle_ms(lambda: pdist.dist_cycle(dh, b_loc, ctx), dev)
@@ -1130,7 +994,7 @@ def ring_profile(cycle, dev, ring) -> dict | None:
     """Rank 0's profile of ``cycle`` (``profile_cycles``); every other rank
     runs the same cycles unprofiled, so that their collectives meet."""
     if ring.axis_index == 0:
-        return profile_cycles(cycle, dev)
+        return profile_cycles(cycle)
     for _ in range(N_PROFILED):
         cycle()
     sync(dev)

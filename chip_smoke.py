@@ -20,8 +20,8 @@ Phases, each of which raises on failure (there is no CPU path):
 4. main path: 3D 7-point Poisson at 128^3 -> build_structured_hierarchy
    (cheb4 degree 2, coarse_size 2048) -> cast_hierarchy(bf16) -> V-cycles
    -> structured_solve_refined, checked by a host fp64 residual;
-5. proof: every CUDA dia_spmv call of phase 4 launched K1 or K2, and
-   every CUDA dia_df64_residual call K7; the launches by shape (n, offsets,
+5. proof: phase 4 launched K1, K2 and K7 and no K1v1 (the launches
+   counted since just before it); the launches by shape (n, offsets,
    plane dtype);
 6. banded kernel equality: the shuffled 48^3 algebraic hierarchy built on
    the host by raptor_tpu_torch.api.setup; K4 on every banded A (fp32, and
@@ -32,9 +32,8 @@ Phases, each of which raises on failure (there is no CPU path):
    api.setup (PMIS, direct interpolation, RCM-banded layout, cheb4
    degree 2) -> V-cycles -> api.solve with the df64-refined PCG, checked by
    a host fp64 residual, the iteration count and the level sizes;
-8. proof: every CUDA banded apply of phase 7 launched K4, K5 or K6, each
-   kernel at least once (counts set to 0 just before phase 7, read just
-   after it);
+8. proof: phase 7 launched K4, K5 and K6, each at least once (the
+   launches counted since just before phase 7, read just after it);
 9. the same path at shuffled 96^3, levels 0-1 (above host_setup_threshold)
    built on the card by the device route (PMIS, direct interpolation,
    SpGEMM Galerkin products), checked to hold CUDA tensors just before the
@@ -55,10 +54,9 @@ Phases, each of which raises on failure (there is no CPU path):
     -> a host fp64 residual with the caller's matrix; checked: the
     reference's 16 level sizes 2**21 ... 2**6, at most 10 PCG iterations
     (the reference takes 9), true relres <= 1e-8;
-9b. proof: every CUDA planes_spmv call of phase 9a launched K1, at least
-    once; K4, K5 and K6 launched once for each CUDA call of their kind
-    (counts set to 0 just before phase 9a, read just after it); the
-    launches by shape;
+9b. proof: phase 9a launched K1, at least once; K4, K5 and K6 however
+    often (the launches counted since just before phase 9a, read just
+    after it); the launches by shape;
 9c. K1 on the DIA planes of every level of that hierarchy, fp32 and bf16,
     bit for bit against its plain version on the same CUDA tensors, each
     timed L2-warm and L2-cold beside its bound and cuSPARSE; the path's sum
@@ -81,7 +79,7 @@ Phases, each of which raises on failure (there is no CPU path):
     7-point Poisson, fp32, mcgs, coarse_size 512 -> sdist_build_hierarchy
     -> sdist_solve(tol 1e-6), cold then warm, V-cycles; checked by a host
     fp64 residual and against the single-device solve on the same plan;
-12. proof: every CUDA halo SpMV of phase 11 launched K3 (counts set to 0
+12. proof: phase 11 launched K3 and no K1v1 (the launches counted since
     just before phase 11, read just after it); the launches by shape;
 13. four ranks sharing the card over gloo (host-staged messages) at 128^3:
     every rank launched K3, rank 0's gathered x is checked by a host fp64
@@ -100,9 +98,9 @@ Phases, each of which raises on failure (there is no CPU path):
     residual against the caller's matrix, the iterations against the
     single-device solve_hier on the same hierarchy; torch.profiler over 10
     of its V-cycles;
-16. proof: every CUDA sharded banded operator apply of phase 15 launched
-    K4's halo form (counts set to 0 just before, read just after; at one
-    rank no transfer shards, as in the reference);
+16. proof: phase 15 launched K4's halo form and no K6-map_cols (the
+    launches counted since just before, read just after; at one rank no
+    transfer shards, as in the reference);
 17. four ranks sharing the card over gloo at shuffled 96^3: each rank runs
     dist_solve and dist_solve_taps (2 nodes x 2 chips) on its block; every
     rank must launch K4's halo form and K6's map_cols form; rank 0's
@@ -120,7 +118,7 @@ Phases, each of which raises on failure (there is no CPU path):
     solve seconds; checked: true relres <= 1e-8 and iterations <= the
     reference's count + 1 (CONFIG_ITERS, BENCH_r05.json "cfg"; config3
     against its fence, 32); each solve's K8 launches equal its BlockELL
-    applies (bell.launches; both counts set to 0 just before the solve),
+    applies (bell.launches; both counted since just before the solve),
     more than 0 for config 4 and 0 for the other rows.  The operators and
     transfers use the ELL layout, as the reference's do, and launch no
     hand-written kernel; config 4's block smoother applies launch K8;
@@ -147,8 +145,8 @@ Phases, each of which raises on failure (there is no CPU path):
 21. the mcgs path at full width: shuffled 96^3 with config 5's preset and
     fine_layout 'banded', levels 0-1 built on the card and coloured on the
     host; colours per level, V-cycle ms and its profile; the refined solve
-    (true <= 1e-8) on counts set to 0 just before it: K4, K5 and K6 each
-    launched, once for each CUDA call of their kind; the host route's
+    (true <= 1e-8) on the launches counted since just before it: K4, K5
+    and K6 each launched; the host route's
     iterations beside it; then dist_solve on one rank over NCCL with mcgs
     (+-1 of solve_hier on the same hierarchy) and with tsgs (printed beside
     the single-device tsgs count: its inner series is processor-local),
@@ -173,17 +171,17 @@ Phases, each of which raises on failure (there is no CPU path):
     and api.solve, every level built on the card (checked before
     Hierarchy.to), level 0's C/F set drawn again on the card and checked on
     the host (every F point with a strong influence has a C influence);
-    V-cycles, the refined solve (true <= 1e-8) on counts set to 0 just
-    before it (K4, K5 and K6 each launched, once for each CUDA call of
-    their kind), then K4, K6 and K5 bit for bit at every launch shape of
+    V-cycles, the refined solve (true <= 1e-8) on the launches counted
+    since just before it (K4, K5 and K6 each launched), then K4, K6 and
+    K5 bit for bit at every launch shape of
     the path, and K4 at the widest banded level timed; at CLJP_N^3 the
     level sizes are the reference's and the iterations within 1 of its
     count (the reference has no count at 96^3);
 24. full coarsening on the main path (CFG, dim_policy "size", bf16
-    cast_hierarchy, structured_solve_refined) at 128^3 and 64^3, on counts
-    set to 0 just before each: the reference's plans, true relres <= 1e-8,
-    at 64^3 the reference's iterations +- 1, every CUDA dia_spmv call
-    launching K1 or K2 and every CUDA dia_df64_residual call K7, then K1
+    cast_hierarchy, structured_solve_refined) at 128^3 and 64^3, on the
+    launches counted since just before each: the reference's plans, true
+    relres <= 1e-8, at 64^3 the reference's iterations +- 1, K1, K2 and
+    K7 each launched, then K1
     (fp32, bf16; 27 offsets), K2 and K7 bit for bit at every launch shape
     of the path; V-cycle ms and solve seconds beside phase 4's
     semicoarsening;
@@ -225,8 +223,8 @@ Phases, each of which raises on failure (there is no CPU path):
     the ring's size; 1-D, 2-D and empty), psum, pmax and all_gather in
     fp32, fp64, int64 and bf16, each equal to the gloo ring's result on the
     same inputs and to what the inputs give, and TAPS's node and chip rings
-    with their global peer ranks; config 5 at SDIST_N^3 (every rank's K3
-    calls all K3 launches, no K1v1, iterations phase 11's +-1, rank 0's
+    with their global peer ranks; config 5 at SDIST_N^3 (every rank
+    launches K3 and no K1v1, iterations phase 11's +-1, rank 0's
     gathered x true <= SDIST_MAX_TRUE); the algebraic sharded solve of
     shuffled ADIST_N^3 padded for the ranks, flat and TAPS on a (2, N / 2)
     grid (K4-halo and K6-map_cols on every rank, iterations the one-rank
@@ -277,20 +275,18 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from port_common import (ALG128_CFG, ALG_CFG, ALG_MAX_ITERS, ALG_SIZES,
+                         CONFIG3_FENCE, CONFIG4_DEVICE_SIZES_PIN, CONFIG_ITERS,
+                         CONFIG_SIZES, HOST_ROUTE_THRESHOLD, N_PROFILED,
+                         TOL_KERNEL, config_problem, config_settings, graph_ms,
+                         poisson7_residual, profile_cycles, shuffled_poisson,
+                         stencil_7pt, true_relres)
+
 SIZE = 128
 CFG = dict(smoother="cheb4", cheb_degree=2, coarse_size=2048, max_levels=40)
-TOL_KERNEL = 1e-6  # max|y - y_ref| <= TOL_KERNEL * max|y_ref|
 MAX_RELRES = 1e-8
 MAX_ITERS = 8  # the JAX reference takes 7
 N_CYCLES = 20
-# algebraic engine: the reference bench row's configuration
-ALG_CFG = dict(splitting="pmis", interp="direct", fine_layout="banded",
-               smoother="cheb4", cheb_degree=2)
-# level sizes of the JAX reference's hierarchies for these inputs
-ALG_SIZES = {48: [110592, 55296, 6462, 881, 147, 46],
-             96: [884736, 442368, 50059, 6323, 939, 189, 56]}
-# the JAX reference takes 12 at 48^3; it has no count at 96^3
-ALG_MAX_ITERS = {48: 13}
 K5_TOL = 1e-12  # |rh + rl - r64| <= K5_TOL * max|A @ xh|
 # sharded config 5 (raptor_tpu/cli.py:194-241): one rank at SDIST_N^3, four
 # ranks sharing the card at SDIST_N4^3
@@ -307,19 +303,12 @@ ADIST_N, ADIST_RANKS, ADIST_TAIL = 96, 4, 4096
 ADIST_PAD = 1024 * ADIST_RANKS
 ADIST_TOL, ADIST_MAX_TRUE = SDIST_TOL, SDIST_MAX_TRUE
 TAPS_GRID = (2, 2)  # (nodes, chips) of the four ranks
-N_PROFILED = 10
 # the algebraic engine's plane mode (bench.py:228-320, the alg128 row):
 # natural-ordered 128^3 Poisson in, no grid information; levels 0-2 (above
 # the default host_setup_threshold) from the device geo chain
 ALG128_N = 128
-ALG128_CFG = dict(splitting="pmis", interp="extended", fine_layout="banded",
-                  smoother="cheb4", cheb_degree=3,
-                  operator_store_dtype="bfloat16")
 ALG128_SIZES = [2**k for k in range(21, 5, -1)]  # the reference's 16 levels
 ALG128_MAX_ITERS = 10  # the reference takes 9
-# a threshold above every level's size: the host route, which the device
-# route is compared with (phases 9, 9d and 9e)
-HOST_ROUTE_THRESHOLD = 2**22
 # the device-built geo hierarchy against the host-built one, as the CPU
 # test (tests/test_torch_geo_device.py::test_geo_device_matches_host)
 GEO_A_TOL, GEO_P_TOL = 1e-5, 1e-6
@@ -341,17 +330,9 @@ K5_OPS_PER_ENTRY = {False: 25, True: 27}
 # counted): two_prod 11 (10 where the constant's split is made on the
 # host), plane * xl added 2, df_add 14
 K7_OPS_PER_OFFSET = {"const": 26, "planes": 27}
-# the acceptance rows (bench.py:394-470): the reference's refined-solve
-# iterations at these sizes, BENCH_r05.json's "cfg" (config3's fence is
-# its own, 32); config 3 at full width is anisotropic_2d(CONFIG3_FULL_N)
-CONFIG_ITERS = {"config1": 10, "config2": 11, "config3": 30, "config4": 23,
-                "config5": 14, "nonsym_gmres": 45}
-CONFIG3_FENCE = 32
-# a regression pin, not a reference: the level sizes config 4's device SA
-# route gave on an H100 80GB HBM3.  Phase 19's check that matters is
-# against the host route built with the device route's lambda_max
-# estimate, in the same run
-CONFIG4_DEVICE_SIZES_PIN = [324864, 17646, 960, 66, 6]
+# config 3 at full width is anisotropic_2d(CONFIG3_FULL_N).  Phase 19's
+# check that matters is against the host route built with the device
+# route's lambda_max estimate, in the same run, not CONFIG4_DEVICE_SIZES_PIN
 CONFIG3_FULL_N = 768
 # phase 22: the four-rank mcgs solve's shuffled grid
 MCGS4_N = 48
@@ -407,56 +388,6 @@ DSA_FENCE = 2
 MC_DTYPES = (torch.float32, torch.float64, torch.int64, torch.bfloat16)
 
 
-def stencil_7pt() -> np.ndarray:
-    st = np.zeros((3, 3, 3))
-    st[1, 1, 1] = 6.0
-    for d in range(3):
-        i = [1, 1, 1]
-        for s in (0, 2):
-            i[d] = s
-            st[tuple(i)] = -1.0
-    return st
-
-
-def cuda_ms(fn, reps: int = 20, flush_l2: bool = False) -> float:
-    """Mean device time of ``fn()``: captured once in a CUDA graph and
-    replayed ``reps`` times between two CUDA events, so the host cost of
-    the Python wrapper (tens of µs, more than a kernel here) is not timed.
-
-    By default the replays follow each other, so data that fits the 50 MB
-    L2 stays there (L2-warm).  ``flush_l2`` writes 256 MB between replays
-    and times each replay between its own events (L2-cold)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    if flush_l2:
-        junk = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-        total = 0.0
-        for _ in range(reps):
-            junk.zero_()
-            start.record()
-            graph.replay()
-            stop.record()
-            stop.synchronize()
-            total += start.elapsed_time(stop)
-        return total / reps
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take to move
     ``nbytes`` and do ``ops`` fp32 operations."""
@@ -495,7 +426,7 @@ def host_csr(a: sp.spmatrix, shape, dev):
 def yardsticks(r: dict, A_csr, x, nbytes: int, ops=None) -> None:
     """Record the library time (one torch.mv of ``A_csr``, cuSPARSE) and the
     bound of a kernel; ``ops`` defaults to 2 per nonzero."""
-    r["library_ms"] = cuda_ms(lambda: torch.mv(A_csr, x))
+    r["library_ms"] = graph_ms(lambda: torch.mv(A_csr, x))
     r["bound_ms"], r["bound_by"] = bound(
         nbytes, 2 * A_csr._nnz() if ops is None else ops)
 
@@ -588,8 +519,8 @@ def phase_kernels(dev) -> dict:
         del y, y_ref
         if batch is not None:
             continue
-        warm = cuda_ms(lambda: dia_spmv_const(consts, off7, dims, x))
-        cold = cuda_ms(lambda: dia_spmv_const(consts, off7, dims, x),
+        warm = graph_ms(lambda: dia_spmv_const(consts, off7, dims, x))
+        cold = graph_ms(lambda: dia_spmv_const(consts, off7, dims, x),
                        flush_l2=True)
         plan = const_tile_plan(off7, dims, 1, n_sm)
         print(f"[kernel] {name}: {warm * 1e3:.1f} us L2-warm, {cold * 1e3:.1f} "
@@ -598,9 +529,9 @@ def phase_kernels(dev) -> dict:
               f"time, graph replay)")
         if dims == fine:
             rec["K2"]["ms"], rec["K2"]["cold_ms"] = warm, cold
-            rec["K2"]["plain_ms"] = cuda_ms(
+            rec["K2"]["plain_ms"] = graph_ms(
                 lambda: dia_spmv_const_ref(consts, off7, dims, x))
-            rec["K2"]["cold_plain_ms"] = cuda_ms(
+            rec["K2"]["cold_plain_ms"] = graph_ms(
                 lambda: dia_spmv_const_ref(consts, off7, dims, x), flush_l2=True)
             Af = dia_from_stencil(st, dims, device=dev)
             yardsticks(rec["K2"], dia_csr(Af.data, Af.linear_offsets(), Af.n),
@@ -625,16 +556,16 @@ def phase_kernels(dev) -> dict:
                 + (f" batch {batch}" if batch else ""))
         rec["K1"]["err"] = max(rec["K1"]["err"],
                                _check(name, y, dia_spmv_v2_ref(data, lins, x)))
-        warm = cuda_ms(lambda: dia_spmv_v2(data, lins, x))
-        cold = cuda_ms(lambda: dia_spmv_v2(data, lins, x), flush_l2=True)
+        warm = graph_ms(lambda: dia_spmv_v2(data, lins, x))
+        cold = graph_ms(lambda: dia_spmv_v2(data, lins, x), flush_l2=True)
         moved = data.numel() * data.element_size() + 8 * x.numel()
         print(f"[kernel] {name}: {warm * 1e3:.1f} us L2-warm, {cold * 1e3:.1f} "
               f"us L2-cold, bound {bound(moved, 0)[0] * 1e3:.1f} us (device "
               f"time, graph replay)")
         if label == "level 1" and dtype == torch.bfloat16:
             rec["K1"]["ms"], rec["K1"]["cold_ms"] = warm, cold
-            rec["K1"]["plain_ms"] = cuda_ms(lambda: dia_spmv_v2_ref(data, lins, x))
-            rec["K1"]["cold_plain_ms"] = cuda_ms(
+            rec["K1"]["plain_ms"] = graph_ms(lambda: dia_spmv_v2_ref(data, lins, x))
+            rec["K1"]["cold_plain_ms"] = graph_ms(
                 lambda: dia_spmv_v2_ref(data, lins, x), flush_l2=True)
             yardsticks(rec["K1"], dia_csr(data, lins, data.shape[1]), x, moved)
     # bytes the call must move: planes (bf16) + x + y for K1 on level 1,
@@ -707,11 +638,11 @@ def _k7_case(name: str, A, gen, plain: bool = False) -> dict:
     nbytes = 24 * A.n + (0 if form == "const" else 4 * A.n_off * A.n)
     bms, by = bound(nbytes, K7_OPS_PER_OFFSET[form] * A.n_off * A.n)
     r = {"err": err, "bytes": nbytes, "bound_ms": bms, "bound_by": by,
-         "ms": cuda_ms(lambda: dia_df64_residual(*args)),
-         "cold_ms": cuda_ms(lambda: dia_df64_residual(*args), flush_l2=True)}
+         "ms": graph_ms(lambda: dia_df64_residual(*args)),
+         "cold_ms": graph_ms(lambda: dia_df64_residual(*args), flush_l2=True)}
     if plain:
-        r["plain_ms"] = cuda_ms(lambda: dia_df64_residual_ref(*args), reps=5)
-        r["cold_plain_ms"] = cuda_ms(lambda: dia_df64_residual_ref(*args),
+        r["plain_ms"] = graph_ms(lambda: dia_df64_residual_ref(*args), reps=5)
+        r["cold_plain_ms"] = graph_ms(lambda: dia_df64_residual_ref(*args),
                                      reps=5, flush_l2=True)
     print(f"[kernel] {name}: {r['ms'] * 1e3:.1f} us L2-warm, "
           f"{r['cold_ms'] * 1e3:.1f} us L2-cold, bound {bms * 1e3:.1f} us "
@@ -720,6 +651,35 @@ def _k7_case(name: str, A, gen, plain: bool = False) -> dict:
              f"{r['cold_plain_ms'] * 1e3:.1f} us L2-cold" if plain else "")
           + " (device time, graph replay)")
     return r
+
+
+# the kernels of each wrapper module, for the reads that keep to one
+DIA_KERNELS = ("K1", "K1v1", "K2", "K3", "K7")
+BANDED_KERNELS = ("K4", "K4-halo", "K5", "K6", "K6-map_cols")
+
+
+def counts() -> tuple:
+    """A snapshot of the kernels' launch counters (``ops/cuda/launch.py``)
+    for ``since``: a path's launches are read as the difference, so no
+    counter is ever reset."""
+    from raptor_tpu_torch.ops.cuda import launch
+
+    return (collections.Counter(launch.launches),
+            collections.Counter(launch.launches_by_shape))
+
+
+def since(snap: tuple, kernels=None) -> tuple:
+    """(launches by kernel, launches by shape) counted since ``snap``, of
+    ``kernels`` only where given."""
+    from raptor_tpu_torch.ops.cuda import launch
+
+    got, shapes = launch.launches - snap[0], launch.launches_by_shape - snap[1]
+    if kernels is not None:
+        got = collections.Counter({k: c for k, c in got.items()
+                                   if k in kernels})
+        shapes = collections.Counter({k: c for k, c in shapes.items()
+                                      if k[0] in kernels})
+    return got, shapes
 
 
 def per_call(counter, before, calls: int) -> dict:
@@ -801,7 +761,7 @@ def phase_main(dev) -> dict:
             raise AssertionError("V-cycle output not finite")
         return (time.perf_counter() - t0) / N_CYCLES * 1e3
 
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches_by_shape
+    from raptor_tpu_torch.ops.cuda.launch import launches_by_shape
 
     before = collections.Counter(launches_by_shape)
     vc_bf16 = vcycle_ms(hM)
@@ -842,16 +802,6 @@ def phase_main(dev) -> dict:
 # algebraic engine: RCM-banded layouts, kernels K4, K5, K6
 # ---------------------------------------------------------------------------
 
-def shuffled_poisson(nx: int, scale: float = 1.0) -> sp.csr_matrix:
-    """3D 7-point Poisson on nx^3, symmetrically permuted by
-    default_rng(0) (the reference bench's shuffled input), times ``scale``."""
-    from raptor_tpu_torch.gallery import poisson_3d
-
-    A = sp.csr_matrix(poisson_3d(nx)) * scale
-    p = np.random.default_rng(0).permutation(A.shape[0])
-    return A[p][:, p].tocsr()
-
-
 def _banded_bytes(plan: dict, itemsize: int) -> int:
     """Bytes a K4/K6 call must move: vals + pidx of the live slots (the
     others are never read), x (or the transfer's x span) and y."""
@@ -871,8 +821,8 @@ def _banded_line(dev, name: str, plan: dict, call) -> tuple:
     lp = bk.banded_launch_plan(
         plan, torch.cuda.get_device_properties(dev).multi_processor_count)
     live = len(bk.live_slots(plan))
-    warm = cuda_ms(call)
-    cold = cuda_ms(call, flush_l2=True)
+    warm = graph_ms(call)
+    cold = graph_ms(call, flush_l2=True)
     bms = bound(_banded_bytes(plan, plan["vals"].element_size()),
                 2 * live * plan["n"])[0]
     variant = (f"staged, {lp.pages} of {bk._window_pages(plan)} pages, "
@@ -946,7 +896,7 @@ def _k5_case(dev, h, A, rng) -> tuple:
     live = len(bk.live_slots(plan))
     nbytes = live * plan["n"] * (8 if lo is None else 12) + 24 * plan["n"]
     bms, by = bound(nbytes, K5_OPS_PER_ENTRY[lo is not None] * A.nnz)
-    warm, cold = cuda_ms(call), cuda_ms(call, flush_l2=True)
+    warm, cold = graph_ms(call), graph_ms(call, flush_l2=True)
     lp = bk.banded_launch_plan(
         plan, torch.cuda.get_device_properties(dev).multi_processor_count)
     print(f"[banded] {label} n={plan['n']} live {live}: {warm * 1e3:.1f} us "
@@ -1002,8 +952,8 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
     same_op = {"K4": a0[pm][:, pm], "K6": ell_to_csr(lv0.R)}
     for k, (plan, fn, ref, x, (warm, cold, _)) in timed.items():
         rec[k]["ms"], rec[k]["cold_ms"] = warm, cold
-        rec[k]["plain_ms"] = cuda_ms(lambda: ref(plan, x))
-        rec[k]["cold_plain_ms"] = cuda_ms(lambda: ref(plan, x), flush_l2=True)
+        rec[k]["plain_ms"] = graph_ms(lambda: ref(plan, x))
+        rec[k]["cold_plain_ms"] = graph_ms(lambda: ref(plan, x), flush_l2=True)
         rec[k]["bytes"] = _banded_bytes(plan, 4)
         shape = (plan["n"], x.shape[0])
         yardsticks(rec[k], host_csr(same_op[k], shape, dev), x, rec[k]["bytes"])
@@ -1017,8 +967,8 @@ def phase_banded_kernels(dev, h, h_pi, A_pi) -> dict:
     if h_pi.a0_lo_band is None or h.a0_lo_band is not None:
         raise AssertionError("the pi-scaled operator must carry a0_lo_band")
     # the kernels line carries K5 with vals_lo, the heavier of its forms
-    rec["K5"].update(err=max(errs), plain_ms=cuda_ms(k5["ref"]),
-                     cold_plain_ms=cuda_ms(k5["ref"], flush_l2=True),
+    rec["K5"].update(err=max(errs), plain_ms=graph_ms(k5["ref"]),
+                     cold_plain_ms=graph_ms(k5["ref"], flush_l2=True),
                      library_ms=None,  # no one PyTorch call computes it
                      **{key: k5[key] for key in ("ms", "cold_ms", "bytes",
                                                  "bound_ms", "bound_by")})
@@ -1251,23 +1201,18 @@ def phase_algebraic(dev, nx: int, cold_and_warm: bool) -> tuple:
     return out, h
 
 
-def banded_proof(tag: str) -> tuple:
-    """Read the banded launch and CUDA call counts of the path just driven
-    (set to 0 just before it): K4, K5 and K6 must each have launched, once
-    for every CUDA banded apply of their kind.  Returns (launches by
-    kernel, launches by shape)."""
-    from raptor_tpu_torch.core import hybrid
-    from raptor_tpu_torch.ops.cuda import banded_kernel
-
-    bl, hc = banded_kernel.launches, hybrid.cuda_calls
-    pairs = {"K4": hc["banded_spmv_ro"], "K6": hc["rect_banded_spmv"],
-             "K5": hc["banded_df64_residual"]}
+def banded_proof(tag: str, snap: tuple) -> tuple:
+    """Read the banded launches of the path driven since ``snap``: K4, K5
+    and K6 must each have launched.  Returns (launches by kernel, launches
+    by shape)."""
+    bl, shapes = since(snap, BANDED_KERNELS)
+    kernels = ("K4", "K6", "K5")
     print(f"[proof] {tag} path: " + ", ".join(
-        f"{k} {bl[k]} launches / {c} CUDA calls" for k, c in pairs.items()))
-    if any(bl[k] != c or c == 0 for k, c in pairs.items()):
+        f"{k} {bl[k]} launches" for k in kernels))
+    if any(bl[k] == 0 for k in kernels):
         raise AssertionError(f"the {tag} path did not run through the kernels")
-    rows = by_shape(tag, banded_kernel.launches_by_shape, pairs)
-    return {k: bl[k] for k in pairs}, rows
+    rows = by_shape(tag, shapes, kernels)
+    return {k: bl[k] for k in kernels}, rows
 
 
 def banded_excess(tag: str, rec: dict, rows: list, key: str) -> dict:
@@ -1291,15 +1236,6 @@ def banded_excess(tag: str, rec: dict, rows: list, key: str) -> dict:
               f"(L2-warm - bound) {total:.4f} ms ({untimed} launches at "
               f"shapes not timed)")
     return out
-
-
-def clear_banded_counts() -> None:
-    from raptor_tpu_torch.core import hybrid
-    from raptor_tpu_torch.ops.cuda import banded_kernel
-
-    banded_kernel.launches.clear()
-    banded_kernel.launches_by_shape.clear()
-    hybrid.cuda_calls.clear()
 
 
 def phase_banded_shapes(dev, tag: str, h, A, rec, rows: list, key: str) -> None:
@@ -1337,7 +1273,7 @@ def phase_banded_shapes(dev, tag: str, h, A, rec, rows: list, key: str) -> None:
             if dtype == "torch.float32":
                 rec["K4"][key][(plan["n"], plan["K"])] = line
             if i == 0 and dtype == "torch.float32" and key == "shapes_96":
-                plain = cuda_ms(lambda: bk.banded_spmv_ref(plan, x))
+                plain = graph_ms(lambda: bk.banded_spmv_ref(plan, x))
                 print(f"[banded] K4 96^3 L0 A: {line[0] * 1e3:.1f} us kernel "
                       f"({_banded_bytes(plan, 4) / line[0] / 1e9:.3f} TB/s), "
                       f"{plain * 1e3:.1f} us plain (device time, graph replay)")
@@ -1580,40 +1516,21 @@ def phase_devsetup(dev) -> dict:
             "iters": iters, "relres": relres, "host_route": host}
 
 
-def clear_alg128_counts() -> None:
-    from raptor_tpu_torch.ops.cuda import dia_kernel
-
-    dia_kernel.launches.clear()
-    dia_kernel.launches_by_shape.clear()
-    clear_banded_counts()  # hybrid.cuda_calls too
-
-
-def alg128_proof() -> tuple:
-    """Phase 9b: read the counts of the alg128 path (set to 0 just before
-    it): K1 launched once for every CUDA planes_spmv call, at least once;
-    K4, K5 and K6 once for every CUDA call of their kind, however many
-    (none is expected: no level falls back to the banded layout)."""
-    from raptor_tpu_torch.core import hybrid
-    from raptor_tpu_torch.ops.cuda import banded_kernel, dia_kernel
-
-    hc = hybrid.cuda_calls
-    k1, calls = dia_kernel.launches["K1"], hc["planes_spmv"]
-    pairs = {"K4": hc["banded_spmv_ro"], "K6": hc["rect_banded_spmv"],
-             "K5": hc["banded_df64_residual"]}
-    bl = banded_kernel.launches
-    others = {k: dia_kernel.launches[k] for k in ("K1v1", "K2", "K3")}
-    print(f"[proof] alg128 path: K1 {k1} launches / {calls} CUDA planes_spmv "
-          "calls, " + ", ".join(f"{k} {bl[k]} launches / {c} CUDA calls"
-                                for k, c in pairs.items())
-          + ", " + ", ".join(f"{k} {c} launches" for k, c in others.items()))
-    if k1 != calls or k1 == 0:
+def alg128_proof(snap: tuple) -> tuple:
+    """Phase 9b: read the launches of the alg128 path driven since
+    ``snap``: K1 at least once; K4, K5 and K6 however many (none is
+    expected: no level falls back to the banded layout)."""
+    got, shapes = since(snap)
+    k1 = got["K1"]
+    banded = ("K4", "K6", "K5")
+    others = {k: got[k] for k in ("K1v1", "K2", "K3")}
+    print(f"[proof] alg128 path: K1 {k1} launches, " + ", ".join(
+        f"{k} {got[k]} launches" for k in (*banded, *others)))
+    if k1 == 0:
         raise AssertionError("the alg128 path did not run through K1")
-    if any(bl[k] != c for k, c in pairs.items()):
-        raise AssertionError("a banded apply of the alg128 path missed its kernel")
-    rows = (by_shape("alg128", dia_kernel.launches_by_shape, ("K1",))
-            + by_shape("alg128", banded_kernel.launches_by_shape, pairs))
-    return {"K1": k1, "planes_spmv": calls, **{k: bl[k] for k in pairs},
-            **others}, rows
+    rows = (by_shape("alg128", shapes, ("K1",))
+            + by_shape("alg128", shapes, banded))
+    return {"K1": k1, **{k: got[k] for k in banded}, **others}, rows
 
 
 def phase_hybrid_kernels(dev, h, rec, rows) -> None:
@@ -1642,12 +1559,12 @@ def phase_hybrid_kernels(dev, h, rec, rows) -> None:
             name = f"K1 alg128 L{i} n {n} {n_off} offsets {dt}"
             rec["K1"]["err"] = max(rec["K1"]["err"], _equal(
                 name, dia_spmv_v2(planes, offs, x), dia_spmv_v2_ref(planes, offs, x)))
-            warm1 = cuda_ms(lambda: dia_spmv_v2(planes, offs, x))
-            warm = cuda_ms(lambda: [dia_spmv_v2(planes, offs, x)
+            warm1 = graph_ms(lambda: dia_spmv_v2(planes, offs, x))
+            warm = graph_ms(lambda: [dia_spmv_v2(planes, offs, x)
                                     for _ in range(ALG128_GRAPH_CALLS)]
                            ) / ALG128_GRAPH_CALLS
-            cold = cuda_ms(lambda: dia_spmv_v2(planes, offs, x), flush_l2=True)
-            plain = cuda_ms(lambda: dia_spmv_v2_ref(planes, offs, x))
+            cold = graph_ms(lambda: dia_spmv_v2(planes, offs, x), flush_l2=True)
+            plain = graph_ms(lambda: dia_spmv_v2_ref(planes, offs, x))
             r = {}
             yardsticks(r, dia_csr(planes, offs, n), x,
                        planes.numel() * planes.element_size() + 8 * n,
@@ -1729,10 +1646,10 @@ def phase_halo_kernels(dev) -> dict:
             dia_spmv_halo_ref(data, lins, x, hl, hr)))
         if label == "256^3 fine":
             r = rec["K3"]
-            r["ms"] = cuda_ms(lambda: dia_spmv_halo(data, lins, x, hl, hr))
-            r["cold_ms"] = cuda_ms(lambda: dia_spmv_halo(data, lins, x, hl, hr),
+            r["ms"] = graph_ms(lambda: dia_spmv_halo(data, lins, x, hl, hr))
+            r["cold_ms"] = graph_ms(lambda: dia_spmv_halo(data, lins, x, hl, hr),
                                    flush_l2=True)
-            r["plain_ms"] = cuda_ms(lambda: dia_spmv_halo_ref(data, lins, x, hl, hr))
+            r["plain_ms"] = graph_ms(lambda: dia_spmv_halo_ref(data, lins, x, hl, hr))
             n = data.shape[1]
             r["bytes"] = data.numel() * 4 + 4 * (n + LP + RP) + 4 * n
             yardsticks(r, dia_csr(data, lins, n + LP + RP, shift=LP),
@@ -1749,8 +1666,8 @@ def phase_halo_kernels(dev) -> dict:
             dia_spmv_v1(data, lins, x), dia_spmv_v1_ref(data, lins, x)))
         if dtype == torch.float32:
             r = rec["K1v1"]
-            r["ms"] = cuda_ms(lambda: dia_spmv_v1(data, lins, x))
-            r["plain_ms"] = cuda_ms(lambda: dia_spmv_v1_ref(data, lins, x))
+            r["ms"] = graph_ms(lambda: dia_spmv_v1(data, lins, x))
+            r["plain_ms"] = graph_ms(lambda: dia_spmv_v1_ref(data, lins, x))
             r["bytes"] = data.numel() * 4 + 8 * data.shape[1]
             yardsticks(r, dia_csr(data, lins, data.shape[1]), x, r["bytes"])
     for k, what in (("K3", "256^3 fine, 7 fp32 planes"),
@@ -1767,21 +1684,6 @@ def phase_halo_kernels(dev) -> dict:
     return rec
 
 
-def poisson7_residual(x64: np.ndarray, b64: np.ndarray, n: int) -> np.ndarray:
-    """b - A x in fp64 on the host for the 7-point Poisson operator on n^3
-    (Dirichlet truncation, as gallery.stencil_grid builds it), without
-    assembling the matrix."""
-    X = x64.reshape(n, n, n)
-    Y = 6.0 * X
-    for ax in range(3):
-        lo = [slice(None)] * 3
-        hi = [slice(None)] * 3
-        lo[ax], hi[ax] = slice(1, None), slice(None, -1)
-        Y[tuple(lo)] -= X[tuple(hi)]
-        Y[tuple(hi)] -= X[tuple(lo)]
-    return b64 - Y.ravel()
-
-
 def _relres(x: torch.Tensor, b: torch.Tensor, n: int) -> float:
     b64 = b.double().cpu().numpy()
     r = poisson7_residual(x.double().cpu().numpy(), b64, n)
@@ -1795,7 +1697,7 @@ def phase_sdist_one_rank(dev) -> dict:
     the one-rank SDIST_N4^3 run that phase 13 compares with."""
     import torch.distributed as dist
 
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches, launches_by_shape
+    from raptor_tpu_torch.ops.cuda.launch import launches_by_shape
     from raptor_tpu_torch.parallel import Ring
     from raptor_tpu_torch.structured import dist as sd
     from raptor_tpu_torch.structured.solver import (_build_hierarchy_planned,
@@ -1806,9 +1708,7 @@ def phase_sdist_one_rank(dev) -> dict:
                             world_size=1, device_id=dev)
     try:
         ring = Ring()
-        launches.clear()
-        launches_by_shape.clear()
-        sd.cuda_calls.clear()
+        snap = counts()
         cold = sd.sdist_config5(ring, dev, n=n)
         warm = sd.sdist_config5(ring, dev, n=n)
         dh, info = warm["hier"], warm["info"]
@@ -1822,15 +1722,13 @@ def phase_sdist_one_rank(dev) -> dict:
         torch.cuda.synchronize()
         vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
         per_cycle = per_call(launches_by_shape, before, N_CYCLES + 1)
-        k3, calls = launches["K3"], sd.cuda_calls["halo_spmv"]
-        v1 = launches["K1v1"]
-        print(f"[proof] sharded {n}^3 path: {calls} CUDA halo SpMVs, {k3} K3 "
-              f"launches ({launches['K1']} K1, {launches['K2']} K2 in the "
-              f"replicated tail, {v1} K1v1)")
-        if k3 != calls or k3 == 0:
+        launches, shapes_all = since(snap, DIA_KERNELS)
+        k3, v1 = launches["K3"], launches["K1v1"]
+        print(f"[proof] sharded {n}^3 path: {k3} K3 launches ({launches['K1']} "
+              f"K1, {launches['K2']} K2 in the replicated tail, {v1} K1v1)")
+        if k3 == 0:
             raise AssertionError("the sharded path did not run through K3")
-        shapes = by_shape(f"sharded {n}^3", launches_by_shape,
-                          ("K1", "K2", "K3"))
+        shapes = by_shape(f"sharded {n}^3", shapes_all, ("K1", "K2", "K3"))
         by_shape(f"sharded {n}^3, one V-cycle", per_cycle, ("K1", "K2", "K3"))
         if v1:
             raise AssertionError("the sharded path launched K1v1")
@@ -1876,8 +1774,7 @@ def phase_sdist_one_rank(dev) -> dict:
                "solve_s": warm["solve_s"], "iters": iters,
                "certified": certified, "relres": relres,
                "single_device_iters": it1, "k3_launches": k3,
-               "k1v1_launches": v1, "halo_spmv_calls": calls,
-               "launches_by_shape": shapes,
+               "k1v1_launches": v1, "launches_by_shape": shapes,
                "vcycle_launches_by_shape": sorted(
                    [*key, c] for key, c in per_cycle.items())}
         del dh, warm, cold, y
@@ -1895,18 +1792,16 @@ def phase_sdist_one_rank(dev) -> dict:
 def rank_config5(ring, device, n: int) -> dict:
     """One rank of phase 13 (runs in a spawned process): the config-5
     preset on the ring; rank 0 returns the gathered x."""
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches
     from raptor_tpu_torch.structured import dist as sd
 
-    launches.clear()
-    sd.cuda_calls.clear()
+    snap = counts()
     out = sd.sdist_config5(ring, device, n=n)
+    launches, _ = since(snap)
     x = sd.gather(out["x"], ring)
     info = out["info"]
     return {"iters": int(info.iterations), "certified": float(info.relres),
             "setup_s": out["setup_s"], "solve_s": out["solve_s"],
             "k3": launches["K3"], "k1v1": launches["K1v1"],
-            "calls": sd.cuda_calls["halo_spmv"],
             "x": x.cpu().numpy() if ring.axis_index == 0 else None}
 
 
@@ -1924,8 +1819,8 @@ def phase_sdist_ranks(dev, one_rank_iters: int) -> dict:
     for r, o in enumerate(outs):
         print(f"[sdist{SDIST_RANKS}] rank {r}: {o['iters']} iterations, setup "
               f"{o['setup_s']:.3f} s, solve {o['solve_s']:.3f} s, "
-              f"{o['calls']} CUDA halo SpMVs, {o['k3']} K3 launches")
-        if o["k3"] == 0 or o["k3"] != o["calls"]:
+              f"{o['k3']} K3 launches")
+        if o["k3"] == 0:
             raise AssertionError(f"rank {r} did not run through K3")
         if o["k1v1"]:
             raise AssertionError(f"rank {r} launched K1v1")
@@ -2065,8 +1960,8 @@ def phase_sharded_kernels(dev, h4) -> dict:
         live = len(bk.live_slots(plan))
         nbytes = live * plan["n"] * 8 + 4 * plan["n"] + 4 * length
         bms = bound(nbytes, 2 * live * plan["n"])[0]
-        warm = cuda_ms(fn)
-        cold = cuda_ms(fn, flush_l2=True)
+        warm = graph_ms(fn)
+        cold = graph_ms(fn, flush_l2=True)
         r["shapes"][f"{label} rank {rank}"] = [plan["n"], plan["K"], warm, cold, bms]
         lp = bk.banded_launch_plan(plan, torch.cuda.get_device_properties(
             dev).multi_processor_count)
@@ -2076,8 +1971,8 @@ def phase_sharded_kernels(dev, h4) -> dict:
               f"thread, {lp.threads} threads a block (device time, graph "
               f"replay)")
         if label in ("L0 A", "L0 R") and rank == 0:
-            r.update(ms=warm, cold_ms=cold, bytes=nbytes, plain_ms=cuda_ms(ref),
-                     cold_plain_ms=cuda_ms(ref, flush_l2=True))
+            r.update(ms=warm, cold_ms=cold, bytes=nbytes, plain_ms=graph_ms(ref),
+                     cold_plain_ms=graph_ms(ref, flush_l2=True))
             yardsticks(r, ell_block_csr(E, r0, r0 + plan["n"], shift, length, dev),
                        x, nbytes)
     for k, what in (("K4-halo", "L0 A"), ("K6-map_cols", "L0 R")):
@@ -2120,13 +2015,6 @@ def sharded_equal(dev, tag: str, h, ndev: int, rec, shapes: list,
     covered(tag, shapes, compared)
 
 
-def clear_adist_counts() -> None:
-    from raptor_tpu_torch.parallel import dist as pdist
-
-    clear_banded_counts()
-    pdist.cuda_calls.clear()
-
-
 def adist_routes(tag: str, dh) -> list:
     """Print and return each sharded level's route for A, P and R."""
     rows = []
@@ -2153,45 +2041,6 @@ def caller_relres(A, x_rcm, pm, b) -> float:
     return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
 
 
-def profile_cycles(cycle, reps: int = N_PROFILED, top: int = 0) -> dict:
-    """torch.profiler over ``reps`` calls of ``cycle()``: wall (host clock,
-    ends in a synchronize), device busy (the union of the device events'
-    intervals), device events, busy share; per call.  ``top`` > 0 adds
-    the ``top`` device event names with the most time, as [name, us per
-    call, events per call]."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            cycle()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        raise AssertionError("the profiler recorded no device events")
-    busy, end = 0.0, -np.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    out = {"wall_ms": wall * 1e3 / reps, "busy_ms": busy * 1e-3 / reps,
-           "device_events": len(spans) / reps}
-    out["busy_share"] = out["busy_ms"] / out["wall_ms"]
-    if top:
-        by_name = collections.defaultdict(lambda: [0.0, 0])
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                t = by_name[e.name[:100]]
-                t[0] += e.time_range.end - e.time_range.start
-                t[1] += 1
-        out["top"] = [[k, us / reps, c / reps] for k, (us, c) in
-                      sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
-    return out
-
-
 def phase_adist_one_rank(dev, h96) -> dict:
     """Phases 15 and 16: distribute_hierarchy and dist_solve at shuffled
     96^3 on one rank over NCCL, on phase 9's hierarchy (its pad_multiple,
@@ -2203,7 +2052,6 @@ def phase_adist_one_rank(dev, h96) -> dict:
     from raptor_tpu_torch.api import solve_hier
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.gallery import default_rhs
-    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.parallel import Ring, dist_solve, distribute_hierarchy
     from raptor_tpu_torch.parallel import dist as pdist
 
@@ -2217,7 +2065,7 @@ def phase_adist_one_rank(dev, h96) -> dict:
                             world_size=1, device_id=dev)
     try:
         ring = Ring()
-        clear_adist_counts()
+        snap = counts()
         runs = []
         for _ in ("cold", "warm"):
             torch.cuda.synchronize()
@@ -2237,17 +2085,15 @@ def phase_adist_one_rank(dev, h96) -> dict:
             y = pdist.dist_cycle(dh, bd, ctx)
         torch.cuda.synchronize()
         vc = (time.perf_counter() - t0) / N_CYCLES * 1e3
-        k4h, calls = bk.launches["K4-halo"], pdist.cuda_calls["dist_banded_spmv"]
-        k6m, rcalls = (bk.launches["K6-map_cols"],
-                       pdist.cuda_calls["dist_rect_banded_spmv"])
-        print(f"[proof] sharded {ADIST_N}^3 path, 1 rank: {calls} CUDA sharded banded "
-              f"operator applies, {k4h} K4-halo launches; {rcalls} sharded "
-              f"banded transfers, {k6m} K6-map_cols launches; {bk.launches['K4']} "
-              f"K4 launches (tail)")
-        if k4h != calls or calls == 0 or k6m != rcalls:
+        launches, shapes_all = since(snap, BANDED_KERNELS)
+        k4h, k6m = launches["K4-halo"], launches["K6-map_cols"]
+        print(f"[proof] sharded {ADIST_N}^3 path, 1 rank: {k4h} K4-halo "
+              f"launches, {k6m} K6-map_cols launches (no transfer shards on "
+              f"one rank); {launches['K4']} K4 launches (tail)")
+        if k4h == 0 or k6m != 0:
             raise AssertionError("the one-rank sharded path did not run "
-                                 "through K4's halo form")
-        shapes = by_shape("adist 1 rank", bk.launches_by_shape,
+                                 "through K4's halo form alone")
+        shapes = by_shape("adist 1 rank", shapes_all,
                           ("K4-halo", "K6-map_cols", "K4", "K6"))
         if not torch.isfinite(y).all():
             raise AssertionError("sharded V-cycle output not finite")
@@ -2339,15 +2185,14 @@ def rank_adist(ring, device, path: str, b_rcm) -> dict:
 
 def adist_body(ring, device, h, b, mesh) -> tuple:
     """One rank of the algebraic sharded solve of ``h`` (phases 17 and
-    28): sharded, the flat solve on the counts set to 0 just before it;
+    28): sharded, the flat solve on the launches counted since just
+    before it;
     then TAPS on ``mesh`` against the flat solve on the ELL route.
     Returns (the rank's record, rank 0's with the gathered x; the sharded
     hierarchy)."""
-    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.parallel import (dist_solve, dist_solve_taps,
                                            distribute_hierarchy,
                                            distribute_hierarchy_taps)
-    from raptor_tpu_torch.parallel import dist as pdist
     from raptor_tpu_torch.parallel.halo import halo_exchange
     from raptor_tpu_torch.parallel.taps import taps_exchange
 
@@ -2356,14 +2201,14 @@ def adist_body(ring, device, h, b, mesh) -> tuple:
     dh = distribute_hierarchy(h, ring, ADIST_TAIL)
     torch.cuda.synchronize()
     dist_s = time.perf_counter() - t0
-    clear_adist_counts()
+    snap = counts()
     t0 = time.perf_counter()
     x, info = dist_solve(dh, b, ring, tol=ADIST_TOL, maxiter=200)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    counts = {k: bk.launches[k] for k in ("K4-halo", "K6-map_cols", "K4", "K6")}
-    calls = dict(pdist.cuda_calls)
-    shapes = sorted([*key, c] for key, c in bk.launches_by_shape.items())
+    launches, shapes_all = since(snap, BANDED_KERNELS)
+    got = {k: launches[k] for k in ("K4-halo", "K6-map_cols", "K4", "K6")}
+    shapes = sorted([*key, c] for key, c in shapes_all.items())
     xg = ring.all_gather(x)
 
     th = distribute_hierarchy_taps(h, mesh, ADIST_TAIL)
@@ -2386,7 +2231,7 @@ def adist_body(ring, device, h, b, mesh) -> tuple:
                                      halo_exchange(v, dm.halo, ring)))
     rec = {"iters": int(info.iterations), "certified": float(info.relres),
            "distribute_s": dist_s, "solve_s": solve_s, "taps_s": taps_s,
-           "counts": counts, "calls": calls, "shapes": shapes,
+           "counts": got, "shapes": shapes,
            "routes": [(lv.Aband is not None, lv.Pband is not None,
                        lv.Rband is not None) for lv in dh.levels],
            "taps_iters": int(it_t.iterations), "ell_iters": int(it_e.iterations),
@@ -2422,11 +2267,8 @@ def phase_adist_ranks(dev, h4_cpu, one_rank_iters: int) -> dict:
         c = o["counts"]
         print(f"[adist{ADIST_RANKS}] rank {r}: {o['iters']} iterations, "
               f"distribute {o['distribute_s']:.3f} s, solve {o['solve_s']:.3f} s, "
-              f"TAPS solve {o['taps_s']:.3f} s; {o['calls']} CUDA sharded banded "
-              f"applies, launches {c}")
-        if (c["K4-halo"] == 0 or c["K6-map_cols"] == 0
-                or c["K4-halo"] != o["calls"].get("dist_banded_spmv")
-                or c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv")):
+              f"TAPS solve {o['taps_s']:.3f} s; launches {c}")
+        if c["K4-halo"] == 0 or c["K6-map_cols"] == 0:
             raise AssertionError(f"rank {r} did not run through both sharded forms")
         if not (o["taps_equal"] and all(o["ext_equal"])
                 and o["taps_iters"] == o["ell_iters"]):
@@ -2514,56 +2356,23 @@ def setup_padded_hierarchy(dev, ranks: int = ADIST_RANKS):
 # the acceptance configurations (phases 18-22)
 # ---------------------------------------------------------------------------
 
-def _config_problem(name: str):
-    """(A, B) of an acceptance row at the reference bench's size
-    (bench.py:409-419)."""
-    from raptor_tpu_torch.gallery import (anisotropic_2d, convection_diffusion_2d,
-                                          elasticity_3d, poisson_2d, poisson_3d)
-
-    gens = {"config1": lambda: (poisson_2d(64), None),
-            "config2": lambda: (poisson_3d(32), None),
-            "config3": lambda: (anisotropic_2d(96), None),
-            "config4": lambda: elasticity_3d(48)[:2],
-            "config5": lambda: (poisson_3d(64), None),
-            "nonsym_gmres": lambda: (convection_diffusion_2d(128), None)}
-    return gens[name]()
-
-
-def _config_settings(name: str):
-    """(AmgConfig, SolveConfig) of an acceptance row (bench.py:420-432)."""
-    from raptor_tpu_torch import PRESETS, AmgConfig, SolveConfig
-
-    cfgs = {"config4": dataclasses.replace(PRESETS["config4"],
-                                           host_setup_threshold=400000),
-            "nonsym_gmres": AmgConfig(splitting="pmis", smoother="jacobi")}
-    krylov = "gmres" if name == "nonsym_gmres" else "cg"
-    return (cfgs.get(name) or PRESETS[name],
-            SolveConfig(tol=MAX_RELRES, refine=True, krylov=krylov))
-
-
-def _true_relres(A, x, b) -> float:
-    a64 = sp.csr_matrix(A).astype(np.float64)
-    return float(np.linalg.norm(b - a64 @ x) / np.linalg.norm(b))
-
-
 def _config_row(tag: str, A, B, cfg, sc, dev, every_level=False) -> tuple:
     """api.setup (timed under device_route) and api.solve of one row with
     b = ones, as the reference bench: (record, hierarchy)."""
     from raptor_tpu_torch import solve
     from raptor_tpu_torch.core import bell
-    from raptor_tpu_torch.ops.cuda import bell_kernel as k8
 
     h, rec = timed_setup(tag, A, cfg, dev, B=B, every_level=every_level)
     b = np.ones(A.shape[0])
     torch.cuda.synchronize()
-    bell.launches.clear()
-    k8.launches.clear()
+    snap, applies = counts(), collections.Counter(bell.launches)
     t0 = time.perf_counter()
     x, info = solve(A, b, cfg, sc, hier=h)
     solve_s = time.perf_counter() - t0
-    launches = {"K8": k8.launches["K8"], "block_applies": (
-        bell.launches["bell_spmv"] + bell.launches["bell_prec"])}
-    relres = _true_relres(A, x, b)
+    applies = bell.launches - applies
+    launches = {"K8": since(snap)[0]["K8"], "block_applies": (
+        applies["bell_spmv"] + applies["bell_prec"])}
+    relres = true_relres(A, x, b)
     if x.shape != (A.shape[0],) or not np.isfinite(x).all():
         raise AssertionError(f"[{tag}] solution not finite or misshapen")
     if launches["K8"] != launches["block_applies"]:
@@ -2604,8 +2413,8 @@ def phase_configs(dev) -> dict:
     t_all = time.perf_counter()
     for name, ref in CONFIG_ITERS.items():
         t0 = time.perf_counter()
-        A, B = _config_problem(name)
-        cfg, sc = _config_settings(name)
+        A, B = config_problem(name, CONFIG_SIZES[name])
+        cfg, sc = config_settings(name)
         row, _ = _config_row(name, A, B, cfg, sc, dev)
         row["wall_s"] = time.perf_counter() - t0
         limit = CONFIG3_FENCE if name == "config3" else ref + 1
@@ -2660,12 +2469,12 @@ def k8_levels(tag: str, h, dev) -> list:
         vec = 2 * n * x.element_size()
         nbytes = live * b * b * E.data.element_size() + vec
         r = {"level": i, "nb": nb, "K": K, "b": b, "live_blocks": live,
-             "err": err, "bytes": nbytes, "ms": cuda_ms(spmv),
-             "cold_ms": cuda_ms(spmv, flush_l2=True),
-             "plain_ms": cuda_ms(lambda: bell._spmv_einsum(E.data, E.cols, x)),
-             "diag_ms": cuda_ms(diag), "diag_cold_ms": cuda_ms(diag,
+             "err": err, "bytes": nbytes, "ms": graph_ms(spmv),
+             "cold_ms": graph_ms(spmv, flush_l2=True),
+             "plain_ms": graph_ms(lambda: bell._spmv_einsum(E.data, E.cols, x)),
+             "diag_ms": graph_ms(diag), "diag_cold_ms": graph_ms(diag,
                                                                flush_l2=True),
-             "diag_plain_ms": cuda_ms(lambda: bell._prec_einsum(binv, x))}
+             "diag_plain_ms": graph_ms(lambda: bell._prec_einsum(binv, x))}
         yardsticks(r, host_csr(bell.bell_to_bsr(E), (n, n), dev), x, nbytes,
                    ops=2 * live * b * b)
         r["diag_bound_ms"], _ = bound(nb * b * b * binv.element_size() + vec,
@@ -2702,8 +2511,8 @@ def phase_config4_device(dev, host_row: dict) -> dict:
     from raptor_tpu_torch.setup.host_aggregation import host_build_sa_hierarchy
 
     t0 = time.perf_counter()
-    A, B = _config_problem("config4")
-    _, sc = _config_settings("config4")
+    A, B = config_problem("config4", CONFIG_SIZES["config4"])
+    _, sc = config_settings("config4")
     cfg = PRESETS["config4"]
     row, h = _config_row("config4 device", A, B, cfg, sc, dev, every_level=True)
     blocks = [lv.Abell is not None for lv in h.levels]
@@ -2755,7 +2564,7 @@ def phase_config3_full(dev) -> dict:
 
     t0 = time.perf_counter()
     A = anisotropic_2d(CONFIG3_FULL_N)
-    _, sc = _config_settings("config3")
+    _, sc = config_settings("config3")
     cfg = PRESETS["config3"]
     dev_row, _ = _config_row("config3 768 device", A, None, cfg, sc, dev)
     host_row, _ = _config_row(
@@ -2783,8 +2592,8 @@ def phase_config3_full(dev) -> dict:
 
 def _one_rank_gs(dev, h, A, smoother: str) -> dict:
     """dist_solve on one rank over NCCL on ``h`` with ``smoother``, on the
-    counts set to 0 just before it: every CUDA sharded operator apply must
-    launch K4's halo form; its iterations, the single-device solve_hier's
+    launches counted since just before it: it must launch K4's halo form;
+    its iterations, the single-device solve_hier's
     on the same hierarchy and the true fp64 relres in the caller's
     ordering."""
     import torch.distributed as dist
@@ -2792,9 +2601,7 @@ def _one_rank_gs(dev, h, A, smoother: str) -> dict:
     from raptor_tpu_torch.api import solve_hier
     from raptor_tpu_torch.core.ell import pad_vector
     from raptor_tpu_torch.gallery import default_rhs
-    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
     from raptor_tpu_torch.parallel import Ring, dist_solve, distribute_hierarchy
-    from raptor_tpu_torch.parallel import dist as pdist
 
     h = dataclasses.replace(h, config=dataclasses.replace(h.config,
                                                           smoother=smoother))
@@ -2807,18 +2614,19 @@ def _one_rank_gs(dev, h, A, smoother: str) -> dict:
     try:
         ring = Ring()
         dh = distribute_hierarchy(h, ring, ADIST_TAIL)
-        clear_adist_counts()
+        snap = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, info = dist_solve(dh, bd, ring, tol=ADIST_TOL, maxiter=200)
         torch.cuda.synchronize()
         sol = time.perf_counter() - t0
-        k4h, calls = bk.launches["K4-halo"], pdist.cuda_calls["dist_banded_spmv"]
-        shapes = by_shape(f"mcgs96 1 rank {smoother}", bk.launches_by_shape,
+        launches, shapes_all = since(snap, BANDED_KERNELS)
+        k4h = launches["K4-halo"]
+        shapes = by_shape(f"mcgs96 1 rank {smoother}", shapes_all,
                           ("K4-halo", "K6-map_cols", "K4", "K6"))
-        print(f"[proof] mcgs96 sharded {smoother}, 1 rank: {calls} CUDA sharded "
-              f"banded operator applies, {k4h} K4-halo launches")
-        if k4h != calls or calls == 0:
+        print(f"[proof] mcgs96 sharded {smoother}, 1 rank: {k4h} K4-halo "
+              f"launches")
+        if k4h == 0:
             raise AssertionError(f"the one-rank sharded {smoother} path did not "
                                  "run through K4's halo form")
         routes = adist_routes(f"mcgs96 {smoother}", dh)
@@ -2845,8 +2653,8 @@ def phase_mcgs96(dev, krec) -> dict:
     preset and fine_layout 'banded' (levels 0-1 built on the card by the
     device route and coloured on the host, in each level's RCM ordering):
     colours per level, V-cycle ms and a profile, the refined solve (true
-    <= 1e-8) on counts set to 0 just before it (K4, K5, K6 each launched,
-    once for each CUDA call of their kind), the host route's iterations
+    <= 1e-8) on the launches counted since just before it (K4, K5, K6
+    each launched), the host route's iterations
     beside it; then dist_solve on one rank over NCCL with mcgs (+-1 of
     solve_hier on the same hierarchy) and with tsgs (its inner series is
     processor-local: printed beside the single-device tsgs count), each
@@ -2891,13 +2699,13 @@ def phase_mcgs96(dev, krec) -> dict:
           + "; ".join(f"{k} {us:.1f} us x{c:g}" for k, us, c in prof["top"]))
 
     sc = SolveConfig(tol=MAX_RELRES, refine=True)
-    clear_banded_counts()
+    snap = counts()
     t0 = time.perf_counter()
     x, info = solve(A, b, cfg, sc, hier=h)
     sol = time.perf_counter() - t0
-    launches, rows = banded_proof(tag)
+    launches, rows = banded_proof(tag, snap)
     iters = int(info["iterations"])
-    relres = _true_relres(A, x, b)
+    relres = true_relres(A, x, b)
     print(f"[{tag}] api.solve {sol:.3f} s, {iters} PCG iterations, certified "
           f"{info['relres']:.3e}, true fp64 relres {relres:.3e}")
     if not relres <= MAX_RELRES:
@@ -2926,27 +2734,25 @@ def phase_mcgs96(dev, krec) -> dict:
 
 def rank_mcgs(ring, device, path: str, b_rcm) -> dict:
     """One rank of phase 22 (runs in a spawned process): the hierarchy
-    saved by the parent, sharded; dist_solve with mcgs on counts set to 0
-    just before it; rank 0 returns the gathered x."""
-    from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+    saved by the parent, sharded; dist_solve with mcgs on the launches
+    counted since just before it; rank 0 returns the gathered x."""
     from raptor_tpu_torch.parallel import dist_solve, distribute_hierarchy
-    from raptor_tpu_torch.parallel import dist as pdist
 
     h = torch.load(path, weights_only=False, map_location=device)
     b = torch.from_numpy(b_rcm).to(device)
     dh = distribute_hierarchy(h, ring, ADIST_TAIL)
-    clear_adist_counts()
+    snap = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     x, info = dist_solve(dh, b, ring, tol=ADIST_TOL, maxiter=200)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
+    launches, shapes = since(snap, BANDED_KERNELS)
     xg = ring.all_gather(x)
     return {"iters": int(info.iterations), "certified": float(info.relres),
             "solve_s": solve_s,
-            "counts": {k: bk.launches[k] for k in ("K4-halo", "K6-map_cols")},
-            "calls": dict(pdist.cuda_calls),
-            "shapes": sorted([*key, c] for key, c in bk.launches_by_shape.items()),
+            "counts": {k: launches[k] for k in ("K4-halo", "K6-map_cols")},
+            "shapes": sorted([*key, c] for key, c in shapes.items()),
             "txf_sharded": any(lv.Pband is not None or lv.Rband is not None
                                for lv in dh.levels),
             "x": xg.cpu().numpy() if ring.axis_index == 0 else None}
@@ -2992,12 +2798,11 @@ def phase_mcgs_ranks(dev, krec) -> dict:
     for r, o in enumerate(outs):
         c = o["counts"]
         print(f"[mcgs{ADIST_RANKS}] rank {r}: {o['iters']} iterations, solve "
-              f"{o['solve_s']:.3f} s; {o['calls']} CUDA sharded banded applies, "
-              f"launches {c}; a transfer shards: {o['txf_sharded']}")
-        if c["K4-halo"] == 0 or c["K4-halo"] != o["calls"].get("dist_banded_spmv"):
+              f"{o['solve_s']:.3f} s; launches {c}; a transfer shards: "
+              f"{o['txf_sharded']}")
+        if c["K4-halo"] == 0:
             raise AssertionError(f"rank {r} did not run through K4's halo form")
-        if c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv", 0) or (
-                o["txf_sharded"] and c["K6-map_cols"] == 0):
+        if (c["K6-map_cols"] > 0) != o["txf_sharded"]:
             raise AssertionError(f"rank {r}: its sharded transfers did not run "
                                  "through K6's map_cols form")
     iters = outs[0]["iters"]
@@ -3090,9 +2895,9 @@ def cljp_invariant(dev, h, cfg) -> int:
 def phase_cljp(dev, krec, nx: int) -> tuple:
     """Phase 23: CLJP on shuffled nx^3 through api.setup and api.solve on
     the card: every level built there (checked before Hierarchy.to), the
-    C/F invariant of level 0, V-cycles, the refined solve on counts set to
-    0 just before it (K4, K5 and K6 each launched, once for each CUDA call
-    of their kind), then every launch shape against its plain version.
+    C/F invariant of level 0, V-cycles, the refined solve on the launches
+    counted since just before it (K4, K5 and K6 each launched), then every
+    launch shape against its plain version.
     At CLJP_N the sizes and iterations are the reference's."""
     from raptor_tpu_torch import AmgConfig, SolveConfig, solve
     from raptor_tpu_torch.core.ell import pad_vector
@@ -3128,14 +2933,14 @@ def phase_cljp(dev, krec, nx: int) -> tuple:
         raise AssertionError(f"{tag}: V-cycle output not finite")
 
     sc = SolveConfig(tol=MAX_RELRES, refine=True)
-    clear_banded_counts()
+    snap = counts()
     t0 = time.perf_counter()
     x, info = solve(A, b, cfg, sc, hier=h)
     torch.cuda.synchronize()
     sol = time.perf_counter() - t0
-    launches, rows = banded_proof(tag)
+    launches, rows = banded_proof(tag, snap)
     iters = int(info["iterations"])
-    relres = _true_relres(A, x, b)
+    relres = true_relres(A, x, b)
     print(f"[{tag}] setup {rec['s']:.3f} s, V-cycle {vc:.3f} ms ({n / vc * 1e3:.4g} "
           f"DOF/s, {N_CYCLES} cycles between syncs), api.solve {sol:.3f} s, "
           f"{iters} PCG iterations, certified {info['relres']:.3e}, true fp64 "
@@ -3173,10 +2978,9 @@ def phase_cljp(dev, krec, nx: int) -> tuple:
 def phase_full(dev, krec, nx: int) -> dict:
     """Phase 24: the structured main path with full coarsening at nx^3
     (CFG, dim_policy 'size', bf16 cast_hierarchy, structured_solve_refined)
-    on counts set to 0 just before it: the reference's plan, every CUDA
-    dia_spmv call launching K1 or K2 and every CUDA dia_df64_residual call
-    K7; then K1 (fp32 and bf16), K2 and K7 bit for bit at every launch
-    shape of the path."""
+    on the launches counted since just before it: the reference's plan, K1,
+    K2 and K7 each launched; then K1 (fp32 and bf16), K2 and K7 bit for
+    bit at every launch shape of the path."""
     from raptor_tpu_torch import (AmgConfig, build_structured_hierarchy,
                                   cast_hierarchy, dia_from_stencil, scycle,
                                   structured_solve_refined)
@@ -3184,10 +2988,7 @@ def phase_full(dev, krec, nx: int) -> dict:
     from raptor_tpu_torch.ops.cuda.dia_kernel import (dia_spmv_const,
                                                       dia_spmv_const_ref,
                                                       dia_spmv_v2,
-                                                      dia_spmv_v2_ref,
-                                                      launches,
-                                                      launches_by_shape)
-    from raptor_tpu_torch.structured.dia import cuda_calls
+                                                      dia_spmv_v2_ref)
 
     t_phase = time.perf_counter()
     tag = f"full{nx}"
@@ -3197,9 +2998,7 @@ def phase_full(dev, krec, nx: int) -> dict:
     cfg = AmgConfig(**FC_CFG)
     A = dia_from_stencil(st, dims, device=dev)
     b = torch.from_numpy(default_rhs(n, dtype=np.float32)).to(dev)
-    launches.clear()
-    launches_by_shape.clear()
-    cuda_calls.clear()
+    snap = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     h = build_structured_hierarchy(A, cfg, dim_policy="size")
@@ -3230,13 +3029,12 @@ def phase_full(dev, krec, nx: int) -> dict:
                                                     M_hier=hM)
     torch.cuda.synchronize()
     sol = time.perf_counter() - t0
-    k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
-    k7, calls7 = launches["K7"], cuda_calls["dia_df64_residual"]
-    rows = by_shape(tag, launches_by_shape, ("K1", "K2", "K7"))
-    print(f"[proof] {tag} path: {calls} CUDA dia_spmv calls, {k1} K1 launches, "
-          f"{k2} K2 launches; {calls7} CUDA dia_df64_residual calls, {k7} K7 "
+    launches, shapes = since(snap)
+    k1, k2, k7 = launches["K1"], launches["K2"], launches["K7"]
+    rows = by_shape(tag, shapes, ("K1", "K2", "K7"))
+    print(f"[proof] {tag} path: {k1} K1 launches, {k2} K2 launches, {k7} K7 "
           f"launches")
-    if k1 + k2 != calls or k1 == 0 or k2 == 0 or k7 != calls7 or k7 == 0:
+    if k1 == 0 or k2 == 0 or k7 == 0:
         raise AssertionError(f"the {tag} path did not run through the kernels")
     x64 = xh.double().cpu().numpy() + xl.double().cpu().numpy()
     b64 = b.double().cpu().numpy()
@@ -3278,7 +3076,7 @@ def phase_full(dev, krec, nx: int) -> dict:
                 krec[k]["err"] = max(krec[k]["err"], _equal(
                     f"{k} {tag} {M.dims} {n_off} offsets {key[3]}",
                     fn(*args), ref(*args)))
-                warm = cuda_ms(lambda: fn(*args))
+                warm = graph_ms(lambda: fn(*args))
                 bms, by = bound(moved, 2 * n_off * M.n)
                 timed[key] = (warm, bms)
                 print(f"[kernel] {k} {tag} n={M.n} {n_off} offsets {key[3]}: "
@@ -3328,12 +3126,11 @@ def cli_config5() -> dict:
     NCCL rank a card, every card when SDIST_N divides over them); its JSON
     must name the device count that rule gives."""
     from raptor_tpu_torch.cli import config5_ranks
-    from raptor_tpu_torch.ops.cuda import dia_kernel
 
     ndev = config5_ranks(SDIST_N, torch.cuda.device_count())
-    dia_kernel.launches_by_shape.clear()
+    snap = counts()
     r = _cli(["bench", "--preset", "config5", "--n", str(SDIST_N)])
-    k2 = dia_kernel.launches_by_shape[("K2", SDIST_N ** 3, 7, "float32")]
+    k2 = since(snap)[1][("K2", SDIST_N ** 3, 7, "float32")]
     print(f"[cli] bench config5: {ndev} device(s), K2 {k2} launches on the "
           f"{SDIST_N}^3 fine level in this process")
     want = f"poisson3d n={SDIST_N} (structured, {ndev} device(s))"
@@ -3359,7 +3156,6 @@ def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
 
     from raptor_tpu_torch import AmgConfig, SolveConfig, solve
     from raptor_tpu_torch.gallery import default_rhs
-    from raptor_tpu_torch.ops.cuda import banded_kernel
     from raptor_tpu_torch.utils.checkpoint import load_hierarchy, save_hierarchy
     from raptor_tpu_torch.utils.io import read_matrix, read_vector, write_matrix
 
@@ -3390,10 +3186,10 @@ def phase_surface(dev, h_cljp, x_cljp, iters_cljp) -> dict:
           f"{out['io_s']:.1f} s")
 
     xpath = os.path.join(SMOKE_DIR, "x.npy")
-    clear_banded_counts()
+    snap = counts()
     r = _cli(["solve", "--matrix", os.path.join(SMOKE_DIR, f"A{SURFACE_N}.rbm"),
               "--layout", "banded", "--splitting", "cljp", "--out", xpath])
-    k4 = banded_kernel.launches["K4"]
+    k4 = since(snap)[0]["K4"]
     x = read_vector(xpath)
     b = default_rhs(A.shape[0])
     relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
@@ -3513,7 +3309,7 @@ def dist_solve_checked(tag: str, A, dh, ring, dtype) -> tuple:
     xg = ring.all_gather(x).double().cpu().numpy()
     if xg.shape != (n_pad,) or not np.isfinite(xg).all():
         raise AssertionError(f"[{tag}] sharded solution not finite or misshapen")
-    relres = _true_relres(A, xg[:n], b)
+    relres = true_relres(A, xg[:n], b)
     if not relres <= DSETUP_MAX_TRUE:
         raise AssertionError(f"[{tag}] true relres {relres} > {DSETUP_MAX_TRUE}")
     if not float(info.relres) <= DSETUP_TOL:
@@ -4037,27 +3833,26 @@ def _cycles(cycle, profiled: bool) -> tuple:
 
 
 def _mc_sdist(ring, dev, n: int) -> dict:
-    """Phase 28's config 5 on one rank: sdist_config5 at n^3 on the counts
-    set to 0 just before it, then V-cycles (rank 0's profiled); K3 at every
+    """Phase 28's config 5 on one rank: sdist_config5 at n^3 on the
+    launches counted since just before it, then V-cycles (rank 0's
+    profiled); K3 at every
     launch shape against its plain version after the counts are read."""
     from raptor_tpu_torch.gallery import default_rhs
-    from raptor_tpu_torch.ops.cuda import dia_kernel as dk
     from raptor_tpu_torch.structured import dist as sd
 
-    dk.launches.clear()
-    dk.launches_by_shape.clear()
-    sd.cuda_calls.clear()
+    snap = counts()
     res = sd.sdist_config5(ring, dev, n=n)
     dh, info = res["hier"], res["info"]
     b = torch.from_numpy(default_rhs(n ** 3, dtype=np.float32)).to(dev)
     b_loc = sd._block(b, ring, int(np.prod(dh.levels[0].dims_local)))
     vc, prof = _cycles(lambda: sd.sdist_cycle(dh, ring, b_loc),
                        ring.axis_index == 0)
+    launches, shapes = since(snap, DIA_KERNELS)
     out = {"iters": int(info.iterations), "certified": float(info.relres),
            "setup_s": res["setup_s"], "solve_s": res["solve_s"],
-           "vcycle_ms": vc, "profile": prof, "k3": dk.launches["K3"],
-           "k1v1": dk.launches["K1v1"], "calls": sd.cuda_calls["halo_spmv"],
-           "shapes": sorted([*key, c] for key, c in dk.launches_by_shape.items()),
+           "vcycle_ms": vc, "profile": prof, "k3": launches["K3"],
+           "k1v1": launches["K1v1"],
+           "shapes": sorted([*key, c] for key, c in shapes.items()),
            "dims_local": [lv.dims_local for lv in dh.levels]}
     out["k3_err"] = k3_equal(f"sdist rank {ring.axis_index}", dh, dev,
                              out["shapes"])
@@ -4263,9 +4058,9 @@ def phase_multicard(dev, refs=None, h_cpu=None, cli=None) -> dict:
         print(f"[{tag}] config 5 {SDIST_N}^3 rank {r}: blocks "
               f"{o['dims_local'][0]}..{o['dims_local'][-1]}; setup "
               f"{o['setup_s']:.3f} s, solve {o['solve_s']:.3f} s, V-cycle "
-              f"{o['vcycle_ms']:.3f} ms; {o['calls']} CUDA halo SpMVs, "
-              f"{o['k3']} K3 launches, {o['k1v1']} K1v1")
-        if o["k3"] == 0 or o["k3"] != o["calls"]:
+              f"{o['vcycle_ms']:.3f} ms; {o['k3']} K3 launches, "
+              f"{o['k1v1']} K1v1")
+        if o["k3"] == 0:
             raise AssertionError(f"[{tag}] rank {r} did not run through K3")
         if o["k1v1"]:
             raise AssertionError(f"[{tag}] rank {r} launched K1v1")
@@ -4312,9 +4107,7 @@ def phase_multicard(dev, refs=None, h_cpu=None, cli=None) -> dict:
               f"{ex['taps_inter'][0]} inter-node messages, {ex['taps_inter'][1]} "
               f"words, {ex['taps_gathers']} intra-node all-gathers; comm_report "
               f"{ex['comm_report_bytes']} halo bytes")
-        if (c["K4-halo"] == 0 or c["K6-map_cols"] == 0
-                or c["K4-halo"] != o["calls"].get("dist_banded_spmv")
-                or c["K6-map_cols"] != o["calls"].get("dist_rect_banded_spmv")):
+        if c["K4-halo"] == 0 or c["K6-map_cols"] == 0:
             raise AssertionError(f"[{tag}] rank {r} did not run through both "
                                  "sharded forms")
         if not (o["taps_equal"] and all(o["ext_equal"])
@@ -4413,27 +4206,22 @@ def main() -> None:
     rec = phase_kernels(dev)
     phase_small_cycle(dev)
 
-    from raptor_tpu_torch.ops.cuda.dia_kernel import launches, launches_by_shape
-    from raptor_tpu_torch.structured.dia import cuda_calls
     from raptor_tpu_torch.utils.native import status
 
-    launches.clear()
-    launches_by_shape.clear()
-    cuda_calls.clear()
+    snap = counts()
     main_rec = phase_main(dev)
-    k1, k2, calls = launches["K1"], launches["K2"], cuda_calls["dia_spmv"]
+    launches, shapes = since(snap)
+    k1, k2, k7 = launches["K1"], launches["K2"], launches["K7"]
     v1_main = launches["K1v1"]
-    k7, calls7 = launches["K7"], cuda_calls["dia_df64_residual"]
-    print(f"[proof] main path: {calls} CUDA dia_spmv calls, "
-          f"{k1} K1 launches, {k2} K2 launches, {v1_main} K1v1 launches; "
-          f"{calls7} CUDA dia_df64_residual calls, {k7} K7 launches")
-    if k1 + k2 != calls or k1 == 0 or k2 == 0:
+    print(f"[proof] main path: {k1} K1 launches, {k2} K2 launches, {v1_main} "
+          f"K1v1 launches, {k7} K7 launches")
+    if k1 == 0 or k2 == 0:
         raise AssertionError("the main path did not run through the kernels")
-    if k7 != calls7 or k7 == 0:
+    if k7 == 0:
         raise AssertionError("the main path's residuals did not launch K7")
     if v1_main:
         raise AssertionError("the main path launched K1v1")
-    main_rec["launches_by_shape"] = by_shape("main 128^3", launches_by_shape,
+    main_rec["launches_by_shape"] = by_shape("main 128^3", shapes,
                                              ("K1", "K2", "K7"))
 
     from raptor_tpu_torch import AmgConfig, setup
@@ -4446,14 +4234,14 @@ def main() -> None:
 
     # each algebraic path is read on its own counts; the kernels line
     # carries the 48^3 row's (the reference bench row)
-    clear_banded_counts()
+    snap = counts()
     alg48, _ = phase_algebraic(dev, 48, cold_and_warm=True)
-    counts48, rows48 = banded_proof("alg48")
+    counts48, rows48 = banded_proof("alg48", snap)
     launch_counts = {"K1": k1, "K2": k2, "K7": k7, **counts48}
     alg48["excess_ms"] = banded_excess("alg48", rec, rows48, "shapes_48")
-    clear_banded_counts()
+    snap = counts()
     alg96, h96 = phase_algebraic(dev, 96, cold_and_warm=False)
-    alg96["launches"], rows96 = banded_proof("alg96")
+    alg96["launches"], rows96 = banded_proof("alg96", snap)
     phase_banded_shapes(dev, "96^3", h96, shuffled_poisson(96), rec, rows96,
                         "shapes_96")
     alg96["excess_ms"] = banded_excess("alg96", rec, rows96, "shapes_96")
@@ -4466,9 +4254,9 @@ def main() -> None:
     # the plane mode: its own counts, K1's hybrid shapes after the proof,
     # and its hierarchy freed before the sharded phases
     t_alg128 = time.perf_counter()
-    clear_alg128_counts()
+    snap = counts()
     alg128, h128 = phase_alg128(dev)
-    alg128["launches"], rows128 = alg128_proof()
+    alg128["launches"], rows128 = alg128_proof(snap)
     alg128["launches_by_shape"] = rows128
     phase_hybrid_kernels(dev, h128, rec, rows128)
     alg128["k1_excess_ms"] = rec["K1"]["excess_alg128_ms"]

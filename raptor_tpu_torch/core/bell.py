@@ -3,10 +3,10 @@
 Counterpart of ``raptor_tpu/core/bell.py``.  Layout: block-entry-major
 ``data (K, nb_pad, b, b)`` / ``cols (K, nb_pad)``, the block-row axis the
 long one.  The two block applies launch the hand-written kernel K8
-(``ops/cuda/bell_kernel.py``) on CUDA tensors, which reads each block
-once; on CPU tensors they are the reference's (nb_pad, b, b) x (nb_pad, b)
-contractions (``torch.einsum``).  The two differ only in the order of a
-row's sum.
+(``ops/cuda/bell_kernel.py``) for blocks on the card, which reads each
+block once; for blocks elsewhere they are the reference's (nb_pad, b, b) x
+(nb_pad, b) contractions (``torch.einsum``).  The two differ only in the
+order of a row's sum.
 
 Vectors may carry a leading batch dimension (B, n), as the scalar
 smoothers' do (``solve/cycle.materialize_tail``).  The leaves are NumPy
@@ -16,7 +16,8 @@ moves them to a device.
 The two block applies are the launch sites: ``bell_spmv`` is a span
 ``bell.spmv[nb_pad,K,b,dtype]`` and ``_block_prec`` a span
 ``bell.prec[nb_pad,b,dtype]`` (``utils/profiling.py``), and ``launches``
-counts their calls, as the kernels' counters do.
+counts their calls on any device, as ``ops/cuda/launch.py`` counts the
+kernels' launches.
 """
 
 from __future__ import annotations
@@ -141,7 +142,7 @@ def bell_spmv(A: BlockEllMatrix, x: torch.Tensor) -> torch.Tensor:
     them)."""
     launches["bell_spmv"] += 1
     with phase("bell.spmv", (A.nb_pad, A.K, A.bs, A.data.dtype)):
-        if x.is_cuda:
+        if A.data.is_cuda:
             return k8.bell_spmv(A.data, A.cols, A.row_nnz, x.contiguous())
         return _spmv_einsum(A.data, A.cols, x)
 
@@ -150,7 +151,7 @@ def _block_prec(binv, A: BlockEllMatrix, r: torch.Tensor) -> torch.Tensor:
     """Dblk^{-1} r, block row by block row."""
     launches["bell_prec"] += 1
     with phase("bell.prec", (A.nb_pad, A.bs, binv.dtype)):
-        if r.is_cuda:
+        if binv.is_cuda:
             return k8.bell_diag(binv, r.contiguous())
         return _prec_einsum(binv, r)
 

@@ -20,15 +20,14 @@ compacted ``FarBlock`` applied with a gather and an ``index_add``.
 
 ``BandedMatrix`` is a square operator, ``RectBanded`` a transfer operator
 (P or R).  Their leaves are NumPy arrays while a hierarchy is built on the
-host and tensors after ``.to(device)``.  ``cuda_calls`` counts the layout
-applies made on CUDA tensors, so a run can show that each went through its
-kernel.
+host and tensors after ``.to(device)``.  Each layout's apply launches its
+kernel where the layout lives on the card and runs the kernel's plain
+version where it lives elsewhere.
 
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Any, Optional, Tuple
 
@@ -45,11 +44,7 @@ __all__ = ["HybridMatrix", "hybrid_from_ell", "hybrid_spmv_ro",
            "FarBlock", "far_spmv_add", "BandedMatrix", "banded_from_csr",
            "banded_from_ell", "banded_spmv_ro", "banded_spmv",
            "banded_df64_residual", "RectBanded", "rect_banded_from_ell",
-           "rect_banded_spmv", "cuda_calls"]
-
-# applies on CUDA tensors, by function ("planes_spmv" launches K1,
-# "banded_spmv_ro" K4, "rect_banded_spmv" K6, "banded_df64_residual" K5)
-cuda_calls: collections.Counter = collections.Counter()
+           "rect_banded_spmv"]
 
 
 def _opt_to(x, device):
@@ -139,13 +134,12 @@ def hybrid_from_ell(E: EllMatrix, min_fill: float = 0.02,
 
 def _planes_spmv(planes, offsets: Tuple[int, ...],
                  x: torch.Tensor) -> torch.Tensor:
-    """``sum_k planes[k] * roll(x, -offsets[k])``: K1 on CUDA tensors (it
-    launches or raises), its plain version on CPU tensors.  The planes are
-    zero wherever ``i + offsets[k]`` leaves the matrix, so the rolls'
-    wrap-around adds nothing."""
-    if x.is_cuda:
-        cuda_calls["planes_spmv"] += 1
-    return dk.dia_spmv_v2(planes, offsets, x)
+    """``sum_k planes[k] * roll(x, -offsets[k])``: K1 for planes on the card
+    (it launches or raises), its plain version for planes elsewhere.  The
+    planes are zero wherever ``i + offsets[k]`` leaves the matrix, so the
+    rolls' wrap-around adds nothing."""
+    apply = dk.dia_spmv_v2 if planes.is_cuda else dk.dia_spmv_v2_ref
+    return apply(planes, offsets, x)
 
 
 def hybrid_spmv_ro(H: HybridMatrix, xr: torch.Tensor) -> torch.Tensor:
@@ -405,11 +399,10 @@ def _banded_from_ell_rcm(E: EllMatrix, tile: int) -> Optional[BandedMatrix]:
 
 
 def banded_spmv_ro(B: BandedMatrix, xr: torch.Tensor) -> torch.Tensor:
-    """y = A_rcm @ x in the layout's own ordering: K4 on a CUDA tensor,
-    its plain version on a CPU tensor."""
-    if xr.is_cuda:
-        cuda_calls["banded_spmv_ro"] += 1
-    y = bk.banded_spmv(B.plan(), xr)
+    """y = A_rcm @ x in the layout's own ordering: K4 for a layout on the
+    card, its plain version for one elsewhere."""
+    apply = bk.banded_spmv if B.vals.is_cuda else bk.banded_spmv_ref
+    y = apply(B.plan(), xr)
     return far_spmv_add(y, B.far, xr)
 
 
@@ -420,12 +413,12 @@ def banded_spmv(B: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def banded_df64_residual(B: BandedMatrix, lo_blk, xh, bh, bl, v):
     """(rh, rl) = df64[(bh, bl) - v - A @ xh] in the layout's ordering
-    through K5 (its plain version on CPU tensors); ``lo_blk`` is the
-    optional blocked fp32 truncation remainder of the operator data
+    through K5 (its plain version for a layout off the card); ``lo_blk``
+    is the optional blocked fp32 truncation remainder of the operator data
     (``setup/hierarchy.attach_residual_lo``)."""
-    if xh.is_cuda:
-        cuda_calls["banded_df64_residual"] += 1
-    return bk.banded_df64_residual(B.plan(), lo_blk, xh, bh, bl, v)
+    apply = (bk.banded_df64_residual if B.vals.is_cuda
+             else bk.banded_df64_residual_ref)
+    return apply(B.plan(), lo_blk, xh, bh, bl, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -477,11 +470,10 @@ def rect_banded_from_ell(E: EllMatrix, n_cols_pad: int,
 
 
 def rect_banded_spmv(B: RectBanded, x: torch.Tensor) -> torch.Tensor:
-    """y = B @ x; x padded to meta n_cols.  K6 on a CUDA tensor, its plain
-    version on a CPU tensor."""
-    if x.is_cuda:
-        cuda_calls["rect_banded_spmv"] += 1
-    y = bk.banded_spmv_rect(B.plan(), x)
+    """y = B @ x; x padded to meta n_cols.  K6 for a layout on the card,
+    its plain version for one elsewhere."""
+    apply = bk.banded_spmv_rect if B.vals.is_cuda else bk.banded_spmv_rect_ref
+    y = apply(B.plan(), x)
     return far_spmv_add(y, B.far, x)
 
 

@@ -26,12 +26,13 @@ tensors ``(T, K, tile // 128, 128)``.  Every function visits the live slots
 own, so each kernel agrees with its plain version bit for bit.  The plain
 versions are vectorised over all tiles.
 
-A wrapper given CPU tensors returns its plain version; given CUDA tensors it
-launches its kernel or raises; there is no fallback.  ``launches`` counts
-kernel launches (plain-version calls are not counted) under "K4", "K5",
-"K6" and, for the two sharded forms, "K4-halo" and "K6-map_cols";
-``launches_by_shape`` counts them by (that key, n, K, vals dtype), and
-each launch is a span of that name (``utils/profiling.py``).
+The wrappers take CUDA tensors alone and launch their kernel or raise;
+there is no fallback.  The callers route: ``core/hybrid.py`` and
+``parallel/dist.py`` send CPU tensors to the plain versions.  Each launch
+goes through ``ops/cuda/launch.py``, which counts it under "K4", "K5",
+"K6" or, for the two sharded forms, "K4-halo" and "K6-map_cols", and by
+(that key, n, K, vals dtype); each launch is a span of that name
+(``utils/profiling.py``).
 
 The three kernels share K4's design and its host-side launch plan
 (``banded_launch_plan``: x from a shared-memory window or straight from
@@ -44,7 +45,6 @@ tests.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional
@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from raptor_tpu_torch.ops.banded_plan import PAGE
+from raptor_tpu_torch.ops.cuda.launch import launch_kernel, sm_count
 from raptor_tpu_torch.utils.df64 import df_add, two_prod
 from raptor_tpu_torch.utils.profiling import phase
 
@@ -60,8 +61,7 @@ __all__ = ["banded_spmv", "banded_spmv_ref", "banded_spmv_halo",
            "banded_spmv_rect_ref", "banded_df64_residual",
            "banded_df64_residual_ref", "banded_launch_plan",
            "banded_spmv_tiled_ref", "banded_spmv_rect_tiled_ref",
-           "banded_df64_residual_tiled_ref", "BandedLaunch", "live_slots",
-           "launches", "launches_by_shape"]
+           "banded_df64_residual_tiled_ref", "BandedLaunch", "live_slots"]
 
 MAX_SLOTS = 1024  # RAPTOR_MAX_SLOTS in csrc/banded_kernel.cu
 # K4, K5 and K6 (csrc/banded_kernel.cu): the slots a live mask covers,
@@ -80,7 +80,7 @@ RECT_PAGE_FLOATS = PAGE + WINDOW_SLACK
 H100_SMS = 132
 # The kernels stage the window when each staged value is read at least this
 # often (live slots x a block's rows / the window's floats).  Measured for
-# K4 on an H100 (scripts/bench_banded_const_ab.py): staged is faster down
+# K4 on an H100 (many calls a CUDA graph): staged is faster down
 # to 0.47 (96^3 level 0: 20.6 against 24.8 us), direct from 0.18 down (3
 # slots over 17 pages: 6.3 against 6.5 us; over 47 pages: 6.3 against
 # 12.7).
@@ -90,7 +90,7 @@ STAGE_MIN_REUSE = 0.3
 # at every path shape read less than 1.7 times (96^3 level 0 R, 0.30: 17.3
 # against 11.2 us; 48^3 level 1 R, 0.63: 6.0 against 5.2) and won from 1.7
 # up (48^3 level 2 R: 5.2 against 5.5; 96^3 level 3 P, 3.5: 2.6 against
-# 2.8; scripts/bench_banded_rect_ab.py, H100).  Its windows are wide for
+# 2.8; H100, many calls a CUDA graph).  Its windows are wide for
 # the rows a block covers (an R block reads two pages of x a tile, its
 # window spans up to 39).
 RECT_STAGE_MIN_REUSE = 1.5
@@ -100,23 +100,18 @@ RECT_STAGE_MIN_REUSE = 1.5
 # R reads 8 floats apart, on 4 of the 32 banks), at the price of 4-byte
 # plan loads; on a level of at least RECT_CONSECUTIVE_BLOCKS blocks of
 # 1024 rows an SM, bound by its plan's bytes, the rows are consecutive and
-# the plan loads 16 bytes.  Measured on an H100 (scripts/
-# bench_banded_rect_ab.py), 32 apart against consecutive, direct: 96^3
+# the plan loads 16 bytes.  Measured on an H100 (many calls a CUDA
+# graph), 32 apart against consecutive, direct: 96^3
 # level 0 R 10.2 against 13.5 us, level 1 P 8.1 against 11.7, 48^3 level 0
 # P 3.72 against 3.75; but 96^3 level 0 P (6.5 blocks an SM) 21.5 against
 # 20.5
 RECT_CONSECUTIVE_BLOCKS = 4
 
-# keys "K4", "K4-halo", "K5", "K6", "K6-map_cols"
-launches: collections.Counter = collections.Counter()
-# keys (kernel, n, K, vals dtype name)
-launches_by_shape: collections.Counter = collections.Counter()
 
-
-def _count(key: str, plan: dict) -> None:
-    launches[key] += 1
-    launches_by_shape[(key, plan["n"], plan["K"],
-                       str(plan["vals"].dtype).removeprefix("torch."))] += 1
+def _shape(key: str, plan: dict) -> tuple:
+    """The launch's shape key: (kernel, n, K, vals dtype name)."""
+    return (key, plan["n"], plan["K"],
+            str(plan["vals"].dtype).removeprefix("torch."))
 
 
 def live_slots(plan: dict) -> list:
@@ -576,25 +571,9 @@ def _check_vec(v: torch.Tensor, n: int, name: str, what: str = "x"):
         raise ValueError(f"{name}: {what} must be contiguous")
 
 
-def _slots(live) -> ctypes.Array:
-    """The live slots as an int array (the C interface of the kernels
-    before the live mask; the A/B scripts bind it)."""
-    return (ctypes.c_int * max(len(live), 1))(*live)
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _lib():
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    return load_library()
-
-
-@functools.lru_cache(maxsize=64)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _suffix(vals: torch.Tensor) -> str:
+    """The entry points' suffix for ``vals``' dtype."""
+    return "bf16" if vals.dtype == torch.bfloat16 else "f32"
 
 
 def _live_mask(live) -> ctypes.Array:
@@ -624,7 +603,7 @@ def _launch_for(plan: dict, name: str, device,
         launch = _default_launch(None if ranges is None else tuple(ranges),
                                  plan["n"], plan["K"], plan["tile"],
                                  plan["npage"] if rect else plan["Wp"], rect,
-                                 _n_sm(device))
+                                 sm_count(device))
     if (launch.rows not in ((1, K4_ROWS) if _is_rect(plan) else (K4_ROWS,))
             or launch.split * launch.threads * launch.rows != plan["tile"]):
         raise ValueError(f"{name}: launch plan {launch} does not tile "
@@ -650,25 +629,20 @@ def _launch_k4(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = Non
     if halo and x_off < plan["Wp"]:
         raise ValueError(f"{name}: halo {x_off} narrower than Wp={plan['Wp']}")
     launch = _launch_for(plan, name, x.device, launch)
-    lib = _lib()
-    fn = lib.raptor_banded_bf16 if vals.dtype == torch.bfloat16 else lib.raptor_banded_f32
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    with phase(name, (n, K, vals.dtype)), torch.cuda.device(x.device):
-        rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
-                y.data_ptr(), n, K, plan["tile"], plan["Wp"], x_off,
-                x.shape[0], _live_mask(live), len(live), int(launch.staged),
-                launch.threads, launch.page0, launch.pages, _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    _count(name, plan)
+    with phase(name, (n, K, vals.dtype)):
+        launch_kernel(
+            "raptor_banded_" + _suffix(vals), name, _shape(name, plan),
+            x.device, vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
+            y.data_ptr(), n, K, plan["tile"], plan["Wp"], x_off, x.shape[0],
+            _live_mask(live), len(live), int(launch.staged), launch.threads,
+            launch.page0, launch.pages)
     return y
 
 
 def banded_spmv(plan: dict, x: torch.Tensor) -> torch.Tensor:
     """K4: y = A @ x over a square banded plan; x fp32 (n,), vals fp32 or
     bf16."""
-    if x.device.type == "cpu" and plan["vals"].device.type == "cpu":
-        return banded_spmv_ref(plan, x)
     return _launch_k4(plan, x)
 
 
@@ -676,8 +650,6 @@ def banded_spmv_halo(plan: dict, x_pad: torch.Tensor) -> torch.Tensor:
     """K4 in its halo form: y = A_own @ x over a rank's tile block of a
     square banded plan; x_pad fp32 ``(n + 2 * kh * tile,)``, the rank's
     ``[left halo | x_own | right halo]``."""
-    if x_pad.device.type == "cpu" and plan["vals"].device.type == "cpu":
-        return banded_spmv_halo_ref(plan, x_pad)
     return _launch_k4(plan, x_pad, halo=True)
 
 
@@ -699,21 +671,16 @@ def _launch_k6(plan: dict, x: torch.Tensor, launch: Optional[BandedLaunch] = Non
                              f"multiple of {PAGE}), map_cols={map_cols}")
     live = _check_plan(plan, x.device, name)
     launch = _launch_for(plan, name, x.device, launch)
-    lib = _lib()
-    fn = (lib.raptor_banded_rect_bf16 if vals.dtype == torch.bfloat16
-          else lib.raptor_banded_rect_f32)
     y = torch.empty(plan["n"], dtype=x.dtype, device=x.device)
-    with (phase(name, (plan["n"], plan["K"], vals.dtype)),
-          torch.cuda.device(x.device)):
-        rc = fn(vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
-                y.data_ptr(), plan["n"], plan["K"], plan["tile"],
-                x.shape[0], map_cols, plan["WpP"], plan["npage"],
-                _live_mask(live), len(live), int(launch.staged),
-                2 if launch.rows == 1 else int(launch.stride == 32),
-                launch.threads, launch.page0, launch.pages, _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    _count(name, plan)
+    with phase(name, (plan["n"], plan["K"], vals.dtype)):
+        launch_kernel(
+            "raptor_banded_rect_" + _suffix(vals), name, _shape(name, plan),
+            x.device, vals.data_ptr(), plan["pidx"].data_ptr(), x.data_ptr(),
+            y.data_ptr(), plan["n"], plan["K"], plan["tile"], x.shape[0],
+            map_cols, plan["WpP"], plan["npage"], _live_mask(live), len(live),
+            int(launch.staged),
+            2 if launch.rows == 1 else int(launch.stride == 32),
+            launch.threads, launch.page0, launch.pages)
     return y
 
 
@@ -723,8 +690,6 @@ def banded_spmv_rect(plan: dict, x: torch.Tensor,
     ``(n_cols,)``.  map_cols form (``map_cols`` given): x fp32 is a
     halo-extended buffer of whole pages and ``map_cols`` the numerator of
     the window index map."""
-    if x.device.type == "cpu" and plan["vals"].device.type == "cpu":
-        return banded_spmv_rect_ref(plan, x, map_cols)
     return _launch_k6(plan, x, map_cols=map_cols)
 
 
@@ -755,16 +720,14 @@ def _launch_k5(plan: dict, vals_lo, xh, bh, bl, v,
     launch = _launch_for(plan, "K5", xh.device, launch)
     rh = torch.empty_like(xh)
     rl = torch.empty_like(xh)
-    with phase("K5", (n, plan["K"], vals.dtype)), torch.cuda.device(xh.device):
-        rc = _lib().raptor_banded_df64_f32(
+    with phase("K5", (n, plan["K"], vals.dtype)):
+        launch_kernel(
+            "raptor_banded_df64_f32", "K5", _shape("K5", plan), xh.device,
             vals.data_ptr(), lo_ptr, plan["pidx"].data_ptr(), xh.data_ptr(),
             bh.data_ptr(), bl.data_ptr(), v.data_ptr(), rh.data_ptr(),
             rl.data_ptr(), n, plan["K"], plan["tile"], plan["Wp"],
             _live_mask(live), len(live), int(launch.staged), launch.threads,
-            launch.page0, launch.pages, _stream(xh.device))
-    if rc != 0:
-        raise RuntimeError(f"K5 launch failed: cudaError {rc}")
-    _count("K5", plan)
+            launch.page0, launch.pages)
     return rh, rl
 
 
@@ -772,6 +735,4 @@ def banded_df64_residual(plan: dict, vals_lo, xh, bh, bl, v):
     """K5: (rh, rl) = df64[(bh, bl) - v - A @ xh] over a square banded plan
     with fp32 vals; ``vals_lo``: optional fp32 truncation remainder of the
     operator in the plan's blocked layout."""
-    if xh.device.type == "cpu" and plan["vals"].device.type == "cpu":
-        return banded_df64_residual_ref(plan, vals_lo, xh, bh, bl, v)
     return _launch_k5(plan, vals_lo, xh, bh, bl, v)

@@ -21,8 +21,8 @@ blocks; the diagonal form's may have any strides (``torch.linalg.inv``
 gives column-major blocks).  Both forms run one thread a scalar row.
 
 The wrappers take CUDA tensors alone: ``core/bell.py`` routes, sending CPU
-tensors to its einsums.  ``launches["K8"]`` counts launches of every form;
-``launches_by_shape`` counts them by ("K8" or "K8-diag", nb, K, b, block
+tensors to its einsums.  They launch through ``ops/cuda/launch.py``, which
+counts every form under "K8" and by ("K8" or "K8-diag", nb, K, b, block
 dtype name).  The wrappers open no span of their own: the launch sites'
 ``bell.spmv[...]`` and ``bell.prec[...]`` stay the innermost spans over
 the kernel's device time (``amgbench/engines/elasticity.py`` reads them).
@@ -30,13 +30,11 @@ the kernel's device time (``amgbench/engines/elasticity.py`` reads them).
 
 from __future__ import annotations
 
-import collections
-import contextlib
-
 import torch
 
-__all__ = ["bell_spmv", "bell_spmv_ref", "bell_diag", "bell_diag_ref",
-           "launches", "launches_by_shape"]
+from raptor_tpu_torch.ops.cuda.launch import launch_kernel
+
+__all__ = ["bell_spmv", "bell_spmv_ref", "bell_diag", "bell_diag_ref"]
 
 # block dtype -> (entry point, the dtype of x and y)
 _ENTRY = {torch.float32: ("raptor_bell_f32", torch.float32),
@@ -44,11 +42,6 @@ _ENTRY = {torch.float32: ("raptor_bell_f32", torch.float32),
           torch.float64: ("raptor_bell_f64", torch.float64)}
 # launch key -> the entry points' form argument
 _FORM = {"K8": 0, "K8-diag": 1}
-
-# key "K8"
-launches: collections.Counter = collections.Counter()
-# keys ("K8" or "K8-diag", nb, K, b, block dtype name)
-launches_by_shape: collections.Counter = collections.Counter()
 
 
 def bell_spmv_ref(data: torch.Tensor, cols: torch.Tensor,
@@ -110,29 +103,13 @@ def _check(blocks: torch.Tensor, x: torch.Tensor, nb: int, b: int) -> int:
 def _launch(key: str, blocks: torch.Tensor, cols, row_nnz, x: torch.Tensor,
             nb: int, K: int, b: int, batch: int,
             strides=(0, 0, 0)) -> torch.Tensor:
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    fn = getattr(load_library(), _ENTRY[blocks.dtype][0])
     y = torch.empty_like(x)
-    dev = x.device.index
-    # launch on x's card; making it current costs 4 us of host time a call
-    # (H100 machine), so it is done only where another card is current
-    with (contextlib.nullcontext() if dev == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        # the raw handle of the card's current stream: what
-        # torch.cuda.current_stream(dev).cuda_stream gives, without building
-        # a Stream object (0.17 against 4.1 us; config 4's level-1 applies
-        # are paced by the host)
-        stream = torch._C._cuda_getCurrentRawStream(dev)
-        rc = fn(_FORM[key], blocks.data_ptr(),
-                None if cols is None else cols.data_ptr(),
-                None if row_nnz is None else row_nnz.data_ptr(), x.data_ptr(),
-                y.data_ptr(), nb, K, b, batch, *strides, stream)
-    if rc != 0:
-        raise RuntimeError(f"K8 launch failed: cudaError {rc}")
-    launches["K8"] += 1
-    launches_by_shape[(key, nb, K, b,
-                       str(blocks.dtype).removeprefix("torch."))] += 1
+    launch_kernel(_ENTRY[blocks.dtype][0], "K8",
+                  (key, nb, K, b, str(blocks.dtype).removeprefix("torch.")),
+                  x.device, _FORM[key], blocks.data_ptr(),
+                  None if cols is None else cols.data_ptr(),
+                  None if row_nnz is None else row_nnz.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), nb, K, b, batch, *strides)
     return y
 
 

@@ -20,16 +20,14 @@ K7: ``csrc/dia_df64_kernel.cu``) and their plain PyTorch versions.
   planes, in one pass (the structured engine's refinement residual; no
   TPU kernel).
 
-x has shape (n,) or (B, n) (K3: (nl,)).  A wrapper of K1, K1v1, K2 or K3
-given CPU tensors returns its plain version (``dia_spmv_v2_ref``,
-``dia_spmv_v1_ref``, ``dia_spmv_const_ref``, ``dia_spmv_halo_ref``); given
-CUDA tensors it launches its kernel or raises — there is no fallback.  K7's
-wrappers take CUDA tensors alone: ``structured/dia.py::dia_df64_residual``
-routes, sending CPU tensors to the plain version ``dia_df64_residual_v2_ref``.  ``launches`` counts
-kernel launches (plain-version calls are not counted), so a run can show
-that its path went through the kernels; ``launches_by_shape`` counts them
-by (kernel, n, n_off, plane dtype), and each launch is a span of that
-name (``utils/profiling.py``).
+x has shape (n,) or (B, n) (K3: (nl,)).  The wrappers take CUDA tensors
+alone and launch their kernel or raise; there is no fallback.  The
+callers route: ``structured/dia.py`` and ``core/hybrid.py`` send CPU
+tensors to the plain versions (``dia_spmv_v2_ref``, ``dia_spmv_const_ref``,
+``dia_df64_residual_v2_ref``), ``structured/dist.py`` to
+``dia_spmv_halo_ref``.  Each launch goes through ``ops/cuda/launch.py``,
+which counts it by kernel and by (kernel, n, n_off, plane dtype), and is a
+span of that name (``utils/profiling.py``).
 
 K1, K1v1 and K3 launch one tiled kernel whose host-side plan
 (``tile_plan``: row tile, offset bands, window sizes, whether the planes
@@ -42,13 +40,13 @@ two vectors, xh and xl, staged side by side (``df64_tile_plan``).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from raptor_tpu_torch.ops.cuda.launch import launch_kernel, sm_count
 from raptor_tpu_torch.utils.df64 import df_add, two_prod
 from raptor_tpu_torch.utils.profiling import phase
 
@@ -58,7 +56,7 @@ __all__ = ["dia_spmv_v2", "dia_spmv_v2_ref", "dia_spmv_v1", "dia_spmv_v1_ref",
            "const_tile_plan", "halo_reach", "dia_df64_residual_v2",
            "dia_df64_residual_v2_ref", "dia_df64_residual_const",
            "df64_tile_plan",
-           "in_grid_mask", "launches", "launches_by_shape", "tile_plan",
+           "in_grid_mask", "tile_plan",
            "TilePlan"]
 
 MAX_OFF = 32
@@ -73,11 +71,6 @@ TILE_THREADS, MIN_TILE_THREADS = 256, 32
 SMEM_BYTES = 232448
 WIN_SLACK = 7
 H100_SMS = 132
-
-# keys "K1", "K1v1", "K2", "K3", "K7"
-launches: collections.Counter = collections.Counter()
-# keys (kernel, n, n_off, plane dtype name)
-launches_by_shape: collections.Counter = collections.Counter()
 
 
 class TilePlan(NamedTuple):
@@ -348,9 +341,9 @@ def const_tile_plan(offsets, dims, batch: int = 1,
     offsets (no planes are loaded, so ``vec`` means nothing here).  On a
     grid that gives every SM a full tile of 2048 rows a thread takes 16 or 8
     rows, whichever divides the last dimension (the rows then share every
-    other coordinate); 4 on any other grid.  Measured on an H100
-    (scripts/bench_banded_const_ab.py --sweep-k2, 7 points at 256^3): 73.1
-    us at 16 rows x 128 threads, 85.2 at 8 x 256, 136.6 at 4 x 256."""
+    other coordinate); 4 on any other grid.  Measured on an H100 (7
+    points at 256^3, many calls a CUDA graph): 73.1 us at 16 rows x 128
+    threads, 85.2 at 8 x 256, 136.6 at 4 x 256."""
     n = 1
     for d in dims:
         n *= int(d)
@@ -400,11 +393,6 @@ def _check_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
         raise ValueError(f"{n_off} planes, {len(lins)} offsets (max {MAX_OFF})")
 
 
-@functools.lru_cache(maxsize=64)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 @functools.lru_cache(maxsize=1024)
 def _plan_args(lins: Tuple[int, ...], n: int, itemsize: int, aligned: bool,
                batch: int, n_sm: int) -> tuple:
@@ -420,13 +408,18 @@ def _tiled_args(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
                 batch: int) -> tuple:
     return _plan_args(tuple(int(o) for o in lins), data.shape[1],
                       data.element_size(), data.data_ptr() % 16 == 0, batch,
-                      _n_sm(x.device))
+                      sm_count(x.device))
 
 
-def _count(key: str, data: torch.Tensor) -> None:
-    launches[key] += 1
-    launches_by_shape[(key, data.shape[1], data.shape[0],
-                       str(data.dtype).removeprefix("torch."))] += 1
+def _shape(key: str, data: torch.Tensor) -> tuple:
+    """The launch's shape key: (kernel, n, n_off, plane dtype name)."""
+    return (key, data.shape[1], data.shape[0],
+            str(data.dtype).removeprefix("torch."))
+
+
+def _planes_entry(kind: str, data: torch.Tensor) -> str:
+    return f"raptor_dia_{kind}_" + ("bf16" if data.dtype == torch.bfloat16
+                                    else "f32")
 
 
 def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
@@ -435,19 +428,11 @@ def _launch_planes(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     n_off, n = data.shape
     batch = _check_x(x, n)
     _check_planes(data, lins, x, key)
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    fn = (lib.raptor_dia_planes_bf16 if data.dtype == torch.bfloat16
-          else lib.raptor_dia_planes_f32)
     y = torch.empty_like(x)
-    with phase(key, (n, n_off, data.dtype)), torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n, batch,
-                *_tiled_args(data, lins, x, batch), stream)
-    if rc != 0:
-        raise RuntimeError(f"{key} launch failed: cudaError {rc}")
-    _count(key, data)
+    with phase(key, (n, n_off, data.dtype)):
+        launch_kernel(_planes_entry("planes", data), key, _shape(key, data),
+                      x.device, data.data_ptr(), x.data_ptr(), y.data_ptr(),
+                      n, batch, *_tiled_args(data, lins, x, batch))
     return y
 
 
@@ -455,8 +440,6 @@ def dia_spmv_v2(data: torch.Tensor, lins: Sequence[int],
                 x: torch.Tensor) -> torch.Tensor:
     """K1: streamed-plane DIA SpMV.  ``data`` (n_off, n) fp32 or bf16,
     boundary-zeroed; ``lins`` the linear offsets; x fp32 (n,) or (B, n)."""
-    if x.device.type == "cpu" and data.device.type == "cpu":
-        return dia_spmv_v2_ref(data, lins, x)
     return _launch_planes(data, lins, x, "K1")
 
 
@@ -466,8 +449,6 @@ def dia_spmv_v1(data: torch.Tensor, lins: Sequence[int],
     need not be boundary-zeroed.  ``data`` (n_off, n) fp32 or bf16; x fp32
     (n,) or (B, n).  Launches K1's device code, which skips every column
     outside [0, n)."""
-    if x.device.type == "cpu" and data.device.type == "cpu":
-        return dia_spmv_v1_ref(data, lins, x)
     return _launch_planes(data, lins, x, "K1v1")
 
 
@@ -480,8 +461,6 @@ def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     neighbour's trailing values, ``halo_right`` the right one's leading
     values; any length works, and only the offsets' reach (``halo_reach``)
     is read."""
-    if all(t.device.type == "cpu" for t in (data, x, halo_left, halo_right)):
-        return dia_spmv_halo_ref(data, lins, x, halo_left, halo_right)
     n_off, nl = data.shape
     if x.dim() != 1:
         raise ValueError(f"x shape {tuple(x.shape)}: K3 takes one vector")
@@ -496,20 +475,12 @@ def dia_spmv_halo(data: torch.Tensor, lins: Sequence[int], x: torch.Tensor,
     LP, RP = halo_reach(lins)
     hl = halo_left[max(halo_left.shape[0] - LP, 0):]
     hr = halo_right[:RP]
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
-    fn = (lib.raptor_dia_halo_bf16 if data.dtype == torch.bfloat16
-          else lib.raptor_dia_halo_f32)
     y = torch.empty_like(x)
-    with phase("K3", (nl, n_off, data.dtype)), torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(data.data_ptr(), x.data_ptr(), hl.data_ptr(), hr.data_ptr(),
-                y.data_ptr(), nl, hl.shape[0], hr.shape[0],
-                *_tiled_args(data, lins, x, 1), stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
-    _count("K3", data)
+    with phase("K3", (nl, n_off, data.dtype)):
+        launch_kernel(_planes_entry("halo", data), "K3", _shape("K3", data),
+                      x.device, data.data_ptr(), x.data_ptr(), hl.data_ptr(),
+                      hr.data_ptr(), y.data_ptr(), nl, hl.shape[0],
+                      hr.shape[0], *_tiled_args(data, lins, x, 1))
     return y
 
 
@@ -556,25 +527,15 @@ def dia_spmv_const(consts: Sequence[float], offsets, dims,
     """K2: constant-coefficient DIA SpMV on grid ``dims`` (1 to 4 dims);
     ``consts[k]`` multiplies ``x[i + off_k]`` where that neighbour is in the
     grid.  x fp32 (n,) or (B, n)."""
-    if x.device.type == "cpu":
-        return dia_spmv_const_ref(consts, offsets, dims, x)
     dims, offsets, n = _check_stencil(consts, offsets, dims, "K2")
     batch = _check_x(x, n)
     n_off = len(offsets)
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     args = _const_args(tuple(float(v) for v in consts), offsets, dims, batch,
-                       _n_sm(x.device))
+                       sm_count(x.device))
     y = torch.empty_like(x)
-    with phase("K2", (n, n_off, "float32")), torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.raptor_dia_const_f32(x.data_ptr(), y.data_ptr(), n, batch,
-                                      *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
-    launches["K2"] += 1
-    launches_by_shape[("K2", n, n_off, "float32")] += 1
+    with phase("K2", (n, n_off, "float32")):
+        launch_kernel("raptor_dia_const_f32", "K2", ("K2", n, n_off, "float32"),
+                      x.device, x.data_ptr(), y.data_ptr(), n, batch, *args)
     return y
 
 
@@ -656,22 +617,15 @@ def _launch_df64(data: Optional[torch.Tensor], lins: Tuple[int, ...],
     """K7 on CUDA tensors: the planes form given ``data``, the const form
     given ``stencil`` (``_df64_stencil_args``) and ``data`` None."""
     n = xh.shape[0]
-    from raptor_tpu_torch.ops.cuda.build import load_library
-
-    lib = load_library()
     aligned = data is None or data.data_ptr() % 16 == 0
-    args = _df64_args(lins, n, aligned, _n_sm(xh.device))
+    args = _df64_args(lins, n, aligned, sm_count(xh.device))
     rh, rl = torch.empty_like(xh), torch.empty_like(xh)
-    with phase("K7", (n, len(lins), "float32")), torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream(xh.device).cuda_stream
-        rc = lib.raptor_dia_df64_f32(
-            None if data is None else data.data_ptr(), xh.data_ptr(),
-            xl.data_ptr(), bh.data_ptr(), bl.data_ptr(), rh.data_ptr(),
-            rl.data_ptr(), n, *stencil, *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"K7 launch failed: cudaError {rc}")
-    launches["K7"] += 1
-    launches_by_shape[("K7", n, len(lins), "float32")] += 1
+    with phase("K7", (n, len(lins), "float32")):
+        launch_kernel("raptor_dia_df64_f32", "K7",
+                      ("K7", n, len(lins), "float32"), xh.device,
+                      None if data is None else data.data_ptr(), xh.data_ptr(),
+                      xl.data_ptr(), bh.data_ptr(), bl.data_ptr(),
+                      rh.data_ptr(), rl.data_ptr(), n, *stencil, *args)
     return rh, rl
 
 

@@ -16,14 +16,14 @@ solve).  One process per rank holds its own blocks:
 * the Krylov loop's only global reductions are its dot products, each one
   sum over the ring.
 
-A banded apply on CUDA tensors launches its kernel or raises, and counts in
-``cuda_calls`` ("dist_banded_spmv": K4's halo form, "dist_rect_banded_spmv":
-K6's map_cols form); on CPU tensors it runs the kernel's plain version.  A
-level takes the ELL route only where ``_shardable_band`` or
-``_shardable_rect`` refuse its layout, as in the reference, and one more
-case: a ``reordered`` banded layout (a coarse level that RCM re-banded)
-lives in another ordering than the level's vectors, which the reference's
-sharded apply does not undo; here such a level stays on the ELL route.
+A banded apply of a block on the card launches its kernel (K4's halo
+form, K6's map_cols form) or raises; of a block elsewhere it runs the
+kernel's plain version.  A level takes the ELL route only where
+``_shardable_band`` or ``_shardable_rect`` refuse its layout, as in the
+reference, and one more case: a ``reordered`` banded layout (a coarse
+level that RCM re-banded) lives in another ordering than the level's
+vectors, which the reference's sharded apply does not undo; here such a
+level stays on the ELL route.
 
 ``distribute_hierarchy`` takes the whole hierarchy on every rank and keeps
 the rank's blocks on the hierarchy's device; a level's multicolor colours
@@ -38,7 +38,6 @@ shard).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
@@ -63,17 +62,12 @@ __all__ = [
     "DistHierarchy",
     "CommCtx",
     "comm_report",
-    "cuda_calls",
     "dist_banded_spmv",
     "dist_rect_banded_spmv",
     "distribute_hierarchy",
     "dist_solve",
     "make_solve_mesh",
 ]
-
-# sharded banded applies on CUDA tensors, by function
-cuda_calls: collections.Counter = collections.Counter()
-
 
 @dataclasses.dataclass(frozen=True)
 class DistLevel:
@@ -260,9 +254,8 @@ def dist_banded_spmv(B, x_own: torch.Tensor, ring: Ring) -> torch.Tensor:
     left = ring.shift_right(x_own[-halo:])
     right = ring.shift_left(x_own[:halo])
     x_pad = torch.cat([left, x_own, right])
-    if x_own.is_cuda:
-        cuda_calls["dist_banded_spmv"] += 1
-    return bk.banded_spmv_halo(dict(B.plan(), n=B.vals.shape[0] * tile), x_pad)
+    apply = bk.banded_spmv_halo if B.vals.is_cuda else bk.banded_spmv_halo_ref
+    return apply(dict(B.plan(), n=B.vals.shape[0] * tile), x_pad)
 
 
 def _ring_halo(x_own: torch.Tensor, h: int, ring: Ring, left: bool) -> torch.Tensor:
@@ -301,11 +294,10 @@ def dist_rect_banded_spmv(B, x_own: torch.Tensor, ring: Ring) -> torch.Tensor:
     if rh:
         parts.append(_ring_halo(x_own, rh, ring, left=False))
     x_buf = torch.cat(parts) if len(parts) > 1 else x_own
-    if x_own.is_cuda:
-        cuda_calls["dist_rect_banded_spmv"] += 1
     plan = dict(B.plan(), n=B.vals.shape[0] * tile, n_cols=x_buf.shape[0],
                 WpP=0)
-    return bk.banded_spmv_rect(plan, x_buf, map_cols=cols_loc)
+    apply = bk.banded_spmv_rect if B.vals.is_cuda else bk.banded_spmv_rect_ref
+    return apply(plan, x_buf, map_cols=cols_loc)
 
 
 # ---------------------------------------------------------------------------

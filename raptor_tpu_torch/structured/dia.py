@@ -7,17 +7,17 @@ with no indirect addressing.  Offsets are kept as vector grid offsets
 operators add offset vectors exactly, and boundary-truncated diagonals
 guarantee that out-of-grid reads meet zero coefficients.
 
-``dia_spmv`` routes a CUDA tensor to a hand-written kernel (K2 for a
-constant-coefficient operator, K1 otherwise; see ``ops/cuda/dia_kernel.py``)
-and a CPU tensor to the plain roll sum ``dia_spmv_ref``.
-``dia_df64_residual``, the compensated residual of the refined solve,
-routes the same way: K7 on CUDA (its const form for a constant-coefficient
-operator, its planes form otherwise), ``dia_df64_residual_ref`` on the CPU.
+``dia_spmv`` routes by where the operator's planes live: on the card to a
+hand-written kernel (K2 for a constant-coefficient operator, K1 otherwise;
+see ``ops/cuda/dia_kernel.py``), elsewhere to the plain roll sum
+``dia_spmv_ref``.  ``dia_df64_residual``, the compensated residual of the
+refined solve, routes the same way: K7 on the card (its const form for a
+constant-coefficient operator, its planes form otherwise),
+``dia_df64_residual_ref`` elsewhere.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -40,14 +40,9 @@ __all__ = ["DiaMatrix", "boundary_mask", "boundary_mask_traced",
            "dia_from_stencil", "dia_from_scipy", "dia_to_scipy", "dia_spmv",
            "dia_spmv_ref", "dia_df64_residual", "dia_df64_residual_ref",
            "dia_tri_spmv", "dia_mult", "dia_transpose",
-           "dia_add", "dia_filter_offsets", "dia_prune", "dia_rap",
-           "cuda_calls"]
+           "dia_add", "dia_filter_offsets", "dia_prune", "dia_rap"]
 
 Vec = Tuple[int, ...]
-
-# calls on CUDA tensors: "dia_spmv" (each launches K1 or K2) and
-# "dia_df64_residual" (each launches K7)
-cuda_calls: collections.Counter = collections.Counter()
 
 
 def _linear(off: Vec, dims: Vec) -> int:
@@ -214,12 +209,11 @@ def dia_spmv_ref(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
 def dia_spmv(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for x of shape (n,) or (B, n).
 
-    CPU tensors take the plain roll sum.  CUDA tensors launch K2 when the
-    operator is constant-coefficient and K1 otherwise; anything the kernels
-    do not take (an fp64 x, say) raises."""
-    if x.device.type == "cpu":
+    An operator on the card launches K2 when it is constant-coefficient and
+    K1 otherwise; anything the kernels do not take (an fp64 or a CPU x,
+    say) raises.  An operator elsewhere takes the plain roll sum."""
+    if not A.data.is_cuda:
         return dia_spmv_ref(A, x)
-    cuda_calls["dia_spmv"] += 1
     if A.const_planes is not None:
         return dia_spmv_const(A.const_planes, A.offsets, A.dims, x)
     return dia_spmv_v2(A.data, A.linear_offsets(), x)
@@ -236,15 +230,14 @@ def dia_df64_residual(A: DiaMatrix, xh, xl, bh, bl):
     """The compensated residual ``(rh, rl) = df64[(bh, bl) - A @ (xh, xl)]``
     for vectors of shape (n,).
 
-    CPU tensors take the plain version.  CUDA tensors launch K7, in its
-    const form (planes synthesized from ``const_planes``, which match the
-    stored planes) when the operator is constant-coefficient and in its
-    planes form otherwise; bit-equal to the plain version but for the sign
-    of a zero.  Anything K7 does not take (fp64 vectors, bf16 planes, a
-    batch) raises, as ``dia_spmv`` does."""
-    if xh.device.type == "cpu":
+    An operator on the card launches K7, in its const form (planes
+    synthesized from ``const_planes``, which match the stored planes) when
+    it is constant-coefficient and in its planes form otherwise; bit-equal
+    to the plain version but for the sign of a zero.  Anything K7 does not
+    take (fp64 or CPU vectors, bf16 planes, a batch) raises, as
+    ``dia_spmv`` does.  An operator elsewhere takes the plain version."""
+    if not A.data.is_cuda:
         return dia_df64_residual_ref(A, xh, xl, bh, bl)
-    cuda_calls["dia_df64_residual"] += 1
     if A.const_planes is not None:
         return dia_df64_residual_const(A.const_planes, A.offsets, A.dims, xh,
                                        xl, bh, bl)

@@ -16,9 +16,9 @@ only its own block.  So:
   below ``tail_size`` rows the coarse levels are gathered onto every rank
   (agglomerated) and run replicated.
 
-Every halo SpMV (``_halo_spmv``) on CUDA tensors launches K3
-(``ops/cuda/dia_kernel.py::dia_spmv_halo``) and is counted in
-``cuda_calls["halo_spmv"]``; on CPU tensors it runs K3's plain version.
+Every halo SpMV (``_halo_spmv``) of a block on the card launches K3
+(``ops/cuda/dia_kernel.py::dia_spmv_halo``); of a block elsewhere it runs
+K3's plain version.
 ``distribute_structured`` builds the hierarchy whole on every rank and
 keeps the rank's block; ``structured/dist_setup.py::sdist_build_hierarchy``
 builds it block by block with halo exchanges only.
@@ -26,7 +26,6 @@ builds it block by block with halo exchanges only.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -36,7 +35,8 @@ import torch
 
 from raptor_tpu_torch.config import AmgConfig
 from raptor_tpu_torch.gallery import default_rhs
-from raptor_tpu_torch.ops.cuda.dia_kernel import dia_spmv_halo, halo_reach
+from raptor_tpu_torch.ops.cuda.dia_kernel import (dia_spmv_halo,
+                                                  dia_spmv_halo_ref, halo_reach)
 from raptor_tpu_torch.parallel.comm import Ring
 from raptor_tpu_torch.solve.krylov import krylov_dispatch, vdot
 from raptor_tpu_torch.structured.dia import DiaMatrix, dia_from_stencil, dia_spmv
@@ -53,12 +53,9 @@ from raptor_tpu_torch.structured.solver import (
 __all__ = ["SDistLevel", "SDistHierarchy", "plan_coarsening_dist",
            "distribute_structured", "sdist_cycle", "sdist_solve", "gather",
            "CONFIG5", "CONFIG5_TOL", "CONFIG5_MAXITER", "config5_problem",
-           "sdist_config5", "cuda_calls"]
+           "sdist_config5"]
 
 Vec = Tuple[int, ...]
-
-# _halo_spmv calls on CUDA tensors (key "halo_spmv"); each one launches K3
-cuda_calls: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,9 +184,8 @@ def _halo_spmv(A: DiaMatrix, ring: Ring, x_own: torch.Tensor) -> torch.Tensor:
     # right halo
     recv_l = ring.shift_right(x_own[nl - LP:]) if LP else empty
     recv_r = ring.shift_left(x_own[:RP]) if RP else empty
-    if x_own.is_cuda:
-        cuda_calls["halo_spmv"] += 1
-    return dia_spmv_halo(A.data, lins, x_own, recv_l, recv_r)
+    apply = dia_spmv_halo if A.data.is_cuda else dia_spmv_halo_ref
+    return apply(A.data, lins, x_own, recv_l, recv_r)
 
 
 def _sdist_smooth(lev: SDistLevel, ring: Ring, cfg: AmgConfig, b, x,

@@ -172,7 +172,6 @@ def _case_solve(ring: Ring, case: dict):
     h = _hierarchy(case)
     dh = distribute_hierarchy(h, ring, case["tail_size"])
     b = torch.from_numpy(case["b"])
-    pdist.cuda_calls.clear()
     x, info = dist_solve(dh, b, ring, tol=1e-8, maxiter=case["maxiter"],
                          krylov=case.get("krylov", "cg"))
     out = {"x": _np(ring.all_gather(x)), "iterations": int(info.iterations),

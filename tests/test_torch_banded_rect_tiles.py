@@ -22,6 +22,7 @@ import torch
 
 import raptor_tpu.ops.pallas.banded_kernel as jbk
 from raptor_tpu_torch.ops.cuda import banded_kernel as bk
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import (banded_tensors, clamped_rect_plan, rcm_ell,
                               rel_err, shuffled_poisson, slots_twice,
                               with_dead_slots)
@@ -387,10 +388,15 @@ def test_k5_emulation_matches_jax():
 
 
 def test_k5_k6_wrappers_count_only_on_the_card(h16, h16_pi):
-    before = (dict(bk.launches), dict(bk.launches_by_shape))
+    """K5's and K6's wrappers, in both K6 forms, refuse CPU tensors and
+    count nothing."""
+    before = (dict(launch.launches), dict(launch.launches_by_shape))
     plan = _band_plan(h16, (0, "Rband"))
-    bk.banded_spmv_rect(plan, _vec(plan["n_cols"], 13))
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_spmv_rect(plan, _vec(plan["n_cols"], 13))
     mine, length, cols = _rank_block(plan, 0, 2)
-    bk.banded_spmv_rect(mine, _vec(length, 14), map_cols=cols)
-    bk.banded_df64_residual(*_k5_args(h16_pi, 15))
-    assert (dict(bk.launches), dict(bk.launches_by_shape)) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_spmv_rect(mine, _vec(length, 14), map_cols=cols)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_df64_residual(*_k5_args(h16_pi, 15))
+    assert (dict(launch.launches), dict(launch.launches_by_shape)) == before

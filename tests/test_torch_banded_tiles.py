@@ -27,6 +27,7 @@ import raptor_tpu_torch.ops.banded_plan as tplan
 from raptor_tpu.ops.pallas.dia_kernel import dia_spmv_pallas_const
 from raptor_tpu_torch.ops.cuda import banded_kernel as bk
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import (banded_tensors, rcm_ell, rel_err, slots_twice,
                               star, wide_band, with_dead_slots)
 
@@ -203,10 +204,12 @@ def test_k4_emulation_matches_jax():
 
 
 def test_k4_wrapper_counts_only_on_the_card():
+    """K4's wrapper refuses CPU tensors and counts nothing."""
     plan = _grid_plan(10)
-    before = (dict(bk.launches), dict(bk.launches_by_shape))
-    bk.banded_spmv(plan, _vec(plan["n"], 9))
-    assert (dict(bk.launches), dict(bk.launches_by_shape)) == before
+    before = (dict(launch.launches), dict(launch.launches_by_shape))
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.banded_spmv(plan, _vec(plan["n"], 9))
+    assert (dict(launch.launches), dict(launch.launches_by_shape)) == before
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +321,9 @@ def test_k2_emulation_matches_jax():
 
 
 def test_k2_wrapper_counts_only_on_the_card():
+    """K2's wrapper refuses CPU tensors and counts nothing."""
     offsets, dims = star(2), (6, 8)
-    before = (dict(tk.launches), dict(tk.launches_by_shape))
-    tk.dia_spmv_const([1.0] * 5, offsets, dims, _vec(48, 4))
-    assert (dict(tk.launches), dict(tk.launches_by_shape)) == before
+    before = (dict(launch.launches), dict(launch.launches_by_shape))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_const([1.0] * 5, offsets, dims, _vec(48, 4))
+    assert (dict(launch.launches), dict(launch.launches_by_shape)) == before

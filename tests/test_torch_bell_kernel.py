@@ -19,6 +19,7 @@ import torch
 
 from raptor_tpu_torch.core import bell
 from raptor_tpu_torch.ops.cuda import bell_kernel as k8
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import cuda_device, random_bell
 
 pytestmark = pytest.mark.cuda
@@ -67,10 +68,10 @@ def test_k8_general_bit_equal(dev, nb, b, per_row, dtype, batch):
     A, x = _case(dev, nb, b, per_row, dtype, batch)
     assert A.nb_pad > nb and int(A.row_nnz.min()) < A.K
     key = ("K8", A.nb_pad, A.K, b, str(A.dtype).removeprefix("torch."))
-    before = k8.launches["K8"], k8.launches_by_shape[key]
+    before = launch.launches["K8"], launch.launches_by_shape[key]
     y = k8.bell_spmv(A.data, A.cols, A.row_nnz, x)
     torch.cuda.synchronize()
-    assert (k8.launches["K8"], k8.launches_by_shape[key]) == (
+    assert (launch.launches["K8"], launch.launches_by_shape[key]) == (
         before[0] + 1, before[1] + 1)
     assert y.dtype == x.dtype and y.shape == x.shape
     assert torch.equal(y, k8.bell_spmv_ref(A.data, A.cols, A.row_nnz, x))
@@ -129,10 +130,10 @@ def test_k8_refuses(dev, case):
         "blocks_strided": lambda: k8.bell_spmv(
             data.transpose(2, 3).contiguous().transpose(2, 3), cols, nnz, x),
     }[case]
-    before = k8.launches["K8"]
+    before = launch.launches["K8"]
     with pytest.raises(ValueError):
         call()
-    assert k8.launches["K8"] == before
+    assert launch.launches["K8"] == before
 
 
 def test_k8_on_a_card_not_current(dev):
@@ -152,11 +153,11 @@ def test_block_applies_launch_k8(dev):
     counted beside ``bell.launches``; a strided x is made contiguous."""
     A, x = _case(dev, 3001, 3, 27, "fp32", batch=2)
     binv = _binv(A)
-    k0, s0, p0 = (k8.launches["K8"], bell.launches["bell_spmv"],
+    k0, s0, p0 = (launch.launches["K8"], bell.launches["bell_spmv"],
                   bell.launches["bell_prec"])
     y = bell.bell_spmv(A, x.T.contiguous().T)
     z = bell._block_prec(binv, A, x)
-    assert k8.launches["K8"] == k0 + 2
+    assert launch.launches["K8"] == k0 + 2
     assert (bell.launches["bell_spmv"], bell.launches["bell_prec"]) == (
         s0 + 1, p0 + 1)
     assert torch.equal(y, k8.bell_spmv_ref(A.data, A.cols, A.row_nnz, x))
@@ -216,16 +217,16 @@ def test_config4_kernel_and_einsum_routes_agree(dev, config4, monkeypatch):
     the K8 solve launched K8 once."""
     A, h, bd = config4
     assert h.levels[0].Abell.bs == 3 and h.levels[1].Abell.bs == 6
-    before = (k8.launches["K8"],
+    before = (launch.launches["K8"],
               bell.launches["bell_spmv"] + bell.launches["bell_prec"])
     its, rel, true = _solve(A, h, bd)
     applies = (bell.launches["bell_spmv"] + bell.launches["bell_prec"]
                - before[1])
-    assert applies > 0 and k8.launches["K8"] - before[0] == applies
+    assert applies > 0 and launch.launches["K8"] - before[0] == applies
     _einsum_route(monkeypatch)
     A2, h2, bd2 = _config4(dev)
     its2, rel2, true2 = _solve(A2, h2, bd2)
-    assert k8.launches["K8"] - before[0] == applies  # none on this route
+    assert launch.launches["K8"] - before[0] == applies  # none on this route
     assert max(rel, rel2, true, true2) <= 1e-8, (rel, rel2, true, true2)
     assert its == its2, (its, its2)
 
@@ -247,10 +248,10 @@ def test_bell0_reads_k8_under_the_spmv_span(dev, config4):
     out = Engine._bell0(shim, counts_block.BlockLevel(n=lv.n, nnz_a=nnz_a),
                         4)
     assert out["calls"] > 0 and out["self_s"] > 0, out
-    before = (k8.launches["K8"],
+    before = (launch.launches["K8"],
               bell.launches["bell_spmv"] + bell.launches["bell_prec"])
     cycle(h, bd)
     torch.cuda.synchronize()
     applies = (bell.launches["bell_spmv"] + bell.launches["bell_prec"]
                - before[1])
-    assert applies > 0 and k8.launches["K8"] - before[0] == applies
+    assert applies > 0 and launch.launches["K8"] - before[0] == applies

@@ -16,6 +16,7 @@ import torch
 
 from raptor_tpu_torch.core import bell
 from raptor_tpu_torch.ops.cuda import bell_kernel as k8
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import random_bell
 
 # (block rows, b, most blocks a row): level 0's 3x3 blocks, the coarse
@@ -137,13 +138,13 @@ def test_cpu_route_takes_the_einsums():
     K8 is never launched and the results are the einsums', bit for bit."""
     A, _, x = _case(45, 3, 27, torch.float32)
     binv = bell.block_diag_inv(A)
-    before = k8.launches["K8"]
+    before = launch.launches["K8"]
     y = bell.bell_spmv(A, x)
     z = bell._block_prec(binv, A, x)
     bell.block_chebyshev4(A, binv, x, torch.zeros_like(x), 1.7, degree=3)
     bell.block_jacobi(A, binv, x, torch.zeros_like(x), sweeps=2)
     bell.estimate_lmax_bell(A, binv, iters=3)
-    assert k8.launches["K8"] == before
+    assert launch.launches["K8"] == before
     assert torch.equal(y, bell._spmv_einsum(A.data, A.cols, x))
     assert torch.equal(z, bell._prec_einsum(binv, x))
 
@@ -166,4 +167,4 @@ def test_wrappers_refuse(case):
     }[case]
     with pytest.raises(ValueError):
         call()
-    assert k8.launches["K8"] == 0
+    assert launch.launches["K8"] == 0

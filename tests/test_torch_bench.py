@@ -120,7 +120,7 @@ def test_devsetup_routes_take_the_reference_iterations(bench):
 
 def _jax_config(name: str, size: int, device_sa: bool) -> tuple:
     """bench.py:394-466 for one config: (iterations, sizes)."""
-    A, B = bt._config_problem(name, size)
+    A, B = bt.config_problem(name, size)
     cfg = {"config4": dataclasses.replace(JPRESETS["config4"],
                                           host_setup_threshold=400000),
            "nonsym_gmres": JCfg(splitting="pmis", smoother="jacobi")}.get(

@@ -27,6 +27,7 @@ from raptor_tpu.ops.pallas.dia_kernel import (
     dia_spmv_pallas_v2_halo,
 )
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import (
     np32,
     rel_err,
@@ -141,14 +142,17 @@ def test_k1_plain_matches_jax(n_off, dtype):
 
 
 def test_k1_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors the caller takes the plain version: K1's wrapper
+    refuses them and counts nothing.  Each batch row of the plain version
+    is the unbatched product."""
     dims = (4, 8, 8)
     data, lins = _planes(dims, OFFSETS[15])
     x = torch.from_numpy(_x(data.shape[1], batch=3))
-    before = dict(tk.launches)
-    y = tk.dia_spmv_v2(torch.from_numpy(data), lins, x)
-    assert torch.equal(y, tk.dia_spmv_v2_ref(torch.from_numpy(data), lins, x))
-    assert dict(tk.launches) == before  # plain versions are not launches
-    # each batch row is the unbatched product
+    before = dict(launch.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_v2(torch.from_numpy(data), lins, x)
+    assert dict(launch.launches) == before
+    y = tk.dia_spmv_v2_ref(torch.from_numpy(data), lins, x)
     for r in range(3):
         assert torch.equal(y[r], tk.dia_spmv_v2_ref(torch.from_numpy(data),
                                                     lins, x[r]))
@@ -177,7 +181,7 @@ def test_k2_plain_matches_jax(stencil, dims):
 def test_k2_wrapper_batched_on_cpu():
     A = tdia.dia_from_stencil(stencil_7pt(), (6, 5, 4), device="cpu")
     x = torch.from_numpy(_x(A.n, batch=2))
-    y = tk.dia_spmv_const(A.const_planes, A.offsets, A.dims, x)
+    y = tk.dia_spmv_const_ref(A.const_planes, A.offsets, A.dims, x)
     for r in range(2):
         # synthesized planes equal the stored ones
         assert torch.equal(y[r], tk.dia_spmv_v2_ref(A.data, A.linear_offsets(),
@@ -185,19 +189,22 @@ def test_k2_wrapper_batched_on_cpu():
 
 
 def test_dia_spmv_router_on_cpu():
+    """The format's module routes CPU tensors to the plain versions, which
+    launch nothing."""
     A = tdia.dia_from_stencil(stencil_7pt(), (6, 5, 4), device="cpu")
     B = tdia.DiaMatrix(A.data, A.offsets, A.dims)  # same planes, no consts
     x = torch.from_numpy(_x(A.n))
-    calls = dict(tdia.cuda_calls)
+    before = dict(launch.launches)
     assert torch.equal(tdia.dia_spmv(A, x), tdia.dia_spmv_ref(A, x))
     assert torch.equal(tdia.dia_spmv(B, x), tdia.dia_spmv_ref(B, x))
-    assert dict(tdia.cuda_calls) == calls  # only CUDA calls are counted
+    assert dict(launch.launches) == before
 
 
-def test_kernels_refuse_non_cpu_non_cuda_tensors():
-    """A tensor that is not on the CPU never takes the plain version."""
-    data = torch.zeros(3, 64, device="meta")
-    x = torch.zeros(64, device="meta")
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_kernels_refuse_non_cpu_non_cuda_tensors(device):
+    """A wrapper takes CUDA tensors alone, and never the plain version."""
+    data = torch.zeros(3, 64, device=device)
+    x = torch.zeros(64, device=device)
     with pytest.raises(ValueError, match="CUDA"):
         tk.dia_spmv_v2(data, (-1, 0, 1), x)
     with pytest.raises(ValueError, match="CUDA"):
@@ -245,10 +252,6 @@ def test_k1v1_plain_zero_fills_unzeroed_planes(n_off):
     assert rel_err(y.numpy(), y_pallas) <= TOL
     y_roll = tk.dia_spmv_v2_ref(torch.from_numpy(data), lins, torch.from_numpy(x))
     assert rel_err(y_roll.numpy(), y_pallas) > 1e-3  # the roll differs here
-    before = dict(tk.launches)
-    assert torch.equal(tk.dia_spmv_v1(torch.from_numpy(data), lins,
-                                      torch.from_numpy(x)), y)
-    assert dict(tk.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -288,15 +291,11 @@ def test_k3_wrapper_takes_plain_version_on_cpu():
     data, lins = _planes((4, 8, 8), OFFSETS[27])
     x = torch.from_numpy(_x(data.shape[1]))
     hl, hr = x[:100].flip(0), x[:30] * 2.0
-    before = dict(tk.launches)
-    y = tk.dia_spmv_halo(torch.from_numpy(data), lins, x, hl, hr)
-    assert dict(tk.launches) == before
-    assert torch.equal(y, tk.dia_spmv_halo_ref(torch.from_numpy(data), lins,
-                                               x, hl, hr))
+    y = tk.dia_spmv_halo_ref(torch.from_numpy(data), lins, x, hl, hr)
     # only the offsets' reach (73 each way here) is read
     assert tk.halo_reach(lins) == (73, 73)
-    assert torch.equal(y, tk.dia_spmv_halo(torch.from_numpy(data), lins, x,
-                                           hl[-73:], hr))
+    assert torch.equal(y, tk.dia_spmv_halo_ref(torch.from_numpy(data), lins,
+                                               x, hl[-73:], hr))
 
 
 def test_dia_matrix_validates_metadata():

@@ -23,6 +23,7 @@ import raptor_tpu_torch.structured.dia as tdia
 from raptor_tpu.ops.pallas.dia_kernel import (dia_spmv_pallas_v2,
                                               dia_spmv_pallas_v2_halo)
 from raptor_tpu_torch.ops.cuda import dia_kernel as tk
+from raptor_tpu_torch.ops.cuda import launch
 from tests._torch_ref import rel_err
 
 CUBE = list(itertools.product((-1, 0, 1), repeat=3))
@@ -214,10 +215,12 @@ def test_emulation_matches_jax(kernel):
 
 
 def test_wrappers_count_launches_by_shape_only_on_the_card():
-    """CPU tensors take the plain versions and count nothing."""
+    """The wrappers refuse CPU tensors and count nothing."""
     data, lins = _planes((4, 8, 8), OFFSETS[7], torch.float32)
     x = _vec(data.shape[1], 2)
-    before = (dict(tk.launches), dict(tk.launches_by_shape))
-    tk.dia_spmv_v2(data, lins, x)
-    tk.dia_spmv_halo(data, lins, x, x[:64], x[:64])
-    assert (dict(tk.launches), dict(tk.launches_by_shape)) == before
+    before = (dict(launch.launches), dict(launch.launches_by_shape))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_v2(data, lins, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dia_spmv_halo(data, lins, x, x[:64], x[:64])
+    assert (dict(launch.launches), dict(launch.launches_by_shape)) == before
